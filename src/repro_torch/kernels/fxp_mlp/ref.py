@@ -1,0 +1,113 @@
+"""Plain PyTorch versions of the fused MLP forward (port of
+`repro.kernels.fxp_mlp.ref`, plus the fused kernel's own plain twin).
+
+Two functions, because the reference has two site projections that look
+alike but are not the same arithmetic:
+
+* `ref_mlp_forward` — the plain version of kernel B (`csrc/fxp_mlp_fwd.cu`,
+  `_mlp_kernel` in the reference): per layer the range monitor, then the
+  fused site projection `_site_project` on the affine operands delta/z,
+  quant phase `(clip(round(x/δ)+z, 0, 2ⁿ−1) − z)·δ`, monitor phase the
+  Q15.16 lattice; then the hi-limb dot, the lo-limb dot in the monitor
+  phase, bias and activation.  `ops.fxp_mlp_forward` runs it for CPU
+  tensors; `chip_smoke.py` holds the kernel against it on the card.
+* `ref_fxp_mlp` — the reference's per-layer oracle: the QAT site as
+  `fake_quant_affine` on the captured ranges a_min/a_max (or `fake_quant`
+  onto Q15.16), followed by `ref_fxp_dense`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.core import fixedpoint as fxp
+from repro_torch.kernels.fxp_matmul.ref import _ACTIVATIONS, limb_split, ref_fxp_dense
+
+Tensor = torch.Tensor
+
+
+def site_project(
+    x: Tensor, quant: bool, delta: Tensor, z: Tensor, *, n_bits: int, fxp32_phase1: bool
+) -> Tensor:
+    """The fused kernel's phase-selected site projection (`_site_project`)."""
+    if quant:
+        q = torch.clamp(torch.round(x / delta) + z, 0.0, float((1 << n_bits) - 1))
+        return (q - z) * delta
+    if fxp32_phase1:
+        s32 = float(2.0**fxp.FXP32.frac_bits)
+        return torch.round(torch.clamp(x * s32, float(fxp.FXP32.raw_min), float(fxp.FXP32.raw_max))) / s32
+    return x
+
+
+def ref_mlp_forward(
+    x: Tensor,
+    weights: Sequence[Tensor],
+    biases: Sequence[Tensor],
+    deltas: Tensor,
+    zs: Tensor,
+    *,
+    activations: Sequence[str],
+    quant: bool,
+    n_bits: int = 16,
+    qat: bool = True,
+    fxp32_phase1: bool = True,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Plain version of kernel B on unpadded x (M, K0): returns
+    (y (M, N_L), site_mins (L,), site_maxs (L,))."""
+    mins, maxs = [], []
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        mins.append(x.min())
+        maxs.append(x.max())
+        if qat:
+            x = site_project(x, quant, deltas[i], zs[i], n_bits=n_bits, fxp32_phase1=fxp32_phase1)
+        hi, lo = limb_split(x, with_lo=not quant)
+        acc = hi @ w
+        if not quant:
+            acc = acc + lo @ w
+        x = _ACTIVATIONS[activations[i]](acc + b)
+    return x, torch.stack(mins), torch.stack(maxs)
+
+
+def ref_fxp_mlp(
+    x: Tensor,
+    weights: Sequence[Tensor],
+    biases: Sequence[Tensor],
+    *,
+    activations: Sequence[str],
+    quant_phase,
+    a_mins: Optional[Tensor] = None,
+    a_maxs: Optional[Tensor] = None,
+    n_bits: int = 16,
+    qat: bool = True,
+    fxp32_phase1: bool = True,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """The reference oracle: returns (y, site_mins, site_maxs) like
+    `fxp_mlp_forward`.  a_mins/a_maxs: (L,) finalized captured ranges per
+    site (only read in the quantized phase)."""
+    quant = bool(quant_phase)
+    x = torch.as_tensor(x, dtype=torch.float32)
+    orig_shape = x.shape
+    x = x.reshape(-1, orig_shape[-1])
+    mins, maxs = [], []
+    for i in range(len(weights)):
+        mins.append(x.min())
+        maxs.append(x.max())
+        if qat:
+            if quant:
+                x = fxp.fake_quant_affine(x, a_mins[i], a_maxs[i], n_bits)
+            elif fxp32_phase1:
+                x = fxp.fake_quant(x, fxp.FXP32)
+        x = ref_fxp_dense(x, weights[i], biases[i], full_precision=not quant, activation=activations[i])
+    y = x.reshape(*orig_shape[:-1], weights[-1].shape[-1])
+    return y, torch.stack(mins), torch.stack(maxs)
+
+
+def ref_mlp_flops(m: int, dims: Sequence[int], full_precision: bool) -> int:
+    """MAC-pass FLOP model over the whole network."""
+    passes = 2 if full_precision else 1
+    return sum(2 * m * dims[i] * dims[i + 1] * passes for i in range(len(dims) - 1))
+
+
+__all__ = ["site_project", "ref_mlp_forward", "ref_fxp_mlp", "ref_mlp_flops"]
