@@ -11,6 +11,14 @@ act requests through two hand-written Hopper kernels, the fused MLP
 forward (`kernels/fxp_mlp`, `csrc/fxp_mlp_fwd.cu`) and the dual-precision
 dense layer (`kernels/fxp_matmul`, `csrc/fxp_dense.cu`).
 
+Slice 2 is DDPG training: `rl.loop.train_host` acts, steps the env fleet
+(`rl/envs`), stores and samples replay (`rl/replay`) and runs
+`rl.ddpg.update` with QAT (`core.qat.QATContext`) and fixed-point Adam
+(`optim`); with backend "pallas" every forward is the fused kernel (saving
+its residuals under autograd) and every backward the fused backward
+(`csrc/fxp_mlp_bwd.cu`).  `PolicyEngine.from_ddpg` serves the trained
+actor.
+
 Device rule: entry points run on `cuda` unless the caller passes
 `device="cpu"`; with no CUDA device and no explicit device they raise
 (`repro_torch.device.resolve_device`).  Kernel wrappers follow the device

@@ -1,4 +1,4 @@
-"""Fixed-point (Qm.f) arithmetic in PyTorch — the serving subset of
+"""Fixed-point (Qm.f) arithmetic in PyTorch — the fake-quant subset of
 `repro.core.fixedpoint`.
 
 FIXAR keeps weights and pre-delay activations on the Q15.16 lattice
@@ -10,8 +10,10 @@ projection without it.
 
 Every function here is elementwise float32 and is bit-identical to its JAX
 counterpart: `torch.round` and `jnp.round` both round half to even, and the
-clip bounds are the same float32 constants.  The int64 `fxp_matmul_raw` and
-the raw `quantize`/`dequantize` helpers belong to the training slice.
+clip bounds are the same float32 constants.  The raw fixed-point API
+(`quantize`, `dequantize`, `fxp_add`, `fxp_mul`, the int64
+`fxp_matmul_raw`) is not ported: no path of the port calls it
+(`ROADMAP.md`).
 """
 
 from __future__ import annotations
@@ -96,8 +98,10 @@ def _clip_scaled(x: Tensor, fmt: QFormat) -> Tensor:
     """x·2^frac clipped to the raw range, as float32.  minimum/maximum (not
     clamp) so a value exactly on a bound gets half the gradient, as
     `jnp.clip` gives it."""
-    lo = torch.tensor(float(fmt.raw_min), dtype=torch.float32, device=x.device)
-    hi = torch.tensor(float(fmt.raw_max), dtype=torch.float32, device=x.device)
+    # `full`, not `tensor`: a host-to-device copy of a constant would wait
+    # for the device's queue on every call
+    lo = torch.full((), float(fmt.raw_min), dtype=torch.float32, device=x.device)
+    hi = torch.full((), float(fmt.raw_max), dtype=torch.float32, device=x.device)
     return torch.minimum(torch.maximum(x * float(2.0**fmt.frac_bits), lo), hi)
 
 

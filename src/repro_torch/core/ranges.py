@@ -1,9 +1,11 @@
 """Per-site activation range monitoring (Algorithm 1's A_min/A_max capture),
-port of `repro.core.ranges` — the min/max subset serving needs.
+port of `repro.core.ranges`.
 
 A `RangeStat` holds 0-d float32 tensors for the running extrema and a 0-d
 int32 update count.  The fused MLP kernel hands back exact per-site
-(min, max) scalars; `update_minmax_scalar` folds them in.
+(min, max) scalars; `update_minmax_scalar` (the paper's running min/max) or
+`update_ema_scalar` (the beyond-paper EMA option, `QATConfig.monitor="ema"`)
+folds them in.  `update_minmax`/`update_ema` reduce a tensor first.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ class RangeStat:
             count=torch.tensor(0, dtype=torch.int32, device=dev),
         )
 
+    def to(self, device) -> "RangeStat":
+        return RangeStat(self.a_min.to(device), self.a_max.to(device), self.count.to(device))
+
 
 def update_minmax_scalar(stat: RangeStat, mn: Tensor, mx: Tensor) -> RangeStat:
     """Fold pre-reduced extrema (e.g. from the fused MLP kernel's on-chip
@@ -45,6 +50,29 @@ def update_minmax_scalar(stat: RangeStat, mn: Tensor, mx: Tensor) -> RangeStat:
         a_max=torch.maximum(stat.a_max, mx),
         count=stat.count + 1,
     )
+
+
+def update_minmax(stat: RangeStat, x: Tensor) -> RangeStat:
+    """Paper-faithful running min/max."""
+    return update_minmax_scalar(stat, x.min(), x.max())
+
+
+def update_ema_scalar(stat: RangeStat, mn: Tensor, mx: Tensor, momentum: float = 0.99) -> RangeStat:
+    """EMA fold of pre-reduced extrema (see update_minmax_scalar); the first
+    update takes the extrema as they are.  The `(1 - momentum)` complement
+    is folded in Python double and cast, as the reference's weak-typed
+    constant is."""
+    mn = torch.as_tensor(mn, dtype=torch.float32, device=stat.a_min.device)
+    mx = torch.as_tensor(mx, dtype=torch.float32, device=stat.a_max.device)
+    first = stat.count == 0
+    new_min = torch.where(first, mn, momentum * stat.a_min + (1 - momentum) * mn)
+    new_max = torch.where(first, mx, momentum * stat.a_max + (1 - momentum) * mx)
+    return RangeStat(new_min, new_max, stat.count + 1)
+
+
+def update_ema(stat: RangeStat, x: Tensor, momentum: float = 0.99) -> RangeStat:
+    """EMA variant (beyond-paper option, robust to outlier spikes)."""
+    return update_ema_scalar(stat, x.min(), x.max(), momentum)
 
 
 def finalized(stat: RangeStat) -> tuple[Tensor, Tensor]:
@@ -62,4 +90,12 @@ def init_ranges(site_names: list[str], device: DeviceLike = None) -> dict[str, R
     return {name: RangeStat.init(dev) for name in site_names}
 
 
-__all__ = ["RangeStat", "update_minmax_scalar", "finalized", "init_ranges"]
+__all__ = [
+    "RangeStat",
+    "update_minmax",
+    "update_minmax_scalar",
+    "update_ema",
+    "update_ema_scalar",
+    "finalized",
+    "init_ranges",
+]

@@ -2,8 +2,8 @@
 // for sm_90a.
 //
 // Replaces the TPU kernel `fxp_mlp_pallas` → `_mlp_kernel` in
-// src/repro/kernels/fxp_mlp/kernel.py (forward, without the training
-// residuals).  Per layer l, on the layer's input x:
+// src/repro/kernels/fxp_mlp/kernel.py, with and without the training
+// residuals.  Per layer l, on the layer's input x:
 //   1. range monitor: min/max of x over the valid rows and the in_dims[l]
 //      real columns, one (min, max) per block and layer;
 //   2. site projection (when qat): quant phase (clip(rint(x/δ)+z, 0,
@@ -13,6 +13,13 @@
 //      branch, as `pl.when` is in the reference, so one compiled kernel
 //      serves both phases;
 //   4. y = act(acc + b) becomes the next layer's input.
+//   With save_residuals (training), the block also stores what the
+//   backward kernel (fxp_mlp_bwd.cu) reads: qs[l] (M, K_l), the input the
+//   products consumed (hi in the quant phase, the projected x before it),
+//   written in step 3 from the values it computes anyway, and hs[l]
+//   (M, N_l) for l < L−1, the layer output written in step 4.  The mode
+//   is a template instance (SAVE), so the serving instance has none of
+//   its code, and it only adds stores: y is bitwise the same in both.
 //
 // What bounds it on the H100: the paper's actor (17-400-300-6, 128,600
 // MACs a row) at B = 512 in full precision is 2 passes × 2·512·128,600 ≈
@@ -56,6 +63,11 @@ struct MlpArgs {
   int stride;  // row stride of the shared buffers: max over dims
 };
 
+struct ResArgs {           // the residual outputs, read by SAVE instances only
+  float* q[MAX_LAYERS];  // (M, dims[l])
+  float* h[MAX_LAYERS];  // (M, dims[l+1]) for l < n_layers-1
+};
+
 __device__ __forceinline__ float bf16_hi(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -80,9 +92,9 @@ __device__ __forceinline__ float site_project(float v, int quant, float delta, f
   return v;
 }
 
-template <int BM>
+template <int BM, bool SAVE>
 __global__ void __launch_bounds__(THREADS)
-fxp_mlp_fwd_kernel(const float* __restrict__ x, const MlpArgs args,
+fxp_mlp_fwd_kernel(const float* __restrict__ x, const MlpArgs args, const ResArgs res,
                    const float* __restrict__ deltas, const float* __restrict__ zs,
                    float* __restrict__ y, float* __restrict__ mins, float* __restrict__ maxs,
                    int M, int quant, int qat, int fxp32_phase1, float q_max) {
@@ -132,12 +144,14 @@ fxp_mlp_fwd_kernel(const float* __restrict__ x, const MlpArgs args,
     const float delta = qat ? deltas[l] : 1.0f;
     const float z = qat ? zs[l] : 0.0f;
     for (int e = tid; e < BM * K; e += THREADS) {
-      const int idx = (e / K) * S + e % K;
+      const int r = e / K, c = e % K;
+      const int idx = r * S + c;
       float v = act_s[idx];
       if (qat) v = site_project(v, quant, delta, z, q_max, fxp32_phase1);
       const float h = bf16_hi(v);
       hi_s[idx] = h;
       lo_s[idx] = v - h;
+      if (SAVE && r < rows) res.q[l][(size_t)(row0 + r) * K + c] = quant ? h : v;
     }
     __syncthreads();
     if (tid == 0) {
@@ -183,6 +197,7 @@ fxp_mlp_fwd_kernel(const float* __restrict__ x, const MlpArgs args,
         const float v = activate(acc + bias, act);
         if (!last) {
           act_s[r * S + n] = v;
+          if (SAVE && r < rows) res.h[l][(size_t)(row0 + r) * N + n] = v;
         } else if (r < rows) {
           y[(size_t)(row0 + r) * N + n] = v;
         }
@@ -192,20 +207,20 @@ fxp_mlp_fwd_kernel(const float* __restrict__ x, const MlpArgs args,
   }
 }
 
-template <int BM>
-int launch(const float* x, const MlpArgs& args, const float* deltas, const float* zs, float* y,
-           float* mins, float* maxs, int M, int quant, int qat, int fxp32_phase1, float q_max,
-           cudaStream_t stream) {
+template <int BM, bool SAVE>
+int launch(const float* x, const MlpArgs& args, const ResArgs& res, const float* deltas,
+           const float* zs, float* y, float* mins, float* maxs, int M, int quant, int qat,
+           int fxp32_phase1, float q_max, cudaStream_t stream) {
   const size_t smem = (size_t)3 * BM * args.stride * sizeof(float);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fxp_mlp_fwd_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fxp_mlp_fwd_kernel<BM, SAVE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int grid = (M + BM - 1) / BM;
-  fxp_mlp_fwd_kernel<BM><<<grid, THREADS, smem, stream>>>(x, args, deltas, zs, y, mins, maxs,
-                                                           M, quant, qat, fxp32_phase1, q_max);
+  fxp_mlp_fwd_kernel<BM, SAVE><<<grid, THREADS, smem, stream>>>(
+      x, args, res, deltas, zs, y, mins, maxs, M, quant, qat, fxp32_phase1, q_max);
   return (int)cudaGetLastError();
 }
 
@@ -213,7 +228,9 @@ int launch(const float* x, const MlpArgs& args, const float* deltas, const float
 
 // C interface, loaded with ctypes.  x (M, dims[0]); weights[l] (dims[l],
 // dims[l+1]); biases[l] (dims[l+1],); deltas/zs (n_layers,) or null when
-// qat == 0; y (M, dims[n_layers]); mins/maxs (ceil(M/bm), n_layers).  All
+// qat == 0; y (M, dims[n_layers]); mins/maxs (ceil(M/bm), n_layers); with
+// save_residuals, qs[l] (M, dims[l]) for every layer and hs[l]
+// (M, dims[l+1]) for l < n_layers-1 (both arrays null otherwise).  All
 // float32, contiguous, on the current device.  bm is 8 or 1.  Launches on
 // `stream` and returns cudaGetLastError() (or cudaErrorInvalidValue for
 // arguments the kernel does not take).
@@ -221,11 +238,15 @@ extern "C" int fxp_mlp_fwd_launch(const float* x, const void* const* weights,
                                   const void* const* biases, const int* dims, const int* acts,
                                   int n_layers, const float* deltas, const float* zs, float* y,
                                   float* mins, float* maxs, int M, int bm, int quant, int qat,
-                                  int fxp32_phase1, int n_bits, void* stream) {
+                                  int fxp32_phase1, int n_bits, int save_residuals,
+                                  void* const* qs, void* const* hs, void* stream) {
   if (n_layers < 1 || n_layers > MAX_LAYERS || M <= 0 || n_bits < 1 || n_bits > 24)
     return (int)cudaErrorInvalidValue;
   if (qat && (deltas == nullptr || zs == nullptr)) return (int)cudaErrorInvalidValue;
+  if (save_residuals && (qs == nullptr || (n_layers > 1 && hs == nullptr)))
+    return (int)cudaErrorInvalidValue;
   MlpArgs args = {};
+  ResArgs res = {};
   args.n_layers = n_layers;
   args.stride = 0;
   for (int l = 0; l <= n_layers; ++l) {
@@ -238,11 +259,20 @@ extern "C" int fxp_mlp_fwd_launch(const float* x, const void* const* weights,
     args.w[l] = static_cast<const float*>(weights[l]);
     args.b[l] = static_cast<const float*>(biases[l]);
     args.acts[l] = acts[l];
+    if (save_residuals) {
+      res.q[l] = static_cast<float*>(qs[l]);
+      res.h[l] = l < n_layers - 1 ? static_cast<float*>(hs[l]) : nullptr;
+      if (res.q[l] == nullptr || (l < n_layers - 1 && res.h[l] == nullptr))
+        return (int)cudaErrorInvalidValue;
+    }
   }
   const float q_max = (float)((1 << n_bits) - 1);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (bm == 8) return launch<8>(x, args, deltas, zs, y, mins, maxs, M, quant, qat, fxp32_phase1, q_max, s);
-  if (bm == 1) return launch<1>(x, args, deltas, zs, y, mins, maxs, M, quant, qat, fxp32_phase1, q_max, s);
+#define FXP_MLP_FWD_LAUNCH(BM, SAVE) \
+  launch<BM, SAVE>(x, args, res, deltas, zs, y, mins, maxs, M, quant, qat, fxp32_phase1, q_max, s)
+  if (bm == 8) return save_residuals ? FXP_MLP_FWD_LAUNCH(8, true) : FXP_MLP_FWD_LAUNCH(8, false);
+  if (bm == 1) return save_residuals ? FXP_MLP_FWD_LAUNCH(1, true) : FXP_MLP_FWD_LAUNCH(1, false);
+#undef FXP_MLP_FWD_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,7 +2,9 @@
 
 fxp_matmul — dual-precision dense layer (kernel A, `csrc/fxp_dense.cu`)
 fxp_mlp    — whole-network fused MLP forward with QAT sites fused between
-             layers (kernel B, `csrc/fxp_mlp_fwd.cu`)
+             layers (kernel B, `csrc/fxp_mlp_fwd.cu`), with the training
+             residuals on request, and its backward (kernel 3,
+             `csrc/fxp_mlp_bwd.cu`)
 
 Each kernel ships kernel.py (the ctypes wrapper that launches the CUDA
 kernel and counts its launches), ops.py (the public function: CPU tensors

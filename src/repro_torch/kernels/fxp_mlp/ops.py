@@ -1,4 +1,4 @@
-"""Public wrappers for the fused MLP forward (port of the forward half of
+"""Public wrappers for the fused MLP kernels (port of
 `repro.kernels.fxp_mlp.ops`).
 
 `fxp_mlp_forward` runs the whole L-layer forward, QAT sites included, and
@@ -9,8 +9,15 @@ reduced here, as the reference wrapper reduces its (n_blocks, L) outputs.
 No padding: the kernel masks ragged rows and columns itself, so padded
 values never reach the range monitors.
 
-The training faces (`fxp_mlp_train`, `fxp_mlp_train_step`) belong to the
-training slice.
+`fxp_mlp_train` is the differentiable face of the same kernel, a
+`torch.autograd.Function`: when an input needs a gradient, its forward runs
+kernel B with the residuals saved (one launch) and its backward is kernel 3
+(`kernel.fxp_mlp_bwd_cuda`), the whole dx/dW/db chain with the QAT sites'
+straight-through masks; otherwise it is the plain fused forward.  For CPU
+tensors both halves are the plain versions (`ref.ref_mlp_forward`,
+`ref.ref_mlp_backward`), never autograd through the plain forward, whose
+`round`/`clamp` carry no straight-through gradient.  The whole-update step
+(`fxp_mlp_train_step`, kernels 4 and 5) is not ported yet (`ROADMAP.md`).
 """
 
 from __future__ import annotations
@@ -21,8 +28,8 @@ import torch
 
 from repro_torch.device import check_same_device
 from repro_torch.kernels._compat import mlp_flops
-from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_fwd_cuda
-from repro_torch.kernels.fxp_mlp.ref import ref_mlp_forward
+from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_bwd_cuda, fxp_mlp_fwd_cuda
+from repro_torch.kernels.fxp_mlp.ref import ref_mlp_backward, ref_mlp_forward
 
 Tensor = torch.Tensor
 
@@ -41,6 +48,29 @@ def _norm_quant_params(deltas, zs, n_layers: int, qat: bool, device):
         torch.as_tensor(deltas, dtype=torch.float32, device=device).reshape(n_layers),
         torch.as_tensor(zs, dtype=torch.float32, device=device).reshape(n_layers),
     )
+
+
+def _operands(x, weights, biases, deltas, zs, activations, qat: bool):
+    """Both faces' argument checks: x flattened to (M, K0), everything
+    float32 on one device, and contiguous on the card (what the kernels
+    take).  Returns (x2, ws, bs, deltas, zs)."""
+    n_layers = len(weights)
+    if not n_layers == len(biases) == len(activations):
+        raise ValueError(f"{n_layers} weights vs {len(biases)} biases vs {len(activations)} activations")
+    if weights[0].shape[0] != x.shape[-1]:
+        raise ValueError(f"layer-0 input dim {weights[0].shape[0]} != x feature dim {x.shape[-1]}")
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    ws = [w.to(torch.float32) for w in weights]
+    bs = [b.to(torch.float32) for b in biases]
+    dev = check_same_device(x2, *ws, *bs)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the fused MLP runs on 'cpu' or 'cuda' tensors, got {dev}")
+    deltas, zs = _norm_quant_params(deltas, zs, n_layers, qat, dev)
+    if dev.type == "cuda":
+        x2, ws, bs = x2.contiguous(), [w.contiguous() for w in ws], [b.contiguous() for b in bs]
+        deltas = None if deltas is None else deltas.contiguous()
+        zs = None if zs is None else zs.contiguous()
+    return x2, ws, bs, deltas, zs
 
 
 def fxp_mlp_forward(
@@ -67,34 +97,86 @@ def fxp_mlp_forward(
     Returns (y, site_mins, site_maxs): y is (..., N_L); site_mins/maxs are
     the (L,) exact extrema of each layer's pre-quantization input.
     """
-    n_layers = len(weights)
-    if not n_layers == len(biases) == len(activations):
-        raise ValueError(f"{n_layers} weights vs {len(biases)} biases vs {len(activations)} activations")
-    orig_shape = x.shape
-    if weights[0].shape[0] != orig_shape[-1]:
-        raise ValueError(f"layer-0 input dim {weights[0].shape[0]} != x feature dim {orig_shape[-1]}")
-    x2 = x.reshape(-1, orig_shape[-1]).to(torch.float32)
-    ws = [w.to(torch.float32) for w in weights]
-    bs = [b.to(torch.float32) for b in biases]
-    dev = check_same_device(x2, *ws, *bs)
-    deltas, zs = _norm_quant_params(deltas, zs, n_layers, qat, dev)
-    quant = bool(quant_phase)
-    if dev.type == "cpu":
-        y, mins, maxs = ref_mlp_forward(
-            x2, ws, bs, deltas, zs, activations=activations, quant=quant,
+    x2, ws, bs, deltas, zs = _operands(x, weights, biases, deltas, zs, activations, qat)
+    kw = dict(activations=activations, quant=bool(quant_phase), n_bits=n_bits, qat=qat, fxp32_phase1=fxp32_phase1)
+    if x2.device.type == "cpu":
+        y, mins, maxs = ref_mlp_forward(x2, ws, bs, deltas, zs, **kw)
+    else:
+        y, block_mins, block_maxs = fxp_mlp_fwd_cuda(x2, ws, bs, deltas, zs, **kw)
+        mins, maxs = block_mins.amin(dim=0), block_maxs.amax(dim=0)
+    return y.reshape(*x.shape[:-1], ws[-1].shape[-1]), mins, maxs
+
+
+class _MlpTrain(torch.autograd.Function):
+    """Kernel B with residuals forward, kernel 3 backward (plain versions
+    for CPU tensors).  Inputs: (spec, x (M, K0), deltas, zs, *weights,
+    *biases); spec = (activations, quant, n_bits, qat, fxp32_phase1)."""
+
+    @staticmethod
+    def forward(ctx, spec, x, deltas, zs, *wb):
+        activations, quant, n_bits, qat, fxp32_phase1 = spec
+        n = len(activations)
+        ws, bs = list(wb[:n]), list(wb[n:])
+        kw = dict(activations=activations, quant=quant, n_bits=n_bits, qat=qat, fxp32_phase1=fxp32_phase1)
+        if x.device.type == "cpu":
+            y, mins, maxs, qs, hs = ref_mlp_forward(x, ws, bs, deltas, zs, save_residuals=True, **kw)
+        else:
+            y, bmins, bmaxs, qs, hs = fxp_mlp_fwd_cuda(x, ws, bs, deltas, zs, save_residuals=True, **kw)
+            mins, maxs = bmins.amin(dim=0), bmaxs.amax(dim=0)
+        ctx.spec = spec
+        ctx.n_qs = len(qs)
+        ctx.save_for_backward(x, deltas, zs, *ws, *qs, *hs)
+        ctx.mark_non_differentiable(mins, maxs)
+        return y, mins, maxs
+
+    @staticmethod
+    def backward(ctx, gy, _gmins, _gmaxs):
+        activations, quant, n_bits, qat, fxp32_phase1 = ctx.spec
+        n = len(activations)
+        x, deltas, zs, *rest = ctx.saved_tensors
+        ws, qs, hs = rest[:n], rest[n : 2 * n], rest[2 * n :]
+        kw = dict(activations=activations, quant=quant, n_bits=n_bits, qat=qat, fxp32_phase1=fxp32_phase1)
+        gy = gy.to(torch.float32).contiguous()
+        if x.device.type == "cpu":
+            dx, dws, dbs = ref_mlp_backward(gy, x, ws, qs, hs, deltas, zs, **kw)
+        else:
+            dx, dws, dbs = fxp_mlp_bwd_cuda(gy, x, ws, qs, hs, deltas, zs, **kw)
+        return (None, dx, None, None, *dws, *dbs)
+
+
+def fxp_mlp_train(
+    x: Tensor,
+    weights: Sequence[Tensor],
+    biases: Sequence[Tensor],
+    deltas: Optional[Tensor] = None,
+    zs: Optional[Tensor] = None,
+    *,
+    activations: Sequence[str],
+    quant_phase,
+    n_bits: int = 16,
+    qat: bool = True,
+    fxp32_phase1: bool = True,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Differentiable fused forward: `fxp_mlp_forward` with kernel 3 as its
+    backward.  Same arguments and return value as `fxp_mlp_forward`.
+
+    Gradients flow to x, weights and biases.  `quant_phase` (read once on
+    the host), `deltas` and `zs` get none, and the returned site mins/maxs
+    are detached: they are range-monitor observations, not a
+    differentiable head."""
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *weights, *biases)
+    )
+    if not needs_grad:
+        y, mins, maxs = fxp_mlp_forward(
+            x, weights, biases, deltas, zs, activations=activations, quant_phase=quant_phase,
             n_bits=n_bits, qat=qat, fxp32_phase1=fxp32_phase1,
         )
-    elif dev.type == "cuda":
-        y, block_mins, block_maxs = fxp_mlp_fwd_cuda(
-            x2.contiguous(), [w.contiguous() for w in ws], [b.contiguous() for b in bs],
-            None if deltas is None else deltas.contiguous(),
-            None if zs is None else zs.contiguous(), activations=activations, quant=quant,
-            qat=qat, n_bits=n_bits, fxp32_phase1=fxp32_phase1,
-        )
-        mins, maxs = block_mins.amin(dim=0), block_maxs.amax(dim=0)
-    else:
-        raise ValueError(f"fxp_mlp_forward runs on 'cpu' or 'cuda' tensors, got {dev}")
-    return y.reshape(*orig_shape[:-1], ws[-1].shape[-1]), mins, maxs
+        return y, mins.detach(), maxs.detach()
+    x2, ws, bs, deltas, zs = _operands(x, weights, biases, deltas, zs, activations, qat)
+    spec = (tuple(activations), bool(quant_phase), int(n_bits), bool(qat), bool(fxp32_phase1))
+    y, mins, maxs = _MlpTrain.apply(spec, x2, deltas, zs, *ws, *bs)
+    return y.reshape(*x.shape[:-1], ws[-1].shape[-1]), mins, maxs
 
 
 def fxp_mlp_infer(
@@ -131,4 +213,4 @@ def fused_cost_hint(dims: Sequence[int], phase: str = "act") -> dict:
     return {"launches": 1, "flops_per_item": mlp_flops(dims), "parallelism": "intra_batch"}
 
 
-__all__ = ["fxp_mlp_forward", "fxp_mlp_infer", "fused_cost_hint"]
+__all__ = ["fxp_mlp_forward", "fxp_mlp_train", "fxp_mlp_infer", "fused_cost_hint"]

@@ -1,8 +1,8 @@
-"""Plain PyTorch versions of the fused MLP forward (port of
-`repro.kernels.fxp_mlp.ref`, plus the fused kernel's own plain twin).
+"""Plain PyTorch versions of the fused MLP kernels (port of
+`repro.kernels.fxp_mlp.ref`, plus the fused kernels' own plain twins).
 
-Two functions, because the reference has two site projections that look
-alike but are not the same arithmetic:
+The forward has two functions, because the reference has two site
+projections that look alike but are not the same arithmetic:
 
 * `ref_mlp_forward` — the plain version of kernel B (`csrc/fxp_mlp_fwd.cu`,
   `_mlp_kernel` in the reference): per layer the range monitor, then the
@@ -14,6 +14,13 @@ alike but are not the same arithmetic:
 * `ref_fxp_mlp` — the reference's per-layer oracle: the QAT site as
   `fake_quant_affine` on the captured ranges a_min/a_max (or `fake_quant`
   onto Q15.16), followed by `ref_fxp_dense`.
+
+`ref_mlp_forward(save_residuals=True)` also returns what the backward
+needs, and `ref_mlp_backward` is the plain version of kernel 3
+(`csrc/fxp_mlp_bwd.cu`, `_mlp_bwd_kernel` in the reference): the
+dx/dW/db chain written out layer by layer, not autograd, because autograd
+through the plain forward's `round`/`clamp` gives no straight-through
+gradient.
 """
 
 from __future__ import annotations
@@ -53,21 +60,87 @@ def ref_mlp_forward(
     n_bits: int = 16,
     qat: bool = True,
     fxp32_phase1: bool = True,
-) -> tuple[Tensor, Tensor, Tensor]:
+    save_residuals: bool = False,
+):
     """Plain version of kernel B on unpadded x (M, K0): returns
-    (y (M, N_L), site_mins (L,), site_maxs (L,))."""
-    mins, maxs = [], []
+    (y (M, N_L), site_mins (L,), site_maxs (L,)).
+
+    With `save_residuals`, also (qs, hs): qs[l] (M, K_l) is the input the
+    layer's products consumed (the hi limb in the quant phase, the
+    projected input before it) and hs[l] (M, N_l) the layer's output after
+    its activation, hs[L-1] = y."""
+    mins, maxs, qs, hs = [], [], [], []
     for i, (w, b) in enumerate(zip(weights, biases)):
         mins.append(x.min())
         maxs.append(x.max())
         if qat:
             x = site_project(x, quant, deltas[i], zs[i], n_bits=n_bits, fxp32_phase1=fxp32_phase1)
         hi, lo = limb_split(x, with_lo=not quant)
+        if save_residuals:
+            qs.append(hi if quant else x)
         acc = hi @ w
         if not quant:
             acc = acc + lo @ w
         x = _ACTIVATIONS[activations[i]](acc + b)
+        hs.append(x)
+    if save_residuals:
+        return x, torch.stack(mins), torch.stack(maxs), qs, hs
     return x, torch.stack(mins), torch.stack(maxs)
+
+
+def ste_pass_mask(
+    x_in: Tensor, quant: bool, delta: Tensor, z: Tensor, *, n_bits: int, fxp32_phase1: bool
+) -> Optional[Tensor]:
+    """Where a site's straight-through gradient passes: inside the affine
+    clip range [−zδ, (2ⁿ−1−z)δ] in the quant phase, inside the Q15.16 raw
+    range before it (None: everywhere)."""
+    if quant:
+        lo = -z * delta
+        hi = (float((1 << n_bits) - 1) - z) * delta
+        return (x_in >= lo) & (x_in <= hi)
+    if fxp32_phase1:
+        xs = x_in * float(2.0**fxp.FXP32.frac_bits)
+        return (xs >= float(fxp.FXP32.raw_min)) & (xs <= float(fxp.FXP32.raw_max))
+    return None
+
+
+def ref_mlp_backward(
+    g: Tensor,
+    x0: Tensor,
+    weights: Sequence[Tensor],
+    qs: Sequence[Tensor],
+    hs: Sequence[Tensor],
+    deltas: Optional[Tensor],
+    zs: Optional[Tensor],
+    *,
+    activations: Sequence[str],
+    quant: bool,
+    n_bits: int = 16,
+    qat: bool = True,
+    fxp32_phase1: bool = True,
+) -> tuple[Tensor, list, list]:
+    """Plain version of kernel 3: the cotangent g (M, N_L) of y walked from
+    the last layer to the first.  Per layer: activation backward from the
+    saved output (ReLU `h > 0`, tanh `1 − h²`), db = Σ_rows g,
+    dW = qᵀg, g ← g Wᵀ, then the site's STE mask on its input (x0 for
+    layer 0, hs[l−1] after).  Returns (dx (M, K0), [dW_l], [db_l])."""
+    n_layers = len(weights)
+    dws, dbs = [None] * n_layers, [None] * n_layers
+    for li in reversed(range(n_layers)):
+        h = hs[li]
+        if activations[li] == "relu":
+            g = torch.where(h > 0.0, g, torch.zeros_like(g))
+        elif activations[li] == "tanh":
+            g = g * (1.0 - h * h)
+        dbs[li] = g.sum(dim=0)
+        dws[li] = qs[li].t() @ g
+        g = g @ weights[li].t()
+        if qat:
+            x_in = x0 if li == 0 else hs[li - 1]
+            mask = ste_pass_mask(x_in, quant, deltas[li], zs[li], n_bits=n_bits, fxp32_phase1=fxp32_phase1)
+            if mask is not None:
+                g = torch.where(mask, g, torch.zeros_like(g))
+    return g, dws, dbs
 
 
 def ref_fxp_mlp(
@@ -110,4 +183,11 @@ def ref_mlp_flops(m: int, dims: Sequence[int], full_precision: bool) -> int:
     return sum(2 * m * dims[i] * dims[i + 1] * passes for i in range(len(dims) - 1))
 
 
-__all__ = ["site_project", "ref_mlp_forward", "ref_fxp_mlp", "ref_mlp_flops"]
+__all__ = [
+    "site_project",
+    "ste_pass_mask",
+    "ref_mlp_forward",
+    "ref_mlp_backward",
+    "ref_fxp_mlp",
+    "ref_mlp_flops",
+]

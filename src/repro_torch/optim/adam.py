@@ -1,0 +1,167 @@
+"""Adam/AdamW on parameter trees (port of `repro.optim.adam`).
+
+A parameter tree here is the port's ``{"l0": {"w": ..., "b": ...}, ...}``
+dict of tensors.  `leaf_update` is the flat per-leaf form against
+precomputed `StepConstants`, shared by `update` and (in the reference) the
+fused training-step kernel's epilogue.  Everything runs under
+`torch.no_grad`: the optimizer is not differentiated.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+Tensor = torch.Tensor
+Tree = dict[str, Any]
+
+
+def tree_map(fn, *trees: Tree) -> Tree:
+    """`fn` over the leaves of equally shaped nested dicts."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def tree_leaves(tree: Tree) -> list[Tensor]:
+    """Leaves in key order (the order `jax.tree.leaves` gives a dict)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+@dataclasses.dataclass
+class AdamState:
+    step: Tensor  # i32 scalar
+    mu: Tree  # first moment
+    nu: Tree  # second moment
+
+    def to(self, device) -> "AdamState":
+        move = lambda t: t.to(device)  # noqa: E731
+        return AdamState(step=self.step.to(device), mu=tree_map(move, self.mu), nu=tree_map(move, self.nu))
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamConfig:
+    lr: float = 1e-4  # FIXAR: Adam lr 1e-4 (§VI-B)
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0  # AdamW when > 0
+    grad_clip_norm: Optional[float] = None
+    # callable step -> lr multiplier; None = constant
+    schedule: Optional[Callable[[Tensor], Tensor]] = None
+
+
+def init(params: Tree) -> AdamState:
+    leaf = tree_leaves(params)[0]
+    zeros = lambda p: torch.zeros_like(p)  # noqa: E731
+    return AdamState(
+        step=torch.zeros((), dtype=torch.int32, device=leaf.device),
+        mu=tree_map(zeros, params),
+        nu=tree_map(zeros, params),
+    )
+
+
+def global_norm(tree: Tree) -> Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32))) for leaf in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float) -> tuple[Tree, Tensor]:
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    return tree_map(lambda g: g * scale, grads), norm
+
+
+class StepConstants(NamedTuple):
+    """Per-step scalars of the Adam update, 0-d float32 tensors computed
+    once per step.  The `(1 - b)` complements are folded in Python double
+    and then cast to float32, as the reference folds them."""
+
+    lr: Tensor
+    b1: Tensor
+    one_minus_b1: Tensor
+    b2: Tensor
+    one_minus_b2: Tensor
+    eps: Tensor
+    bc1: Tensor  # 1 - b1**t  (bias correction, post-increment step t)
+    bc2: Tensor  # 1 - b2**t
+
+
+def step_constants(cfg: AdamConfig, step: Tensor) -> StepConstants:
+    """Constants for the update at post-increment step `step` (= state.step
+    + 1): schedule-folded lr, bias corrections and the beta complements."""
+    dev = step.device
+    t = step.to(torch.float32)
+    # `full`, not `tensor`: no host-to-device copy, which would wait for the device
+    f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)  # noqa: E731
+    lr = f32(cfg.lr)
+    if cfg.schedule is not None:
+        lr = lr * cfg.schedule(step)
+    b1, b2 = f32(cfg.b1), f32(cfg.b2)
+    return StepConstants(
+        lr=lr,
+        b1=b1,
+        one_minus_b1=f32(1 - cfg.b1),
+        b2=b2,
+        one_minus_b2=f32(1 - cfg.b2),
+        eps=f32(cfg.eps),
+        bc1=1.0 - torch.pow(b1, t),
+        bc2=1.0 - torch.pow(b2, t),
+    )
+
+
+def leaf_update(
+    p: Tensor, g: Tensor, m: Tensor, v: Tensor, c: StepConstants, *, weight_decay: float = 0.0
+) -> tuple[Tensor, Tensor, Tensor]:
+    """One leaf of the Adam step: elementwise float32 against precomputed
+    `StepConstants`.  Returns (new_p, new_m, new_v)."""
+    g = g.to(torch.float32)
+    m = c.b1 * m + c.one_minus_b1 * g
+    v = c.b2 * v + c.one_minus_b2 * torch.square(g)
+    mhat = m / c.bc1
+    vhat = v / c.bc2
+    delta = mhat / (torch.sqrt(vhat) + c.eps)
+    if weight_decay > 0.0:
+        delta = delta + weight_decay * p.to(torch.float32)
+    return (p - c.lr * delta).to(p.dtype), m, v
+
+
+def _apply(cfg: AdamConfig, grads: Tree, state: AdamState, params: Tree, leaf_fn):
+    """The tree walk shared by `update` and `fxp_adam.update`."""
+    metrics: dict[str, Tensor] = {}
+    with torch.no_grad():
+        if cfg.grad_clip_norm is not None:
+            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip_norm)
+            metrics["grad_norm"] = gnorm
+        step = state.step + 1
+        c = step_constants(cfg, step)
+        metrics["lr"] = c.lr
+        out = tree_map(lambda p, g, m, v: leaf_fn(p, g, m, v, c), params, grads, state.mu, state.nu)
+        pick = lambda i: tree_map(lambda o: o[i], out)  # noqa: E731
+        return pick(0), AdamState(step=step, mu=pick(1), nu=pick(2)), metrics
+
+
+def update(cfg: AdamConfig, grads: Tree, state: AdamState, params: Tree) -> tuple[Tree, AdamState, dict]:
+    """Returns (new_params, new_state, metrics)."""
+    return _apply(
+        cfg, grads, state, params, lambda p, g, m, v, c: leaf_update(p, g, m, v, c, weight_decay=cfg.weight_decay)
+    )
+
+
+__all__ = [
+    "AdamConfig",
+    "AdamState",
+    "StepConstants",
+    "init",
+    "update",
+    "step_constants",
+    "leaf_update",
+    "global_norm",
+    "clip_by_global_norm",
+    "tree_map",
+    "tree_leaves",
+]

@@ -1,1 +1,2 @@
-"""DDPG with FIXAR's fixed-point QAT (port of `repro.rl`; serving subset)."""
+"""DDPG with FIXAR's fixed-point QAT, its envs, replay, noise and host
+training loop (port of `repro.rl`)."""

@@ -26,8 +26,7 @@ Trace span names (`serve.dispatch`, `serve.launch`,
 
 Differences from the reference: `device=` picks the card (default) or the
 CPU; `jax.block_until_ready` becomes a stream synchronize; there is no mesh
-sharding yet; the engine is built from `(actor, frozen)` (`from_ddpg` waits
-for the port's `DDPGState`).
+sharding yet.
 """
 
 from __future__ import annotations
@@ -102,6 +101,12 @@ class PolicyEngine(StreamEngine):
             force_mode=force_mode,
             obs=obs,
         )
+
+    @classmethod
+    def from_ddpg(cls, state: "ddpg.DDPGState", **kwargs) -> "PolicyEngine":
+        """Snapshot a trained DDPG state into a serving engine (freezes the
+        actor's site quant params; QAT-off states serve unquantized)."""
+        return cls(state.actor, ddpg.freeze_actor_quant(state), **kwargs)
 
     # ------------------------------------------------------------------ #
     # dispatch + device call

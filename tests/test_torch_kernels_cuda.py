@@ -1,4 +1,4 @@
-"""The two CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked `cuda`: without a CUDA device (and the CUDA toolkit to build the
 kernels) every test here skips.  On a machine with one:
@@ -84,3 +84,125 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fxp_dense_cuda(torch.zeros(3, 4, device=dev).t(), w, None, full_precision=True, activation="none")
     with pytest.raises(ValueError, match="w is"):
         fxp_dense_cuda(x, torch.zeros(4, 5, device=dev), None, full_precision=True, activation="none")
+
+
+def _net(gen, dev, dims):
+    ws = [_rand(gen, k, n, scale=k**-0.5).to(dev) for k, n in zip(dims[:-1], dims[1:])]
+    bs = [_rand(gen, n, scale=0.1).to(dev) for n in dims[1:]]
+    return ws, bs
+
+
+def _site_operands(dev, n_layers):
+    from repro_torch.core.fixedpoint import affine_params
+
+    deltas, zs = affine_params(torch.linspace(-1.0, -3.0, n_layers), torch.linspace(1.5, 3.5, n_layers), 16)
+    return deltas.to(dev), zs.to(dev, torch.float32)
+
+
+NETS = [((5, 33, 7), ("relu", "tanh")), ((17, 400, 300, 6), ("relu", "relu", "tanh")),
+        ((23, 400, 300, 1), ("relu", "relu", "none"))]
+
+
+@pytest.mark.parametrize("case", ["off", "monitor", "quant"])
+@pytest.mark.parametrize("batch", [1, 7, 128])
+@pytest.mark.parametrize("net", NETS, ids=["tiny", "actor", "critic"])
+def test_fxp_mlp_fwd_residual_mode(dev, net, batch, case):
+    """Residual mode: qs/hs as the plain version saves them, and y bitwise
+    the same as without residuals."""
+    from repro_torch.kernels.fxp_matmul.ref import limb_split
+    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_fwd_cuda
+    from repro_torch.kernels.fxp_mlp.ref import ref_mlp_forward, site_project
+
+    dims, acts = net
+    gen = torch.Generator().manual_seed(batch + len(dims))
+    ws, bs = _net(gen, dev, dims)
+    x = _rand(gen, batch, dims[0], scale=3).to(dev)
+    deltas, zs = _site_operands(dev, len(ws))
+    qat, quant = case != "off", case == "quant"
+    kw = dict(activations=acts, quant=quant, qat=qat, n_bits=16, fxp32_phase1=True)
+    d, z = (deltas, zs) if qat else (None, None)
+    y0, _, _ = fxp_mlp_fwd_cuda(x, ws, bs, d, z, **kw)
+    y, bmins, bmaxs, qs, hs = fxp_mlp_fwd_cuda(x, ws, bs, d, z, save_residuals=True, **kw)
+    assert torch.equal(y, y0)
+    assert hs[-1] is y and len(qs) == len(hs) == len(ws)
+    y_ref, _, _, qs_ref, hs_ref = ref_mlp_forward(x, ws, bs, deltas, zs, save_residuals=True, **kw)
+    tol = dict(rtol=1e-3, atol=1e-3) if quant else TOL
+    torch.testing.assert_close(y, y_ref, **tol)
+    torch.testing.assert_close(qs[0], qs_ref[0], rtol=0, atol=0)
+    for got, want in zip(hs[:-1], hs_ref[:-1]):
+        torch.testing.assert_close(got, want, **tol)
+    # quant phase: qs[l > 0] is the bf16 hi limb of a projected value; where
+    # the previous layer's sum order flips one affine code, the limb can
+    # round to the neighbouring bf16 value, one bf16 ulp (≤ 2⁻⁷ relative)
+    q_tol = dict(rtol=2.0**-7, atol=1e-3) if quant else TOL
+    for got, want in zip(qs[1:], qs_ref[1:]):
+        torch.testing.assert_close(got, want, **q_tol)
+    # ...but bitwise what the kernel's own layer inputs project to, as a bf16
+    # hi limb in the quant phase: the one-ulp limit above cannot tell the limb
+    # from the unrounded projection
+    for i, (got, v) in enumerate(zip(qs, [x, *hs[:-1]])):
+        if qat:
+            v = site_project(v, quant, deltas[i], zs[i], n_bits=16, fxp32_phase1=True)
+        want = limb_split(v, with_lo=False)[0] if quant else v
+        assert torch.equal(got, want), i
+        if quant:
+            assert torch.equal(got, got.bfloat16().float()), i
+
+
+@pytest.mark.parametrize("case", ["off", "monitor", "quant"])
+@pytest.mark.parametrize("batch", [1, 7, 128, 200])
+@pytest.mark.parametrize("net", NETS, ids=["tiny", "actor", "critic"])
+def test_fxp_mlp_bwd_kernel_matches_plain(dev, net, batch, case):
+    """Kernel 3 against `ref_mlp_backward` on the same residuals: the
+    gradient contract of the reference (2e-4/2e-5 before the quant phase,
+    5e-3/2e-2 in it), and two launches bitwise equal."""
+    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_bwd_cuda, fxp_mlp_fwd_cuda
+    from repro_torch.kernels.fxp_mlp.ref import ref_mlp_backward
+
+    dims, acts = net
+    gen = torch.Generator().manual_seed(3 * batch + len(dims))
+    ws, bs = _net(gen, dev, dims)
+    x = _rand(gen, batch, dims[0], scale=3).to(dev)
+    deltas, zs = _site_operands(dev, len(ws))
+    qat, quant = case != "off", case == "quant"
+    kw = dict(activations=acts, quant=quant, qat=qat, n_bits=16, fxp32_phase1=True)
+    d, z = (deltas, zs) if qat else (None, None)
+    _, _, _, qs, hs = fxp_mlp_fwd_cuda(x, ws, bs, d, z, save_residuals=True, **kw)
+    g = _rand(gen, batch, dims[-1]).to(dev)
+    before = fxp_mlp_bwd_cuda.launches
+    got = fxp_mlp_bwd_cuda(g, x, ws, qs, hs, d, z, **kw)
+    again = fxp_mlp_bwd_cuda(g, x, ws, qs, hs, d, z, **kw)
+    assert fxp_mlp_bwd_cuda.launches == before + 2
+    want = ref_mlp_backward(g, x, ws, qs, hs, deltas, zs, **kw)
+    tol = dict(rtol=5e-3, atol=2e-2) if quant else dict(rtol=2e-4, atol=2e-5)
+    for a, b in zip([got[0], *got[1], *got[2]], [again[0], *again[1], *again[2]]):
+        assert torch.equal(a, b)
+    for a, b in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
+        torch.testing.assert_close(a, b, **tol)
+
+
+def test_fxp_mlp_train_on_the_card_launches_both_kernels(dev):
+    """One forward and backward of `fxp_mlp_train` on CUDA tensors: one
+    kernel-B call with residuals, one kernel-3 call, gradients as on the
+    CPU (plain versions)."""
+    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_bwd_cuda, fxp_mlp_fwd_cuda
+    from repro_torch.kernels.fxp_mlp.ops import fxp_mlp_train
+
+    dims, acts = NETS[0]
+    gen = torch.Generator().manual_seed(0)
+    ws, bs = _net(gen, torch.device("cpu"), dims)
+    x = _rand(gen, 9, dims[0], scale=2)
+    deltas, zs = _site_operands(torch.device("cpu"), len(ws))
+    grads = {}
+    for where in ("cpu", "cuda"):
+        leaves = [t.detach().to(where).requires_grad_(True) for t in (x, *ws, *bs)]
+        n = len(ws)
+        b0, k0 = fxp_mlp_fwd_cuda.launches, fxp_mlp_bwd_cuda.launches
+        y, _, _ = fxp_mlp_train(leaves[0], leaves[1 : 1 + n], leaves[1 + n :], deltas.to(where), zs.to(where),
+                                activations=acts, quant_phase=False)
+        (y * y).sum().backward()
+        launched = (fxp_mlp_fwd_cuda.launches - b0, fxp_mlp_bwd_cuda.launches - k0)
+        assert launched == ((1, 1) if where == "cuda" else (0, 0))
+        grads[where] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
