@@ -4,12 +4,14 @@
     python3 chip_smoke.py [--seed N] [--out FILE]
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit.  It drives the port's two main paths, policy serving (slice 1)
-and DDPG training (slice 2).  Phases, each printing one JSON line:
+toolkit.  It drives the port's three main paths: policy serving (slice
+1), DDPG training through backend "pallas" (slice 2), and training
+through the fused whole-update step, eagerly and as a captured CUDA graph
+(slice 3).  Phases, each printing one JSON line:
 
   1. device   — the card's name and power limit (nvidia-smi), CUDA version,
                 TF32 switched off for matmul and cuDNN;
-  2. build    — nvcc builds the three kernel libraries from
+  2. build    — nvcc builds the four kernel libraries from
                 `src/repro_torch/csrc/`, in parallel, into `build/kernels/`;
   3. kernel_a — the dense-layer kernel against its plain version: the three
                 actor layer shapes, B in {1, 7, 8, 32, 128, 512} (the
@@ -25,36 +27,55 @@ and DDPG training (slice 2).  Phases, each printing one JSON line:
   6. kernel_bwd — kernel 3 (the fused backward) against its plain version on
                 the same residuals: dx, dW, db at the same shapes and
                 phases; two calls on the same inputs bitwise equal;
-  7. serve    — serving main path: a seeded random actor, ranges captured by
+  7. kernel_step — kernels 4 and 5 (the fused DDPG step) against their plain
+                twins at the paper's shapes, B = 128 and a multi-block
+                ragged B = 200 with 30 rows of weight 0, both phases: new
+                params, moments, targets, site extrema, loss partials; two
+                calls bitwise equal; the twin's step must move each tree
+                further than its tolerance, so a stale tree cannot pass;
+  8. serve    — serving main path: a seeded random actor, ranges captured by
                 monitor-phase fused forwards and frozen (Algorithm 1's
                 monitor-then-freeze), then `PolicyEngine` serving 256
                 threaded requests in each forced mode (fused, layer, jnp) and
                 under adaptive dispatch, every reply checked against the
                 plain `act_batch`.  Kernel launch counts are zeroed just
                 before this phase and read just after it;
-  8. update   — one `ddpg.update(backend="pallas")` on the card against the
+  9. update   — one `ddpg.update(backend="pallas")` on the card against the
                 same update by the plain versions on the CPU, from the same
                 state, at B = 128, in the monitor and the quant phase;
-  9. train    — training main path: `rl.loop.train_host` on the paper's
-                configuration (`configs/fixar_ddpg.CONFIG`: halfcheetah,
-                actor 17-400-300-6, critic 23-400-300-1, B = 128) cut to
-                2000 env steps, updates from step 1000, the QAT delay at 40 %
-                of the updates (400, `qat_delay_frac`); then `evaluate` (2 episodes) and 64
-                requests served from the trained actor through
-                `PolicyEngine.from_ddpg`.  Launch counts are zeroed just
-                before `train_host` and read just after it: kernel B must
-                show 5 per update + 1 per env step, kernel 3 3 per update;
- 10. profile  — `torch.profiler` over 20 updates at B = 128: host wall and
-                device busy time per update (so the device's idle share),
-                kernels and CUDA runtime calls per update, the costliest
-                kernels and host ops;
- 11. times    — each kernel at the main paths' shapes: kernels A and B at
+ 10. update_fused — the same for backend "pallas_fused_step";
+ 11. train    — training main path, backend "pallas": `rl.loop.train_host`
+                on the paper's configuration (`configs/fixar_ddpg.CONFIG`:
+                halfcheetah, actor 17-400-300-6, critic 23-400-300-1,
+                B = 128) cut to 2000 env steps, updates from step 1000, the
+                QAT delay at 40 % of the updates (400, `qat_delay_frac`);
+                then `evaluate` (2 episodes) and 64 requests served from the
+                trained actor through `PolicyEngine.from_ddpg`.  Launch
+                counts are zeroed just before `train_host` and read just
+                after it: kernel B must show 5 per update + 1 per env step,
+                kernel 3 3 per update;
+ 12. train_fused — the same configuration with backend "pallas_fused_step",
+                through `train_host` (kernels 4 and 5 once per update,
+                kernel B once per env step, kernel 3 and kernel B's
+                residual mode never) and through `train_device` (a warmup
+                window run eagerly, then every updating timestep a replay of
+                one captured CUDA graph, the QAT delay crossed inside it;
+                the wrapper counts and the replays are checked, and the
+                same run made again with its graph window under
+                `torch.profiler` counts by name the kernels each replay
+                ran); both agents evaluated and served;
+ 13. profile  — `torch.profiler` over 20 updates at B = 128, backend "pallas"
+                and "pallas_fused_step", and over 20 replays of the captured
+                timestep: host wall and device busy time per step (so the
+                device's idle share), kernels and CUDA runtime calls per
+                step, the costliest kernels and host ops;
+ 14. times    — each kernel at the main paths' shapes: kernels A and B at
                 the serving shapes (B in {1, 128, 512}, both precision
                 phases), kernel B with residuals and kernel 3 at B = 128 for
-                the actor and the critic, both phases: kernel, plain
-                version, library yardstick and the least time the card
-                could take (`bound_ms`);
- 12. engine   — host wall time of synchronous `run_batch` calls per mode
+                the actor and the critic, kernels 4 and 5 at B = 128, both
+                phases: kernel, plain version, library yardstick and the
+                least time the card could take (`bound_ms`);
+ 15. engine   — host wall time of synchronous `run_batch` calls per mode
                 and batch (the engine's own cost, without queueing).
 
 Then the `{"kernels": [...]}` line and, last, the status line
@@ -78,6 +99,14 @@ atol 2e-5 with QAT off or in the monitor phase, 5e-3 / 2e-2 in the quant
 phase (the reference's gradient contract, `tests/kernels/
 test_fxp_mlp_grad.py:91`).  One update, card against CPU: losses rtol 1e-4
 / atol 1e-5, nets rtol 1e-4 / atol 2e-5 (`test_fxp_mlp_grad.py:187-190`).
+Kernels 4 and 5 against their twins on the same inputs (STEP_TOL, in both
+phases): params within 2⁻¹⁶, targets 1e-6, mu 2e-6 and nu 1e-7 (rtol
+1e-4: a gradient can land one Q15.16 quantum apart), the monitor-phase
+contract of `tests/test_torch_ddpg_step.py`; one step at Adam lr 1e-4 moves
+a param by a few quanta and a target by about τ·(p − t), so a looser bound
+could not tell a step from none.  Extrema as kernel B's; loss partials over
+Σw (the update's metrics) rtol 1e-5 / atol 1e-6 (monitor) and 1e-3 / 1e-5
+(quant), the reference's metric contracts.
 """
 
 from __future__ import annotations
@@ -87,6 +116,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -169,11 +199,12 @@ def peaks(name: str) -> tuple[float, float, str]:
     return PEAKS[2][1], PEAKS[2][2], "H100 SXM (assumed: part not recognised)"
 
 
-def device_time_ms(fn, iters: int, reps: int = 5) -> float:
+def device_time_ms(fn, iters: int, reps: int = 5, sleep_cycles: int = 100_000_000) -> float:
     """Median over `reps` of the mean device time of `iters` back-to-back
-    calls.  A sleep kernel queued first lets the host enqueue every call
-    before the first one runs, so host launch overhead does not set the
-    time.  Inputs and weights stay warm in L2, as in serving."""
+    calls.  A sleep kernel of `sleep_cycles` queued first lets the host
+    enqueue every call before the first one runs, so host launch overhead
+    does not set the time (as long as the sleep outlasts the enqueue).
+    Inputs and weights stay warm in L2, as in serving."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -181,7 +212,7 @@ def device_time_ms(fn, iters: int, reps: int = 5) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(iters):
             fn()
@@ -225,7 +256,7 @@ def phase_device() -> dict:
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
-    seconds = _build.build(["fxp_dense", "fxp_mlp_fwd", "fxp_mlp_bwd"])
+    seconds = _build.build(["fxp_dense", "fxp_mlp_fwd", "fxp_mlp_bwd", "fxp_ddpg_step"])
     ptxas = {}
     for name in seconds:
         log = _build.log_path(name)
@@ -421,34 +452,167 @@ def phase_kernel_bwd(gen: torch.Generator, dev) -> float:
     return max(worst.values())
 
 
-def _paper_ddpg(qat_delay: int):
+# kernels 4 and 5 against their twins: (atol, rtol) of the four trees in
+# both phases, the monitor-phase contract of tests/test_torch_ddpg_step.py
+# (module docstring)
+STEP_TOL = {"params": (2.0**-16, 0.0), "mu": (2e-6, 1e-4), "nu": (1e-7, 1e-4), "targets": (1e-6, 0.0)}
+STEP_PHASES = ("monitor", "quant")
+STEP_CASES = ((128, 0), (200, 30))  # (B, rows masked by w = 0): the training batch, and multi-block ragged
+# loss partials over Σw — the update's metrics — (rtol, atol): the
+# reference's metric contracts per phase (tests/kernels/
+# test_fxp_mlp_step.py:95, :110); in the quant phase one flipped 16-bit code
+# moves q by a quantization step.  (A sum of rows of both signs can cancel,
+# so the partial's own relative error says little.)
+PART_TOL = {"monitor": (1e-5, 1e-6), "quant": (1e-3, 1e-5)}
+
+
+def _step_case(gen: torch.Generator, dev, batch: int, masked: int) -> dict:
+    """A fused-step case at the paper's shapes on `dev`: a batch with
+    `masked` rows of weight 0, random nets on the Q15.16 lattice, targets,
+    Adam moments as a run leaves them (v of the order of m²), site operands
+    from fixed ranges, and the hyper vector of Adam step 5."""
+    from repro_torch.core import fixedpoint as fxp
+    from repro_torch.kernels.fxp_mlp.ops import _hyper
+    from repro_torch.optim import adam
+
+    (a_dims, a_acts), (c_dims, c_acts) = NETS["actor"], NETS["critic"]
+    obs, act = a_dims[0], a_dims[-1]
+
+    def tree(dims, scale=None):
+        ws = [(torch.rand(k, n, generator=gen) * 2 - 1) * (scale or k**-0.5) for k, n in zip(dims[:-1], dims[1:])]
+        bs = [(torch.rand(n, generator=gen) * 2 - 1) * (scale or k**-0.5) for k, n in zip(dims[:-1], dims[1:])]
+        if scale is None:
+            ws, bs = [fxp.project(w, fxp.FXP32) for w in ws], [fxp.project(b, fxp.FXP32) for b in bs]
+        return [w.to(dev) for w in ws], [b.to(dev) for b in bs]
+
+    def second(m):
+        return [t * t * 2 + 1e-10 for t in m[0]], [t * t * 2 + 1e-10 for t in m[1]]
+
+    am, cm = tree(a_dims, 1e-3), tree(c_dims, 1e-3)
+    c = {
+        "obs": (torch.randn(batch, obs, generator=gen) * 2).to(dev),
+        "action": (torch.rand(batch, act, generator=gen) * 2 - 1).to(dev),
+        "reward": torch.randn(batch, generator=gen).to(dev),
+        "done": (torch.rand(batch, generator=gen) < 0.05).to(torch.float32).to(dev),
+        "next_obs": (torch.randn(batch, obs, generator=gen) * 2).to(dev),
+        "w": (torch.arange(batch) < batch - masked).to(torch.float32).to(dev),
+        "actor": tree(a_dims), "actor_t": tree(a_dims), "actor_m": am, "actor_v": second(am),
+        "critic": tree(c_dims), "critic_t": tree(c_dims), "critic_m": cm, "critic_v": second(cm),
+        "kw": dict(actor_acts=a_acts, critic_acts=c_acts, n_bits=16, qat=True, fxp32_phase1=True, fxp_weights=True),
+    }
+    d, z = fxp.affine_params(-(torch.rand(6, generator=gen) * 3 + 1), torch.rand(6, generator=gen) * 3 + 1, 16)
+    c["deltas"], c["zs"] = d.to(dev), z.to(torch.float32).to(dev)
+    consts = adam.step_constants(adam.AdamConfig(), torch.full((), 5, dtype=torch.int32, device=dev))
+    c["hyper"] = _hyper(1.0 / torch.clamp(c["w"].sum(), min=1.0), 0.99, 0.005, consts)
+    return c
+
+
+def _critic_args(c: dict) -> tuple:
+    return (c["obs"], c["action"], c["reward"], c["done"], c["next_obs"], c["w"], c["actor_t"], c["critic"],
+            c["critic_t"], c["critic_m"], c["critic_v"], c["deltas"], c["zs"], c["hyper"])
+
+
+def _actor_args(c: dict, critic) -> tuple:
+    return (c["obs"], c["w"], c["actor"], c["actor_m"], c["actor_v"], c["actor_t"], critic, c["deltas"], c["zs"],
+            c["hyper"])
+
+
+def phase_kernel_step(gen: torch.Generator, dev) -> dict:
+    """Kernels 4 and 5 against their plain twins on the same card inputs, at
+    STEP_CASES in both phases: the four trees at STEP_TOL, the site extrema
+    (layer 0 exactly, the rest at kernel B's 2e-5), the loss partials at
+    PART_TOL (over Σw); two calls on the same inputs bitwise equal.
+    Kernel 5 runs through the twin's updated critic on both sides.  The
+    twin's step must move params, mu and targets further than STEP_TOL
+    (else the comparison could not tell a kernel that left a tree as it
+    was); nu's move, (1 − b2)·(g² − v), is of the order of its own
+    tolerance in one step, and is reported."""
+    from repro_torch.kernels.fxp_mlp.kernel import ddpg_actor_step_cuda, ddpg_critic_step_cuda
+    from repro_torch.kernels.fxp_mlp.ref import ref_ddpg_actor_step, ref_ddpg_critic_step
+
+    worst = {name: {phase: {} for phase in STEP_PHASES} for name in ("critic", "actor")}
+    moved = {name: {phase: {} for phase in STEP_PHASES} for name in ("critic", "actor")}
+    for batch, masked in STEP_CASES:
+        c = _step_case(gen, dev, batch, masked)
+        for phase in STEP_PHASES:
+            quant = phase == "quant"
+            phase_t = torch.full((1,), int(quant), dtype=torch.int32, device=dev)
+            want_c = ref_ddpg_critic_step(*_critic_args(c), quant, **c["kw"])
+            for name, kernel, twin_out, args in (
+                ("critic", ddpg_critic_step_cuda, want_c, _critic_args(c)),
+                ("actor", ddpg_actor_step_cuda, None, _actor_args(c, want_c[0])),
+            ):
+                got = kernel(*args, phase_t, **c["kw"])
+                again = kernel(*args, phase_t, **c["kw"])
+                want = twin_out if twin_out is not None else ref_ddpg_actor_step(*args, quant, **c["kw"])
+                torch.cuda.synchronize()
+                tag = f"kernel {4 if name == 'critic' else 5} B={batch} masked={masked} {phase}"
+                flat = lambda out: [t for tr in out[:4] for half in tr for t in half] + list(out[4:])  # noqa: E731
+                require(all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))),
+                        f"{tag}: two calls on the same inputs differ")
+                n_sites = 3 if name == "critic" else 6
+                require(got[4].shape == (-(-batch // 8), n_sites), f"{tag}: mins shape {tuple(got[4].shape)}")
+                errs = worst[name][phase]
+                inputs = [c[name], c[f"{name}_m"], c[f"{name}_v"], c[f"{name}_t"]]
+                for k, tree in enumerate(STEP_TOL):
+                    atol, rtol = STEP_TOL[tree]
+                    step = 0.0
+                    for g, w, x in zip([*got[k][0], *got[k][1]], [*want[k][0], *want[k][1]],
+                                       [*inputs[k][0], *inputs[k][1]]):
+                        e = compare(g, w, rtol, f"{tag} {tree}", atol=atol)["max_abs"]
+                        errs[tree] = max(errs.get(tree, 0.0), e)
+                        step = max(step, float((w - x).abs().max()))
+                    require(tree == "nu" or step > atol, f"{tag}: the twin moved {tree} by {step}, within {atol}")
+                    moved[name][phase][tree] = min(moved[name][phase].get(tree, math.inf), step)
+                mins, maxs = got[4].amin(0), got[5].amax(0)
+                require(float(mins[0]) == float(want[4][0, 0]) and float(maxs[0]) == float(want[5][0, 0]),
+                        f"{tag}: layer-0 extrema differ")
+                for what, g, w in (("mins", mins, want[4][0]), ("maxs", maxs, want[5][0])):
+                    errs["extrema"] = max(errs.get("extrema", 0.0), compare(g, w, TOL, f"{tag} {what}")["max_abs"])
+                rtol, atol = PART_TOL[phase]
+                sum_w = torch.clamp(c["w"].sum(), min=1.0)
+                e = compare(got[6].sum(0) / sum_w, want[6][0] / sum_w, rtol, f"{tag} partials / Σw",
+                            atol=atol)["max_abs"]
+                errs["partials"] = max(errs.get("partials", 0.0), e)
+    emit("kernel_step", cases=[list(x) for x in STEP_CASES],
+         tolerance={**{k: {"atol": a, "rtol": r} for k, (a, r) in STEP_TOL.items()},
+                    "extrema": {"layer0": "exact", "rtol": TOL, "atol": TOL},
+                    "partials": {p: {"rtol": r, "atol": a} for p, (r, a) in PART_TOL.items()}},
+         max_abs=worst, twin_moved_least=moved, bitwise_repeat=True, cuda_launches_per_call=2)
+    return {name: max(v for ph in w.values() for v in ph.values()) for name, w in worst.items()}
+
+
+def _paper_ddpg(qat_delay: int, backend: str = "pallas"):
     """The paper's DDPG settings (`CONFIG.ddpg`: B = 128, Adam lr 1e-4,
-    Q15.16 weights, 16-bit QAT) on the "pallas" backend, the QAT delay at
-    `qat_delay` updates."""
+    Q15.16 weights, 16-bit QAT) on `backend`, the QAT delay at `qat_delay`
+    updates."""
     from repro_torch.configs.fixar_ddpg import CONFIG
 
-    return dataclasses.replace(CONFIG.ddpg, backend="pallas", qat_delay=qat_delay)
+    return dataclasses.replace(CONFIG.ddpg, backend=backend, qat_delay=qat_delay)
 
 
-def _random_batch(gen: torch.Generator, dev, spec, n: int) -> dict:
-    return {
+def _random_batch(gen: torch.Generator, dev, spec, n: int, mask_rows: int | None = None) -> dict:
+    batch = {
         "obs": torch.randn(n, spec.obs_dim, generator=gen).to(dev),
         "action": (torch.rand(n, spec.act_dim, generator=gen) * 2 - 1).to(dev),
         "reward": torch.randn(n, generator=gen).to(dev),
         "next_obs": torch.randn(n, spec.obs_dim, generator=gen).to(dev),
         "done": (torch.rand(n, generator=gen) < 0.05).to(dev),
     }
+    if mask_rows is not None:
+        batch["mask"] = (torch.arange(n) < mask_rows).to(torch.float32).to(dev)
+    return batch
 
 
-def phase_update(gen: torch.Generator, dev) -> dict:
-    """One `ddpg.update(backend="pallas")` on the card against the same
-    update by the plain versions on the CPU, in the monitor phase and in
-    the quant phase (Adam moments warm from earlier updates)."""
+def phase_update(gen: torch.Generator, dev, backend: str = "pallas") -> dict:
+    """One `ddpg.update(backend=...)` on the card against the same update by
+    the plain versions on the CPU, in the monitor phase and in the quant
+    phase (Adam moments warm from earlier updates)."""
     from repro_torch.rl import ddpg
     from repro_torch.rl.envs import make
 
     spec = make("halfcheetah").spec
-    cfg = _paper_ddpg(3)
+    cfg = _paper_ddpg(3, backend)
     state = ddpg.init(spec, cfg, generator=gen, device=dev)
     report = {}
     for i in range(4):
@@ -476,59 +640,58 @@ def phase_update(gen: torch.Generator, dev) -> dict:
             report[phase] = {"max_abs": errs, "losses": {k: float(v) for k, v in metrics.items()}}
         state = new_state
     require(set(report) == {"monitor", "quant"}, f"update compared phases {sorted(report)}")
-    emit("update", batch=cfg.batch_size, tolerance={"losses": {"rtol": 1e-4, "atol": 1e-5},
-                                                     "nets": {"rtol": 1e-4, "atol": 2e-5}}, **report)
+    emit("update" if backend == "pallas" else "update_fused", backend=backend, batch=cfg.batch_size,
+         tolerance={"losses": {"rtol": 1e-4, "atol": 1e-5}, "nets": {"rtol": 1e-4, "atol": 2e-5}}, **report)
     return report
 
 
-def phase_train(gen: torch.Generator, dev, seed: int) -> dict:
-    """The training main path (module docstring), with the launch counts of
-    the `train_host` run and its throughput."""
+def _train_config(seed: int, **kw):
+    """`configs/fixar_ddpg.CONFIG` cut in length (TRAIN_CUT), the QAT delay at
+    `qat_delay_frac` of the updates; returns (env, cfg, qat_delay, reduced)."""
     from repro_torch.configs.fixar_ddpg import CONFIG
-    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_bwd_cuda, fxp_mlp_fwd_cuda
-    from repro_torch.obs import Tracer
-    from repro_torch.rl import ddpg, loop
+    from repro_torch.rl import loop
     from repro_torch.rl.envs import make
-    from repro_torch.serve.policy import BatcherConfig, PolicyEngine
 
-    env = make(CONFIG.env)
     cfg = loop.TrainConfig(total_steps=TRAIN_CUT["total_steps"], warmup_steps=TRAIN_CUT["warmup_steps"],
-                           replay_capacity=100_000, seed=seed)
-    # the paper's delay falls at `qat_delay_frac` of the run; here, of its updates
+                           replay_capacity=100_000, seed=seed, eval_episodes=TRAIN_CUT["eval_episodes"], **kw)
     qat_delay = round(CONFIG.qat_delay_frac * (cfg.total_steps - cfg.warmup_steps + 1))
-    dcfg = _paper_ddpg(qat_delay)
     reduced = {
         "total_steps": [CONFIG.total_steps, cfg.total_steps],
         "qat_delay": f"{CONFIG.qat_delay_frac} of the updates: {qat_delay}",
         "eval": f"{TRAIN_CUT['eval_episodes']} episodes once at the end (the paper: 10 every 5000 steps)",
     }
-    tracer = Tracer()
-    fxp_mlp_fwd_cuda.launches = 0
-    fxp_mlp_bwd_cuda.launches = 0
-    t0 = time.perf_counter()
-    ts, info = loop.train_host(env, cfg, dcfg, device=dev, tracer=tracer)
-    sync(dev)
-    wall = time.perf_counter() - t0
-    launches = {"fxp_mlp_fwd": fxp_mlp_fwd_cuda.launches, "fxp_mlp_bwd": fxp_mlp_bwd_cuda.launches}
-    agent = ts.agent
-    updates = int(agent.step)
-    steps = cfg.total_steps * max(cfg.n_envs, 1)
-    require(updates == cfg.total_steps - cfg.warmup_steps + 1, f"train: {updates} updates")
-    want = {"fxp_mlp_fwd": 5 * updates + cfg.total_steps, "fxp_mlp_bwd": 3 * updates}
-    require(launches == want, f"train: launches {launches}, expected {want}")
+    return make(CONFIG.env), cfg, qat_delay, reduced
+
+
+def _check_trained(agent, updates: int, what: str) -> str:
+    require(int(agent.step) == updates, f"{what}: {int(agent.step)} updates, expected {updates}")
     phase = "quant" if bool(agent.qat.quantized_phase) else "monitor"
-    require(phase == "quant" and int(agent.qat.step) == updates, f"train ended in the {phase} phase")
-    for name in ("actor", "critic"):
+    require(phase == "quant" and int(agent.qat.step) == updates, f"{what} ended in the {phase} phase")
+    for name in ("actor", "critic", "actor_target", "critic_target"):
         for layer in getattr(agent, name).values():
-            require(all(bool(torch.isfinite(t).all()) for t in layer.values()), f"train: non-finite {name} params")
-    # steady state: the timesteps that update (act, env, replay, update each)
-    first = cfg.warmup_steps - 1
+            require(all(bool(torch.isfinite(t).all()) for t in layer.values()), f"{what}: non-finite {name} params")
+    return phase
+
+
+def _steady(tracer, first: int) -> tuple[float, float]:
+    """(steps/s over the timesteps from `first` on, p50 of their updates in
+    ms) from the `loop.*` spans of `train_host`."""
     spans = [e for e in tracer.events() if e["args"]["step"] >= first]
     upd = [e["dur"] / 1e6 for e in spans if e["name"] == "loop.update"]
     steady_s = (max(e["ts"] + e["dur"] for e in spans) - min(e["ts"] for e in spans)) / 1e6
-    reward = float(loop.evaluate(env, agent, dcfg, torch.Generator(device=dev).manual_seed(seed + 7), TRAIN_CUT["eval_episodes"]))
-    require(math.isfinite(reward), f"train: evaluate returned {reward}")
+    return len(upd) / steady_s, statistics.median(upd) * 1e3
 
+
+def _evaluate_and_serve(env, agent, dcfg, gen: torch.Generator, dev, seed: int) -> dict:
+    """`evaluate` the trained agent, then serve TRAIN_CUT["requests"] threaded
+    requests from it through `PolicyEngine.from_ddpg`, each reply checked
+    against `ddpg.act` by the plain versions on the CPU."""
+    from repro_torch.rl import ddpg, loop
+    from repro_torch.serve.policy import BatcherConfig, PolicyEngine
+
+    reward = float(loop.evaluate(env, agent, dcfg, torch.Generator(device=dev).manual_seed(seed + 7),
+                                 TRAIN_CUT["eval_episodes"]))
+    require(math.isfinite(reward), f"evaluate returned {reward}")
     engine = PolicyEngine.from_ddpg(agent, device=dev, batcher=BatcherConfig(max_wait_ms=2.0))
     require(engine.frozen is not None and engine.frozen.quantized, "the served actor must be frozen in the quant phase")
     engine.warmup()
@@ -542,47 +705,209 @@ def phase_train(gen: torch.Generator, dev, seed: int) -> dict:
     want_act = ddpg.act(agent.to("cpu"), torch.from_numpy(obs), cfg=dcfg).numpy()
     serve_err = float(np.abs(replies - want_act).max())
     require(serve_err <= TOL_QUANT, f"served actions off the trained actor's by {serve_err}")
+    return {"eval_reward": reward, "eval_episodes": TRAIN_CUT["eval_episodes"], "served": len(replies),
+            "serve_max_abs_err": serve_err}
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels.fxp_mlp.kernel import (ddpg_actor_step_cuda, ddpg_critic_step_cuda, fxp_mlp_bwd_cuda,
+                                                    fxp_mlp_fwd_cuda)
+    from repro_torch.rl import loop
+
+    for fn in (fxp_mlp_fwd_cuda, fxp_mlp_bwd_cuda, ddpg_critic_step_cuda, ddpg_actor_step_cuda):
+        fn.launches = 0
+    fxp_mlp_fwd_cuda.residual_launches = 0
+    loop.train_device.graph_replays = 0
+
+
+def _counts() -> dict:
+    from repro_torch.kernels.fxp_mlp.kernel import (ddpg_actor_step_cuda, ddpg_critic_step_cuda, fxp_mlp_bwd_cuda,
+                                                    fxp_mlp_fwd_cuda)
+
+    return {"fxp_mlp_fwd": fxp_mlp_fwd_cuda.launches, "fxp_mlp_fwd_residuals": fxp_mlp_fwd_cuda.residual_launches,
+            "fxp_mlp_bwd": fxp_mlp_bwd_cuda.launches, "ddpg_critic_step": ddpg_critic_step_cuda.launches,
+            "ddpg_actor_step": ddpg_actor_step_cuda.launches}
+
+
+def _kernels_ran(run) -> tuple:
+    """`run()` under `torch.profiler`; returns its result and the calls of
+    the training kernels that ran on the card, counted by kernel name in the
+    trace (CUDA-graph replays' too), keyed as `_counts` keys them: each
+    wrapper call's first CUDA launch (kernel B's instance per call, with
+    residuals or not; kernel 3's chain pass; kernels 4 and 5's chain
+    passes), and `reduce_update`, the second pass kernels 4 and 5 share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = run()
+        # the trace loses kernels that end within a few ms of its stop (on
+        # the H100 up to a replay and a half of 250): a ≈ 25 ms sleep kernel
+        # and a host wait keep the run's last kernels well inside it
+        torch.cuda._sleep(50_000_000)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    ran = dict.fromkeys(("fxp_mlp_fwd", "fxp_mlp_fwd_residuals", "fxp_mlp_bwd", "ddpg_critic_step",
+                         "ddpg_actor_step", "reduce_update"), 0)
+    names = {"bwd_chain_kernel": "fxp_mlp_bwd", "critic_chain_kernel": "ddpg_critic_step",
+             "actor_chain_kernel": "ddpg_actor_step", "reduce_update_kernel": "reduce_update"}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        fwd = re.search(r"fxp_mlp_fwd_kernel<\d+, (true|false),", e.key)  # <BM, SAVE, DEV_PHASE>
+        if fwd:
+            ran["fxp_mlp_fwd"] += e.count
+            ran["fxp_mlp_fwd_residuals"] += e.count if fwd.group(1) == "true" else 0
+        for kernel, key in names.items():
+            ran[key] += e.count if kernel in e.key else 0
+    return out, ran
+
+
+def phase_train(gen: torch.Generator, dev, seed: int) -> dict:
+    """The training main path with backend "pallas" (module docstring), with
+    the launch counts of the `train_host` run and its throughput."""
+    from repro_torch.obs import Tracer
+    from repro_torch.rl import loop
+
+    env, cfg, qat_delay, reduced = _train_config(seed)
+    dcfg = _paper_ddpg(qat_delay)
+    tracer = Tracer()
+    _reset_counts()
+    t0 = time.perf_counter()
+    ts, info = loop.train_host(env, cfg, dcfg, device=dev, tracer=tracer)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    launches = {"fxp_mlp_fwd": counts["fxp_mlp_fwd"], "fxp_mlp_bwd": counts["fxp_mlp_bwd"]}
+    updates = cfg.total_steps - cfg.warmup_steps + 1
+    phase = _check_trained(ts.agent, updates, "train")
+    steps = cfg.total_steps * max(cfg.n_envs, 1)
+    want = {"fxp_mlp_fwd": 5 * updates + cfg.total_steps, "fxp_mlp_bwd": 3 * updates}
+    require(launches == want, f"train: launches {launches}, expected {want}")
+    steady, p50 = _steady(tracer, cfg.warmup_steps - 1)
     report = {
-        "env": env.spec.name, "batch": dcfg.batch_size, "reduced": reduced, "env_steps": steps,
-        "updates": updates, "qat_delay": qat_delay, "phase_at_end": phase, "wall_s": wall,
-        "env_steps_per_s": steps / wall, "updates_per_s": updates / wall,
-        "update_ms_p50": statistics.median(upd) * 1e3, "updates_per_s_update_only": len(upd) / sum(upd),
-        "steady_steps_per_s": len(upd) / steady_s,
-        "times": info["times"], "launches": launches, "launches_expected": want,
+        "env": env.spec.name, "backend": dcfg.backend, "batch": dcfg.batch_size, "reduced": reduced,
+        "env_steps": steps, "updates": updates, "qat_delay": qat_delay, "phase_at_end": phase, "wall_s": wall,
+        "env_steps_per_s": steps / wall, "updates_per_s": updates / wall, "update_ms_p50": p50,
+        "steady_steps_per_s": steady, "times": info["times"], "launches": launches, "launches_expected": want,
         "cuda_launches": {"fxp_mlp_fwd": launches["fxp_mlp_fwd"], "fxp_mlp_bwd": 2 * launches["fxp_mlp_bwd"]},
-        "eval_reward": reward, "eval_episodes": TRAIN_CUT["eval_episodes"], "served": len(replies),
-        "serve_max_abs_err": serve_err,
+        **_evaluate_and_serve(env, ts.agent, dcfg, gen, dev, seed),
     }
     emit("train", **report)
     return report
 
 
-def phase_profile(gen: torch.Generator, dev, updates: int = 20) -> dict:
-    """Where an update's time goes: `torch.profiler` over `updates` calls
-    of `ddpg.update(backend="pallas")` at B = 128 (the QAT delay halfway, so
-    both phases): host wall per update, device busy time per update (the
-    sum of kernel times) and so the device's idle share, kernels and CUDA
-    runtime calls per update, and the kernels and CPU ops that take the
-    most time."""
+def phase_train_fused(gen: torch.Generator, dev, seed: int, pallas: dict) -> dict:
+    """The slice-3 training path: the same cut configuration through
+    `train_host` with backend "pallas_fused_step" (kernels 4 and 5 once per
+    update each, kernel B once per timestep, kernel 3 and kernel B's
+    residual mode never), then through `train_device`: the warmup window
+    eagerly, the updating timesteps as replays of one captured CUDA graph,
+    the QAT delay crossed inside the graph's window.  Wrapper counts there
+    are the eager calls plus the one captured call, which records its
+    launches and runs none; the replays run them.  So the same run is made
+    again with its graph window under `torch.profiler`, which counts by
+    name the kernels the replays ran: each replay must run kernels 4, 5
+    and B once each, and the rerun must end on the same agent.  Both
+    agents are evaluated and the graph-trained one is served."""
+    from repro_torch.obs import Tracer
+    from repro_torch.rl import loop
+
+    env, cfg, qat_delay, reduced = _train_config(seed, eval_every=TRAIN_CUT["warmup_steps"])
+    dcfg = _paper_ddpg(qat_delay, "pallas_fused_step")
+    updates = cfg.total_steps - cfg.warmup_steps + 1
+    steps = cfg.total_steps * max(cfg.n_envs, 1)
+
+    # ---- train_host, fused backend ------------------------------------------
+    tracer = Tracer()
+    _reset_counts()
+    t0 = time.perf_counter()
+    ts_h, info = loop.train_host(env, cfg, dcfg, device=dev, tracer=tracer)
+    sync(dev)
+    wall_h = time.perf_counter() - t0
+    host_counts = _counts()
+    want_h = {"fxp_mlp_fwd": cfg.total_steps, "fxp_mlp_fwd_residuals": 0, "fxp_mlp_bwd": 0,
+              "ddpg_critic_step": updates, "ddpg_actor_step": updates}
+    require(host_counts == want_h, f"train_fused host: launches {host_counts}, expected {want_h}")
+    _check_trained(ts_h.agent, updates, "train_fused host")
+    steady_h, p50_h = _steady(tracer, cfg.warmup_steps - 1)
+
+    # ---- train_device: eager warmup window, then graph replays -------------
+    _reset_counts()
+    t0 = time.perf_counter()
+    ts_d, hist = loop.train_device(env, cfg, dcfg, device=dev, eval_fn=lambda *a: torch.zeros(()))
+    sync(dev)
+    wall_d = time.perf_counter() - t0
+    dev_counts = _counts()
+    replays = loop.train_device.graph_replays
+    require(replays == updates - 1, f"train_device: {replays} graph replays, expected {updates - 1}")
+    want_d = {"fxp_mlp_fwd": cfg.warmup_steps + 1, "fxp_mlp_fwd_residuals": 0, "fxp_mlp_bwd": 0,
+              "ddpg_critic_step": 2, "ddpg_actor_step": 2}
+    require(dev_counts == want_d, f"train_device: wrapper calls {dev_counts}, expected {want_d}")
+    _check_trained(ts_d.agent, updates, "train_device")
+    # the same run again, its graph window under the profiler (the capture
+    # before it): the kernels the replays ran, by name
+    win = loop._Window(loop.init_train_state(env, cfg, dcfg, device=dev), env, cfg, dcfg)
+    win.run(0, cfg.warmup_steps)  # the first window, eager; its last step is the first update
+    win._capture()  # records the updating timestep and runs none of it
+    ran = {}
+    for first in range(cfg.warmup_steps, cfg.total_steps, 250):  # a trace of 250 replays is ≈ 120k kernels
+        _, part = _kernels_ran(lambda first=first: win.run(first, min(250, cfg.total_steps - first)))
+        ran = {k: ran.get(k, 0) + v for k, v in part.items()}
+    want_ran = {"fxp_mlp_fwd": replays, "fxp_mlp_fwd_residuals": 0, "fxp_mlp_bwd": 0, "ddpg_critic_step": replays,
+                "ddpg_actor_step": replays, "reduce_update": 2 * replays}
+    require(ran == want_ran and loop.train_device.graph_replays == 2 * replays,
+            f"train_device graph window: kernels that ran {ran}, expected {want_ran}")
+    rerun_same = all(torch.equal(getattr(win.ts.agent, n)[layer][leaf], getattr(ts_d.agent, n)[layer][leaf])
+                     for n in ("actor", "critic") for layer in getattr(ts_d.agent, n) for leaf in ("w", "b"))
+    require(rerun_same, "train_device: the profiled rerun ended on another agent")
+    # eager launches (the wrapper calls but the captured one) and the traced replays' kernels
+    executed = {k: v - (1 if v else 0) + ran[k] for k, v in dev_counts.items()}
+    require(hist["step"] == [cfg.warmup_steps, cfg.total_steps], f"train_device windows {hist['step']}")
+    # the two drivers ran one program from one seed: how far apart they end
+    drift = max(float((getattr(ts_d.agent, n)[layer][leaf] - getattr(ts_h.agent, n)[layer][leaf]).abs().max())
+                for n in ("actor", "critic") for layer in getattr(ts_h.agent, n) for leaf in ("w", "b"))
+    same_replay = bool(torch.equal(ts_d.buf.reward, ts_h.buf.reward))
+    # had a replay drawn the captured step's numbers again (the generators
+    # not registered), the rewards the two drivers stored would part ways
+    require(same_replay and drift <= 8 * 2.0**-16,
+            f"train_device and train_host parted: rewards equal {same_replay}, params {drift} apart")
+
+    report = {
+        "env": env.spec.name, "backend": dcfg.backend, "batch": dcfg.batch_size, "reduced": reduced,
+        "env_steps": steps, "updates": updates, "qat_delay": qat_delay,
+        "train_host": {
+            "wall_s": wall_h, "env_steps_per_s": steps / wall_h, "updates_per_s": updates / wall_h,
+            "steady_steps_per_s": steady_h, "update_ms_p50": p50_h, "times": info["times"], "launches": host_counts,
+            **_evaluate_and_serve(env, ts_h.agent, dcfg, gen, dev, seed),
+        },
+        "train_device": {
+            "wall_s": wall_d, "env_steps_per_s": steps / wall_d, "windows": hist["step"],
+            "steady_steps_per_s": hist["ips"][-1], "updates_per_s_steady": hist["updates_per_s"][-1],
+            "timestep_ms_steady": 1e3 / hist["ips"][-1], "train_reward": hist["train_reward"],
+            "graph_replays": replays, "wrapper_calls": dev_counts, "captured_calls": 1,
+            "replay_kernels_traced": ran, "executed": executed,
+            "executed_how": "eager wrapper launches + kernels counted by name in a torch.profiler trace of the "
+                            "graph window of a second, identical run (its agent bitwise the first's)",
+            **_evaluate_and_serve(env, ts_d.agent, dcfg, gen, dev, seed),
+        },
+        "pallas": {"steady_steps_per_s": pallas["steady_steps_per_s"], "update_ms_p50": pallas["update_ms_p50"]},
+        "device_vs_host_max_param_diff": drift, "device_vs_host_rewards_bitwise": same_replay,
+    }
+    emit("train_fused", **report)
+    return report
+
+
+def _profile(run, steps: int, wall_per: str) -> dict:
+    """`torch.profiler` over `run()` (`steps` steps): host wall and device
+    busy time per step (so the device's idle share), kernels and CUDA
+    runtime calls per step, the costliest kernels and host ops."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.rl import ddpg
-    from repro_torch.rl.envs import make
-
-    spec = make("halfcheetah").spec
-    cfg = _paper_ddpg(3 + updates // 2)
-    state = ddpg.init(spec, cfg, generator=gen, device=dev)
-    batches = [_random_batch(gen, dev, spec, cfg.batch_size) for _ in range(updates + 3)]
-    for b in batches[:3]:
-        state, _ = ddpg.update(state, b, cfg)
-    sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches[3:]:
-            state, _ = ddpg.update(state, b, cfg)
-        sync(dev)
+        run()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    require(bool(state.qat.quantized_phase), "profile: the QAT delay was not crossed")
 
     def dev_us(e) -> float:
         return float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
@@ -593,18 +918,63 @@ def phase_profile(gen: torch.Generator, dev, updates: int = 20) -> dict:
     runtime = sorted((e for e in events if e.key.startswith("cuda")), key=lambda e: -e.count)
     host_ops = sorted((e for e in events if not str(e.device_type).endswith("CUDA")),
                       key=lambda e: -e.self_cpu_time_total)
-    per = 1.0 / updates
-    report = {
-        "updates": updates, "batch": cfg.batch_size, "wall_ms_per_update": wall * 1e3 * per,
-        "device_busy_ms_per_update": device_us / 1e3 * per if device_us else None,
+    per = 1.0 / steps
+    return {
+        "steps": steps, f"wall_ms_per_{wall_per}": wall * 1e3 * per,
+        f"device_busy_ms_per_{wall_per}": device_us / 1e3 * per if device_us else None,
         "device_idle_share": 1.0 - device_us / 1e6 / wall if device_us else None,
-        "kernels_per_update": sum(e.count for e in kernels) * per,
-        "runtime_calls_per_update": {e.key: e.count * per for e in runtime[:8]},
-        "top_kernels_ms_per_update": {e.key[:60]: dev_us(e) / 1e3 * per
-                                      for e in sorted(kernels, key=lambda e: -dev_us(e))[:8]},
-        "top_host_ops_ms_per_update": {e.key[:60]: e.self_cpu_time_total / 1e3 * per for e in host_ops[:10]},
-        "note": "the profiler's own cost is in the wall time; device time is the sum of kernel times",
+        f"kernels_per_{wall_per}": sum(e.count for e in kernels) * per,
+        f"runtime_calls_per_{wall_per}": {e.key: e.count * per for e in runtime[:8]},
+        f"top_kernels_ms_per_{wall_per}": {e.key[:60]: dev_us(e) / 1e3 * per
+                                           for e in sorted(kernels, key=lambda e: -dev_us(e))[:8]},
+        f"top_host_ops_ms_per_{wall_per}": {e.key[:60]: e.self_cpu_time_total / 1e3 * per for e in host_ops[:10]},
     }
+
+
+def phase_profile(gen: torch.Generator, dev, updates: int = 20) -> dict:
+    """Where the time goes: `torch.profiler` over `updates` calls of
+    `ddpg.update` at B = 128 with backend "pallas" and with
+    "pallas_fused_step" (the QAT delay halfway, so both phases), and over
+    `updates` replays of `train_device`'s captured timestep (act, env step,
+    replay store and sample, fused update); then the host wall time of
+    single synchronised replays (p50)."""
+    from repro_torch.rl import ddpg, loop
+    from repro_torch.rl.envs import make
+
+    spec = make("halfcheetah").spec
+    report = {"updates": updates, "batch": _paper_ddpg(0).batch_size,
+              "note": "the profiler's own cost is in the wall time; device time is the sum of kernel times"}
+    for backend in ("pallas", "pallas_fused_step"):
+        cfg = _paper_ddpg(3 + updates // 2, backend)
+        state = ddpg.init(spec, cfg, generator=gen, device=dev)
+        batches = [_random_batch(gen, dev, spec, cfg.batch_size) for _ in range(updates + 3)]
+        for b in batches[:3]:
+            state, _ = ddpg.update(state, b, cfg)
+        sync(dev)
+        box = [state]
+
+        def run(box=box, batches=batches, cfg=cfg):
+            for b in batches[3:]:
+                box[0], _ = ddpg.update(box[0], b, cfg)
+
+        report[backend] = _profile(run, updates, "update")
+        require(bool(box[0].qat.quantized_phase), f"profile {backend}: the QAT delay was not crossed")
+
+    # the captured timestep of train_device
+    env = make("halfcheetah")
+    cfg = loop.TrainConfig(total_steps=10**6, warmup_steps=256, replay_capacity=100_000, seed=1)
+    dcfg = _paper_ddpg(updates // 2, "pallas_fused_step")
+    win = loop._Window(loop.init_train_state(env, cfg, dcfg, device=dev), env, cfg, dcfg)
+    win.run(0, cfg.warmup_steps + 1)  # the warmup, the eager updating step, the capture and one replay
+    report["graph_timestep"] = _profile(lambda: win.run(cfg.warmup_steps + 1, updates), updates, "timestep")
+    times = []
+    for i in range(50):
+        t0 = time.perf_counter()
+        win.run(cfg.warmup_steps + 1 + updates + i, 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    report["graph_timestep"]["synced_timestep_ms_p50"] = statistics.median(times)
+    require(bool(win.ts.agent.qat.quantized_phase), "profile: the graph's QAT delay was not crossed")
     emit("profile", **report)
     return report
 
@@ -859,11 +1229,51 @@ def phase_times(gen: torch.Generator, dev, dev_info: dict) -> dict:
                 "library_ms": None, "bound_ms": k_bound, "bound_by": k_by, "launches_per_call": 1,
                 "cuda_launches_per_call": 2,
             })
+    # kernels 4 and 5 at the training batch: bytes each input read once and
+    # each output written once; operations the forwards (2 passes in the
+    # monitor phase), the backward products this step needs, and ≈ 23 f32
+    # operations a parameter in the epilogue (projections, Adam, soft update)
+    from repro_torch.kernels.fxp_mlp.kernel import ddpg_actor_step_cuda, ddpg_critic_step_cuda
+    from repro_torch.kernels.fxp_mlp.ref import ref_ddpg_actor_step, ref_ddpg_critic_step
+
+    (a_dims, _), (c_dims, _) = NETS["actor"], NETS["critic"]
+    obs, act = a_dims[0], a_dims[-1]
+    macs = lambda d: sum(k * n for k, n in zip(d[:-1], d[1:]))  # noqa: E731
+    elems = lambda d: macs(d) + sum(d[1:])  # noqa: E731  parameters of a net
+    n_blocks = -(-batch // 8)
+    c = _step_case(gen, dev, batch, 0)
+    for case in ("monitor", "quant"):
+        quant = case == "quant"
+        passes = 1 if quant else 2
+        phase_t = torch.full((1,), int(quant), dtype=torch.int32, device=dev)
+        shared = 4 * (12 + 12 + 1)  # deltas, zs, hyper, phase
+        flops4 = (2 * batch * passes * (macs(a_dims) + 2 * macs(c_dims))
+                  + 2 * batch * (2 * macs(c_dims) - c_dims[0] * c_dims[1]) + 23 * elems(c_dims))
+        bytes4 = 4 * (batch * (2 * obs + act + 3) + elems(a_dims) + 8 * elems(c_dims) + n_blocks * 8) + shared
+        flops5 = (2 * batch * passes * (macs(a_dims) + macs(c_dims))
+                  + 2 * batch * (macs(c_dims) - c_dims[0] * c_dims[1] + act * c_dims[1])
+                  + 2 * batch * (2 * macs(a_dims) - a_dims[0] * a_dims[1]) + 23 * elems(a_dims))
+        bytes5 = 4 * (batch * (obs + 1) + 8 * elems(a_dims) + elems(c_dims) + n_blocks * 13) + shared
+        for name, kernel, twin, args, flops, nbytes in (
+            ("ddpg_critic_step", ddpg_critic_step_cuda, ref_ddpg_critic_step, _critic_args(c), flops4, bytes4),
+            ("ddpg_actor_step", ddpg_actor_step_cuda, ref_ddpg_actor_step, _actor_args(c, c["critic"]), flops5,
+             bytes5),
+        ):
+            bound, by = _bound_ms(nbytes, flops, dev_info)
+            rows.append({
+                "kernel": name, "shape": "actor 17-400-300-6, critic 23-400-300-1", "batch": batch, "phase": case,
+                "ms": device_time_ms(lambda: kernel(*args, phase_t, **c["kw"]), 100),
+                # ≈ 500 PyTorch ops a call: few calls behind a long sleep
+                "plain_ms": device_time_ms(lambda: twin(*args, quant, **c["kw"]), 5, sleep_cycles=400_000_000),
+                "library_ms": None, "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
+                "launches_per_call": 1, "cuda_launches_per_call": 2,
+            })
     emit("times", card=dev_info["nvidia_smi"], rows=rows,
          note="device time of back-to-back calls, operands warm in L2; library_ms for fxp_dense is "
               "torch.addmm on the precomputed hi and lo limbs plus the activation; fxp_mlp_fwd and "
               "fxp_mlp_bwd have no single PyTorch call computing their function (the backward is two "
-              "products and three masks per layer, walked in order)")
+              "products and three masks per layer, walked in order), nor do ddpg_critic_step and "
+              "ddpg_actor_step (a whole DDPG half-update)")
     return {(r["kernel"], r["shape"], r["batch"], r["phase"]): r for r in rows}
 
 
@@ -920,18 +1330,36 @@ def main(argv=None) -> int:
     err_b, err_b_quant = phase_kernel_b(gen, dev)
     err_b_res, err_qs = phase_kernel_b_res(gen, dev)
     err_bwd = phase_kernel_bwd(gen, dev)
+    err_step = phase_kernel_step(gen, dev)
     serve_launches = phase_serve(gen, dev)
     phase_update(gen, dev)
+    phase_update(gen, dev, "pallas_fused_step")
     train = phase_train(gen, dev, args.seed)
+    fused = phase_train_fused(gen, dev, args.seed, train)
     phase_profile(gen, dev)
     times = phase_times(gen, dev, dev_info)
     phase_engine_latency(gen, dev)
 
+    host, device = fused["train_host"], fused["train_device"]
+
+    def fused_path(name: str) -> dict:
+        return {"train_fused.train_host": host["launches"][name],
+                "train_fused.train_device": {"wrapper_calls": device["wrapper_calls"][name], "captured_calls": 1,
+                                             "graph_replays": device["graph_replays"],
+                                             "executed": device["executed"][name]}}
+
     by_path = {
         "fxp_dense": {"serve": serve_launches["fxp_dense"]},
-        "fxp_mlp_fwd": {"serve": serve_launches["fxp_mlp_fwd"], "train": train["launches"]["fxp_mlp_fwd"]},
+        "fxp_mlp_fwd": {"serve": serve_launches["fxp_mlp_fwd"], "train": train["launches"]["fxp_mlp_fwd"],
+                        **fused_path("fxp_mlp_fwd")},
         "fxp_mlp_bwd": {"train": train["launches"]["fxp_mlp_bwd"]},
+        "ddpg_critic_step": fused_path("ddpg_critic_step"),
+        "ddpg_actor_step": fused_path("ddpg_actor_step"),
     }
+
+    def wrapper_count(paths: dict) -> int:
+        return sum(v["wrapper_calls"] if isinstance(v, dict) else v for v in paths.values())
+
     kernels = []
     for name, source, replaces, key, err, tol in (
         ("fxp_dense", "src/repro_torch/csrc/fxp_dense.cu", "src/repro/kernels/fxp_matmul/kernel.py:47",
@@ -941,11 +1369,17 @@ def main(argv=None) -> int:
         ("fxp_mlp_bwd", "src/repro_torch/csrc/fxp_mlp_bwd.cu", "src/repro/kernels/fxp_mlp/kernel.py:223",
          ("fxp_mlp_bwd", "critic 23-400-300-1", _paper_ddpg(0).batch_size, "monitor"), err_bwd,
          {"rtol": GRAD_TOL["quant"][0], "atol": GRAD_TOL["quant"][1]}),
+        ("ddpg_critic_step", "src/repro_torch/csrc/fxp_ddpg_step.cu", "src/repro/kernels/fxp_mlp/kernel.py:481",
+         ("ddpg_critic_step", "actor 17-400-300-6, critic 23-400-300-1", _paper_ddpg(0).batch_size, "monitor"),
+         err_step["critic"], {k: {"atol": a, "rtol": r} for k, (a, r) in STEP_TOL.items()}),
+        ("ddpg_actor_step", "src/repro_torch/csrc/fxp_ddpg_step.cu", "src/repro/kernels/fxp_mlp/kernel.py:632",
+         ("ddpg_actor_step", "actor 17-400-300-6, critic 23-400-300-1", _paper_ddpg(0).batch_size, "monitor"),
+         err_step["actor"], {k: {"atol": a, "rtol": r} for k, (a, r) in STEP_TOL.items()}),
     ):
         row = times[key]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+            "launches": wrapper_count(by_path[name]), "launches_by_path": by_path[name],
             "max_abs_err": err, "tolerance": tol,
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -957,6 +1391,9 @@ def main(argv=None) -> int:
         if name == "fxp_mlp_bwd":
             entry["cuda_launches_per_call"] = 2
             entry["library_note"] = "no single PyTorch call computes the masked backward chain"
+        if name.startswith("ddpg_"):
+            entry["cuda_launches_per_call"] = 2
+            entry["library_note"] = "no single PyTorch call computes a whole DDPG half-update"
         kernels.append(entry)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,8 +1,7 @@
 """FIXAR's own workload: DDPG 400-300 actor-critic on continuous-control
 benchmarks (the paper's §VI configuration; port of
 `repro.configs.fixar_ddpg`).  `chip_smoke.py`'s training phase runs
-`CONFIG` cut in length, the CPU loop test `SMOKE`.  The reference's
-`eval_every` is left out: no driver of the port evaluates periodically."""
+`CONFIG` cut in length, the CPU loop test `SMOKE`."""
 
 import dataclasses
 
@@ -14,6 +13,7 @@ class FixarConfig:
     env: str = "halfcheetah"
     ddpg: DDPGConfig = dataclasses.field(default_factory=DDPGConfig)
     total_steps: int = 1_000_000  # paper: 1M timesteps
+    eval_every: int = 5_000  # paper cadence
     qat_delay_frac: float = 0.4  # delay = frac * total steps
 
 

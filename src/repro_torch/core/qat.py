@@ -14,11 +14,13 @@ the state with the new ranges.  `freeze_quant` snapshots the finalized
 ranges into a `FrozenQuant`, the only QAT object the serving path holds.
 
 The phase flag: range updates are selected on the device with `torch.where`
-on `QATState.quantized_phase`, as the reference selects them; the choice of
-datapath (which quantizer, which kernel mode) is a host decision, so a
-`QATContext` reads the phase once (or takes it from the caller, who read it
-once per update) and every site and kernel launch of that step uses that
-Python bool.
+on `QATState.quantized_phase`, as the reference selects them.  The choice of
+datapath (which quantizer, which kernel mode) is a host decision on the
+plain-PyTorch sites, so a `QATContext` reads the phase once (or takes it
+from the caller, who read it once per update) and every site and kernel
+launch of that step uses that Python bool.  The fused kernels can read the
+phase on the device instead (`quant_operand`), so acting and the fused
+update need no host read, and a CUDA graph can capture them.
 """
 
 from __future__ import annotations
@@ -121,6 +123,13 @@ class QATContext:
         if self._quant is None:
             self._quant = bool(self.state.quantized_phase)
         return self._quant
+
+    @property
+    def quant_operand(self):
+        """The phase for a fused-kernel launch: the host bool when this
+        context was given one, else the device-side flag (no host read;
+        the kernel reads it)."""
+        return self.state.quantized_phase if self._quant is None else self._quant
 
     def _check(self, name: str) -> None:
         if name not in self.state.ranges:

@@ -43,9 +43,11 @@
 //  * Plain CUDA-core f32 FMA: q and g are not bf16-exact, so no bf16 or
 //    TF32 MMA reproduces the f32 products.  No fast-math.
 
-#include <cuda_runtime.h>
+#include "fxp_common.cuh"
 
 namespace {
+
+using fxp::ste_pass;
 
 constexpr int MAX_LAYERS = 8;
 constexpr int THREADS = 256;
@@ -68,16 +70,6 @@ struct BwdArgs {
   int tile0[MAX_LAYERS + 1];   // pass 2: first tile of layer l; tile0[L] = total
   int tiles_n[MAX_LAYERS];     // pass 2: tiles across dims[l+1]
 };
-
-// Does the site's straight-through gradient pass at input value x?
-__device__ __forceinline__ bool ste_pass(float x, int quant, float lo, float hi, int fxp32_phase1) {
-  if (quant) return x >= lo && x <= hi;
-  if (fxp32_phase1) {
-    const float xs = x * 65536.0f;
-    return xs >= -2147483648.0f && xs <= 2147483648.0f;  // float32(int32 min / max)
-  }
-  return true;
-}
 
 __global__ void __launch_bounds__(THREADS)
 bwd_chain_kernel(const float* __restrict__ gy, const float* __restrict__ x0, const BwdArgs args,

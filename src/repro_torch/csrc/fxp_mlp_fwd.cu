@@ -20,6 +20,10 @@
 //   (M, N_l) for l < L−1, the layer output written in step 4.  The mode
 //   is a template instance (SAVE), so the serving instance has none of
 //   its code, and it only adds stores: y is bitwise the same in both.
+//   The phase can also be a device int32 read in-kernel (the DEV_PHASE
+//   instances, for acting inside a captured CUDA graph, where a host read
+//   of the phase would stop the capture); the host-phase instances keep
+//   the serving code.
 //
 // What bounds it on the H100: the paper's actor (17-400-300-6, 128,600
 // MACs a row) at B = 512 in full precision is 2 passes × 2·512·128,600 ≈
@@ -45,10 +49,13 @@
 //    half to even like jnp.round; no fast-math, so x/δ is an IEEE divide
 //    and tanhf the precise one.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "fxp_common.cuh"
 
 namespace {
+
+using fxp::activate;
+using fxp::bf16_hi;
+using fxp::site_project;
 
 constexpr int MAX_LAYERS = 8;
 constexpr int THREADS = 256;
@@ -68,36 +75,14 @@ struct ResArgs {           // the residual outputs, read by SAVE instances only
   float* h[MAX_LAYERS];  // (M, dims[l+1]) for l < n_layers-1
 };
 
-__device__ __forceinline__ float bf16_hi(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == 1) return fmaxf(v, 0.0f);
-  if (act == 2) return tanhf(v);
-  return v;
-}
-
-// `_site_project` of the reference kernel, for one element.
-__device__ __forceinline__ float site_project(float v, int quant, float delta, float z,
-                                              float q_max, int fxp32_phase1) {
-  if (quant) {
-    const float q = fminf(fmaxf(rintf(v / delta) + z, 0.0f), q_max);
-    return (q - z) * delta;
-  }
-  if (fxp32_phase1) {
-    // Q15.16: clip to the int32 raw range (as float32), round, rescale
-    return rintf(fminf(fmaxf(v * 65536.0f, -2147483648.0f), 2147483647.0f)) / 65536.0f;
-  }
-  return v;
-}
-
-template <int BM, bool SAVE>
+template <int BM, bool SAVE, bool DEV_PHASE>
 __global__ void __launch_bounds__(THREADS)
 fxp_mlp_fwd_kernel(const float* __restrict__ x, const MlpArgs args, const ResArgs res,
                    const float* __restrict__ deltas, const float* __restrict__ zs,
                    float* __restrict__ y, float* __restrict__ mins, float* __restrict__ maxs,
-                   int M, int quant, int qat, int fxp32_phase1, float q_max) {
+                   int M, int quant, int qat, int fxp32_phase1, float q_max,
+                   const int* __restrict__ phase) {
+  if (DEV_PHASE) quant = __ldg(phase) > 0;
   extern __shared__ float smem[];
   __shared__ float red_min[THREADS / 32];
   __shared__ float red_max[THREADS / 32];
@@ -207,20 +192,20 @@ fxp_mlp_fwd_kernel(const float* __restrict__ x, const MlpArgs args, const ResArg
   }
 }
 
-template <int BM, bool SAVE>
+template <int BM, bool SAVE, bool DEV_PHASE>
 int launch(const float* x, const MlpArgs& args, const ResArgs& res, const float* deltas,
            const float* zs, float* y, float* mins, float* maxs, int M, int quant, int qat,
-           int fxp32_phase1, float q_max, cudaStream_t stream) {
+           int fxp32_phase1, float q_max, const int* phase, cudaStream_t stream) {
   const size_t smem = (size_t)3 * BM * args.stride * sizeof(float);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fxp_mlp_fwd_kernel<BM, SAVE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fxp_mlp_fwd_kernel<BM, SAVE, DEV_PHASE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int grid = (M + BM - 1) / BM;
-  fxp_mlp_fwd_kernel<BM, SAVE><<<grid, THREADS, smem, stream>>>(
-      x, args, res, deltas, zs, y, mins, maxs, M, quant, qat, fxp32_phase1, q_max);
+  fxp_mlp_fwd_kernel<BM, SAVE, DEV_PHASE><<<grid, THREADS, smem, stream>>>(
+      x, args, res, deltas, zs, y, mins, maxs, M, quant, qat, fxp32_phase1, q_max, phase);
   return (int)cudaGetLastError();
 }
 
@@ -230,7 +215,10 @@ int launch(const float* x, const MlpArgs& args, const ResArgs& res, const float*
 // dims[l+1]); biases[l] (dims[l+1],); deltas/zs (n_layers,) or null when
 // qat == 0; y (M, dims[n_layers]); mins/maxs (ceil(M/bm), n_layers); with
 // save_residuals, qs[l] (M, dims[l]) for every layer and hs[l]
-// (M, dims[l+1]) for l < n_layers-1 (both arrays null otherwise).  All
+// (M, dims[l+1]) for l < n_layers-1 (both arrays null otherwise); phase,
+// when not null, a device int32 read in-kernel in place of `quant` (> 0:
+// the quant phase), so a captured graph sees the phase of each replay —
+// not with save_residuals.  All
 // float32, contiguous, on the current device.  bm is 8 or 1.  Launches on
 // `stream` and returns cudaGetLastError() (or cudaErrorInvalidValue for
 // arguments the kernel does not take).
@@ -239,12 +227,14 @@ extern "C" int fxp_mlp_fwd_launch(const float* x, const void* const* weights,
                                   int n_layers, const float* deltas, const float* zs, float* y,
                                   float* mins, float* maxs, int M, int bm, int quant, int qat,
                                   int fxp32_phase1, int n_bits, int save_residuals,
-                                  void* const* qs, void* const* hs, void* stream) {
+                                  void* const* qs, void* const* hs, const int* phase,
+                                  void* stream) {
   if (n_layers < 1 || n_layers > MAX_LAYERS || M <= 0 || n_bits < 1 || n_bits > 24)
     return (int)cudaErrorInvalidValue;
   if (qat && (deltas == nullptr || zs == nullptr)) return (int)cudaErrorInvalidValue;
   if (save_residuals && (qs == nullptr || (n_layers > 1 && hs == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (save_residuals && phase != nullptr) return (int)cudaErrorInvalidValue;
   MlpArgs args = {};
   ResArgs res = {};
   args.n_layers = n_layers;
@@ -268,10 +258,16 @@ extern "C" int fxp_mlp_fwd_launch(const float* x, const void* const* weights,
   }
   const float q_max = (float)((1 << n_bits) - 1);
   const cudaStream_t s = (cudaStream_t)stream;
-#define FXP_MLP_FWD_LAUNCH(BM, SAVE) \
-  launch<BM, SAVE>(x, args, res, deltas, zs, y, mins, maxs, M, quant, qat, fxp32_phase1, q_max, s)
-  if (bm == 8) return save_residuals ? FXP_MLP_FWD_LAUNCH(8, true) : FXP_MLP_FWD_LAUNCH(8, false);
-  if (bm == 1) return save_residuals ? FXP_MLP_FWD_LAUNCH(1, true) : FXP_MLP_FWD_LAUNCH(1, false);
+#define FXP_MLP_FWD_LAUNCH(BM, SAVE, DEV_PHASE)                                                  \
+  launch<BM, SAVE, DEV_PHASE>(x, args, res, deltas, zs, y, mins, maxs, M, quant, qat, fxp32_phase1, \
+                              q_max, phase, s)
+#define FXP_MLP_FWD_PICK(BM)                                                  \
+  (save_residuals ? FXP_MLP_FWD_LAUNCH(BM, true, false)                       \
+                  : phase != nullptr ? FXP_MLP_FWD_LAUNCH(BM, false, true)    \
+                                     : FXP_MLP_FWD_LAUNCH(BM, false, false))
+  if (bm == 8) return FXP_MLP_FWD_PICK(8);
+  if (bm == 1) return FXP_MLP_FWD_PICK(1);
+#undef FXP_MLP_FWD_PICK
 #undef FXP_MLP_FWD_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

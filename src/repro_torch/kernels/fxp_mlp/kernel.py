@@ -9,11 +9,20 @@
   replaces `fxp_mlp_bwd_pallas` → `_mlp_bwd_kernel`): dx, dW and db from
   the forward's residuals, in two CUDA launches (the chain over row
   blocks, then the dW/db reduction over rows), both deterministic.
+* `ddpg_critic_step_cuda` / `ddpg_actor_step_cuda` — kernels 4 and 5, the
+  whole DDPG update (`csrc/fxp_ddpg_step.cu`; replace
+  `ddpg_critic_step_pallas` → `_ddpg_critic_step_kernel` and
+  `ddpg_actor_step_pallas` → `_ddpg_actor_step_kernel`): forwards,
+  cotangent chain, dW/db, Adam and the Polyak update, two CUDA launches
+  each (the chain over row blocks, then the reduction and optimizer over
+  parameter tiles), deterministic.  Bound ≈ 4.0 / 3.5 µs (f32 operations,
+  monitor phase, B = 128); design in the source's header.
 
-Both take unpadded CUDA tensors, launch on PyTorch's current stream without
+All take unpadded CUDA tensors, launch on PyTorch's current stream without
 synchronising, and count their calls in `<wrapper>.launches` (one per
-call; the backward's call is two CUDA launches).  They never fall back: a
-tensor the kernel does not take, or a refused launch, raises.
+call; the backward's and the steps' calls are two CUDA launches each).
+They never fall back: a tensor a kernel does not take, or a refused
+launch, raises.
 """
 
 from __future__ import annotations
@@ -25,11 +34,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.fxp_matmul.kernel import ACTIVATION_CODES
+from repro_torch.kernels.fxp_mlp.ref import HYPER_LEN
 
 Tensor = torch.Tensor
 
 LIB = "fxp_mlp_fwd"
 LIB_BWD = "fxp_mlp_bwd"
+LIB_STEP = "fxp_ddpg_step"
+STEP_MAX_LAYERS = 4  # csrc/fxp_ddpg_step.cu MAX_LAYERS
 MAX_LAYERS = 8  # csrc/fxp_mlp_{fwd,bwd}.cu MAX_LAYERS
 MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 BWD_ROWS = 8  # csrc/fxp_mlp_bwd.cu BM: rows per block of the chain pass
@@ -50,7 +62,7 @@ def _launcher():
             + [ctypes.c_int]
             + [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 7
-            + [ctypes.c_void_p] * 3
+            + [ctypes.c_void_p] * 4
         )
         fn.restype = ctypes.c_int
     return lib, fn
@@ -107,6 +119,14 @@ def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def _check_phase(phase, device) -> None:
+    """A device phase operand is a (1,) int32 tensor beside the data."""
+    if not isinstance(phase, torch.Tensor) or phase.dtype != torch.int32 or tuple(phase.shape) != (1,):
+        raise ValueError(f"phase: expected a (1,) int32 tensor, got {getattr(phase, 'shape', phase)}")
+    if phase.device != device:
+        raise ValueError(f"phase on {phase.device}, data on {device}")
+
+
 def fxp_mlp_fwd_cuda(
     x: Tensor,
     weights: Sequence[Tensor],
@@ -120,14 +140,18 @@ def fxp_mlp_fwd_cuda(
     n_bits: int,
     fxp32_phase1: bool,
     save_residuals: bool = False,
+    phase: Optional[Tensor] = None,
 ):
     """The whole forward through kernel B.
 
     x: (M, K0); weights[i]: (K_i, N_i); biases[i]: (N_i,); deltas/zs: (L,)
     per-site affine operands (read only when qat).  All contiguous float32
-    on the current CUDA device.  Returns (y (M, N_L), mins, maxs), the last
-    two (n_blocks, L) per-block site extrema; with `save_residuals` also
-    (qs, hs) as `ref.ref_mlp_forward` returns them (hs[L-1] is y).
+    on the current CUDA device.  `phase`, a (1,) int32 on the same device,
+    is read in-kernel in place of `quant` (> 0: the quant phase), so the
+    launch needs no host read of the phase; not with `save_residuals`.
+    Returns (y (M, N_L), mins, maxs), the last two (n_blocks, L) per-block
+    site extrema; with `save_residuals` also (qs, hs) as
+    `ref.ref_mlp_forward` returns them (hs[L-1] is y).
     """
     if len(biases) != len(weights):
         raise ValueError(f"{len(weights)} weights vs {len(biases)} biases")
@@ -137,6 +161,10 @@ def fxp_mlp_fwd_cuda(
         _build.check_operand(b, f"biases[{i}]", 1)
         if b.shape[0] != dims[i + 1] or b.device != x.device:
             raise ValueError(f"layer {i}: b {tuple(b.shape)} on {b.device} for w {tuple(weights[i].shape)}")
+    if phase is not None:
+        _check_phase(phase, x.device)
+        if save_residuals:
+            raise ValueError("kernel B takes a device phase only without residuals")
     m = int(x.shape[0])
     bm = row_block(m)
     smem = 3 * bm * max(dims) * 4
@@ -176,16 +204,19 @@ def fxp_mlp_fwd_cuda(
         int(bool(save_residuals)),
         _ptrs(qs) if save_residuals else None,
         _ptrs(hs) if save_residuals and hs else None,
+        None if phase is None else phase.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check_launch(lib, LIB, rc)
     fxp_mlp_fwd_cuda.launches += 1
+    fxp_mlp_fwd_cuda.residual_launches += bool(save_residuals)
     if save_residuals:
         return y, mins, maxs, qs, hs + [y]
     return y, mins, maxs
 
 
 fxp_mlp_fwd_cuda.launches = 0
+fxp_mlp_fwd_cuda.residual_launches = 0  # the calls among them that saved residuals
 
 
 def fxp_mlp_bwd_cuda(
@@ -265,4 +296,217 @@ def fxp_mlp_bwd_cuda(
 fxp_mlp_bwd_cuda.launches = 0
 
 
-__all__ = ["fxp_mlp_fwd_cuda", "fxp_mlp_bwd_cuda", "row_block", "MAX_LAYERS", "BWD_ROWS"]
+def _step_launcher(name: str, n_ptrs_head: int, n_trees: int):
+    lib = _build.load(LIB_STEP)
+    fn = getattr(lib, f"fxp_ddpg_step_{name}_launch")
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = (
+            [p] * n_ptrs_head + [i] * 3 + [p] * n_trees + [p] * 4 + [i] + [p] * 9 + [i] * 4 + [p]
+        )
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _flat(tree) -> list:
+    """(ws, bs) → [w0, b0, w1, b1, ...], the kernels' tree layout."""
+    ws, bs = tree
+    return [t for pair in zip(ws, bs) for t in pair]
+
+
+def _check_tree(tree, dims, name: str, dev) -> None:
+    ws, bs = tree
+    if len(ws) != len(dims) - 1 or len(bs) != len(dims) - 1:
+        raise ValueError(f"{name}: {len(ws)} weights and {len(bs)} biases for {len(dims) - 1} layers")
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        _build.check_operand(w, f"{name} w{i}", 2)
+        _build.check_operand(b, f"{name} b{i}", 1)
+        if tuple(w.shape) != (dims[i], dims[i + 1]) or tuple(b.shape) != (dims[i + 1],):
+            raise ValueError(f"{name} layer {i}: w {tuple(w.shape)}, b {tuple(b.shape)}; expected "
+                             f"({dims[i]}, {dims[i + 1]}), ({dims[i + 1]},)")
+        if w.device != dev or b.device != dev:
+            raise ValueError(f"{name} layer {i} on {w.device}, data on {dev}")
+
+
+def _check_rows(tensors: dict, m: int, dev) -> None:
+    for name, (t, width) in tensors.items():
+        _build.check_operand(t, name, 1 if width is None else 2)
+        shape = (m,) if width is None else (m, width)
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} on {t.device}, expected {shape} on {dev}")
+
+
+def _check_step_common(deltas, zs, hyper, phase, n_layers: int, qat: bool, n_bits: int, dev) -> None:
+    if not 1 <= n_layers <= STEP_MAX_LAYERS:
+        raise ValueError(f"kernels 4 and 5 take 1..{STEP_MAX_LAYERS} layers, got {n_layers}")
+    if not 1 <= n_bits <= 24:
+        raise ValueError(f"n_bits {n_bits} outside 1..24")
+    operands = [("hyper", hyper, HYPER_LEN)] + ([("deltas", deltas, 2 * n_layers), ("zs", zs, 2 * n_layers)]
+                                              if qat else [])
+    for name, t, n in operands:
+        _build.check_operand(t, name, 1)
+        if t.shape[0] != n or t.device != dev:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} on {t.device}, expected ({n},) on {dev}")
+    _check_phase(phase, dev)
+
+
+def _new_trees(tree, n: int = 4) -> list:
+    """`n` fresh trees shaped like `tree` (the step's p, m, v, t outputs)."""
+    ws, bs = tree
+    return [([torch.empty_like(w) for w in ws], [torch.empty_like(b) for b in bs]) for _ in range(n)]
+
+
+def ddpg_critic_step_cuda(
+    obs: Tensor,
+    action: Tensor,
+    reward: Tensor,
+    done: Tensor,
+    next_obs: Tensor,
+    w: Tensor,
+    actor_t,
+    critic,
+    critic_t,
+    critic_m,
+    critic_v,
+    deltas: Optional[Tensor],
+    zs: Optional[Tensor],
+    hyper: Tensor,
+    phase: Tensor,
+    *,
+    actor_acts: Sequence[str],
+    critic_acts: Sequence[str],
+    n_bits: int,
+    qat: bool,
+    fxp32_phase1: bool,
+    fxp_weights: bool,
+):
+    """The critic half of one DDPG update through kernel 4.
+
+    obs (B, O), action (B, A), next_obs (B, O); reward, done (0/1) and the
+    row weights w (B,); trees (ws, bs): the target actor, and the critic,
+    its Adam moments and its target; deltas/zs (2L,) site operands (actor
+    sites, then critic sites; read only when qat); hyper (12,) the step's
+    scalars (`ref.HYPER_LEN` layout); phase (1,) int32.  All contiguous
+    float32 (phase int32) on the current CUDA device.  Returns (critic,
+    critic_m, critic_v, critic_t) as new trees, then mins/maxs
+    (n_blocks, L) and partials (n_blocks, 2) = per block [Σ w(q−y)², Σ w·y].
+    """
+    dev = obs.device
+    m = int(obs.shape[0])
+    obs_dim, act_dim = int(obs.shape[1]), int(action.shape[1])
+    n_layers = len(critic_acts)
+    a_dims = [obs_dim] + [int(t.shape[1]) for t in actor_t[0]]
+    c_dims = [obs_dim + act_dim] + [int(t.shape[1]) for t in critic[0]]
+    _check_rows({"obs": (obs, obs_dim), "action": (action, act_dim), "next_obs": (next_obs, obs_dim),
+                 "reward": (reward, None), "done": (done, None), "w": (w, None)}, m, dev)
+    if m == 0 or a_dims[-1] != act_dim or len(actor_acts) != n_layers:
+        raise ValueError(f"batch {m}, actor dims {a_dims} for action width {act_dim}")
+    _check_tree(actor_t, a_dims, "actor_t", dev)
+    for name, tree in (("critic", critic), ("critic_t", critic_t), ("critic_m", critic_m), ("critic_v", critic_v)):
+        _check_tree(tree, c_dims, name, dev)
+    _check_step_common(deltas, zs, hyper, phase, n_layers, qat, n_bits, dev)
+    outs = _new_trees(critic)
+    n_blocks = -(-m // BWD_ROWS)
+    mins = torch.empty((n_blocks, n_layers), dtype=torch.float32, device=dev)
+    maxs = torch.empty_like(mins)
+    part = torch.empty((n_blocks, 2), dtype=torch.float32, device=dev)
+    qs = [torch.empty((m, k), dtype=torch.float32, device=dev) for k in c_dims[:-1]]
+    gs = [torch.empty((m, n), dtype=torch.float32, device=dev) for n in c_dims[1:]]
+    codes = lambda acts: (ctypes.c_int * n_layers)(*[ACTIVATION_CODES[a] for a in acts])  # noqa: E731
+    lib, fn = _step_launcher("critic", 6, 9)
+    rc = fn(
+        obs.data_ptr(), action.data_ptr(), reward.data_ptr(), done.data_ptr(), w.data_ptr(), next_obs.data_ptr(),
+        m, obs_dim, act_dim,
+        *(_ptrs(_flat(t)) for t in (actor_t, critic, critic_m, critic_v, critic_t, *outs)),
+        (ctypes.c_int * (n_layers + 1))(*a_dims), codes(actor_acts),
+        (ctypes.c_int * (n_layers + 1))(*c_dims), codes(critic_acts), n_layers,
+        deltas.data_ptr() if qat else None, zs.data_ptr() if qat else None, hyper.data_ptr(), phase.data_ptr(),
+        _ptrs(qs), _ptrs(gs), mins.data_ptr(), maxs.data_ptr(), part.data_ptr(),
+        int(bool(qat)), int(bool(fxp32_phase1)), int(bool(fxp_weights)), n_bits,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check_launch(lib, LIB_STEP, rc)
+    ddpg_critic_step_cuda.launches += 1
+    return (*outs, mins, maxs, part)
+
+
+ddpg_critic_step_cuda.launches = 0
+
+
+def ddpg_actor_step_cuda(
+    obs: Tensor,
+    w: Tensor,
+    actor,
+    actor_m,
+    actor_v,
+    actor_t,
+    critic,
+    deltas: Optional[Tensor],
+    zs: Optional[Tensor],
+    hyper: Tensor,
+    phase: Tensor,
+    *,
+    actor_acts: Sequence[str],
+    critic_acts: Sequence[str],
+    n_bits: int,
+    qat: bool,
+    fxp32_phase1: bool,
+    fxp_weights: bool,
+):
+    """The actor half of one DDPG update through kernel 5, through the
+    updated `critic`.  obs (B, O), w (B,); trees (ws, bs): the actor, its
+    Adam moments, its target, and the critic; the rest as for
+    `ddpg_critic_step_cuda`.  Returns (actor, actor_m, actor_v, actor_t) as
+    new trees, then mins/maxs (n_blocks, 2L) (actor sites, then the critic
+    sites of this pass) and partials (n_blocks, 1) = per block Σ w·q."""
+    dev = obs.device
+    m = int(obs.shape[0])
+    obs_dim = int(obs.shape[1])
+    n_layers = len(actor_acts)
+    a_dims = [obs_dim] + [int(t.shape[1]) for t in actor[0]]
+    act_dim = a_dims[-1]
+    c_dims = [obs_dim + act_dim] + [int(t.shape[1]) for t in critic[0]]
+    _check_rows({"obs": (obs, obs_dim), "w": (w, None)}, m, dev)
+    if m == 0 or len(critic_acts) != n_layers:
+        raise ValueError(f"batch {m}, {n_layers} actor and {len(critic_acts)} critic layers")
+    for name, tree in (("actor", actor), ("actor_m", actor_m), ("actor_v", actor_v), ("actor_t", actor_t)):
+        _check_tree(tree, a_dims, name, dev)
+    _check_tree(critic, c_dims, "critic", dev)
+    _check_step_common(deltas, zs, hyper, phase, n_layers, qat, n_bits, dev)
+    outs = _new_trees(actor)
+    n_blocks = -(-m // BWD_ROWS)
+    mins = torch.empty((n_blocks, 2 * n_layers), dtype=torch.float32, device=dev)
+    maxs = torch.empty_like(mins)
+    part = torch.empty((n_blocks, 1), dtype=torch.float32, device=dev)
+    qs = [torch.empty((m, k), dtype=torch.float32, device=dev) for k in a_dims[:-1]]
+    gs = [torch.empty((m, n), dtype=torch.float32, device=dev) for n in a_dims[1:]]
+    codes = lambda acts: (ctypes.c_int * n_layers)(*[ACTIVATION_CODES[a] for a in acts])  # noqa: E731
+    lib, fn = _step_launcher("actor", 2, 9)
+    rc = fn(
+        obs.data_ptr(), w.data_ptr(), m, obs_dim, act_dim,
+        *(_ptrs(_flat(t)) for t in (actor, actor_m, actor_v, actor_t, *outs, critic)),
+        (ctypes.c_int * (n_layers + 1))(*a_dims), codes(actor_acts),
+        (ctypes.c_int * (n_layers + 1))(*c_dims), codes(critic_acts), n_layers,
+        deltas.data_ptr() if qat else None, zs.data_ptr() if qat else None, hyper.data_ptr(), phase.data_ptr(),
+        _ptrs(qs), _ptrs(gs), mins.data_ptr(), maxs.data_ptr(), part.data_ptr(),
+        int(bool(qat)), int(bool(fxp32_phase1)), int(bool(fxp_weights)), n_bits,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check_launch(lib, LIB_STEP, rc)
+    ddpg_actor_step_cuda.launches += 1
+    return (*outs, mins, maxs, part)
+
+
+ddpg_actor_step_cuda.launches = 0
+
+
+__all__ = [
+    "fxp_mlp_fwd_cuda",
+    "fxp_mlp_bwd_cuda",
+    "ddpg_critic_step_cuda",
+    "ddpg_actor_step_cuda",
+    "row_block",
+    "MAX_LAYERS",
+    "STEP_MAX_LAYERS",
+    "BWD_ROWS",
+]

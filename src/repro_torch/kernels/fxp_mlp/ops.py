@@ -16,20 +16,36 @@ kernel B with the residuals saved (one launch) and its backward is kernel 3
 straight-through masks; otherwise it is the plain fused forward.  For CPU
 tensors both halves are the plain versions (`ref.ref_mlp_forward`,
 `ref.ref_mlp_backward`), never autograd through the plain forward, whose
-`round`/`clamp` carry no straight-through gradient.  The whole-update step
-(`fxp_mlp_train_step`, kernels 4 and 5) is not ported yet (`ROADMAP.md`).
+`round`/`clamp` carry no straight-through gradient.
+
+`fxp_mlp_train_step` is one whole DDPG update — critic BP/WU, then actor
+BP/WU through the updated critic — in two fused steps: kernel 4
+(`kernel.ddpg_critic_step_cuda`) and kernel 5 (`kernel.ddpg_actor_step_cuda`)
+for CUDA tensors, their plain twins (`ref.ref_ddpg_critic_step`,
+`ref.ref_ddpg_actor_step`) for CPU tensors.  Its step scalars and the QAT
+phase stay on the device, so a CUDA graph can capture it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.device import check_same_device
 from repro_torch.kernels._compat import mlp_flops
-from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_bwd_cuda, fxp_mlp_fwd_cuda
-from repro_torch.kernels.fxp_mlp.ref import ref_mlp_backward, ref_mlp_forward
+from repro_torch.kernels.fxp_mlp.kernel import (
+    ddpg_actor_step_cuda,
+    ddpg_critic_step_cuda,
+    fxp_mlp_bwd_cuda,
+    fxp_mlp_fwd_cuda,
+)
+from repro_torch.kernels.fxp_mlp.ref import (
+    ref_ddpg_actor_step,
+    ref_ddpg_critic_step,
+    ref_mlp_backward,
+    ref_mlp_forward,
+)
 
 Tensor = torch.Tensor
 
@@ -93,16 +109,22 @@ def fxp_mlp_forward(
     Algorithm-1 phase flag (False = monitor/full precision, True =
     quantized/half precision), a bool or a 0-d tensor (read on the host).
     deltas/zs: (L,) per-site affine operands; ignored when qat=False.
+    A phase tensor on the card stays there: kernel B reads it in-kernel,
+    so the call needs no host read (and a CUDA graph can capture it).
 
     Returns (y, site_mins, site_maxs): y is (..., N_L); site_mins/maxs are
     the (L,) exact extrema of each layer's pre-quantization input.
     """
     x2, ws, bs, deltas, zs = _operands(x, weights, biases, deltas, zs, activations, qat)
-    kw = dict(activations=activations, quant=bool(quant_phase), n_bits=n_bits, qat=qat, fxp32_phase1=fxp32_phase1)
-    if x2.device.type == "cpu":
+    on_card = x2.device.type == "cuda"
+    dev_phase = on_card and isinstance(quant_phase, torch.Tensor) and quant_phase.device == x2.device
+    quant = False if dev_phase else bool(quant_phase)
+    kw = dict(activations=activations, quant=quant, n_bits=n_bits, qat=qat, fxp32_phase1=fxp32_phase1)
+    if not on_card:
         y, mins, maxs = ref_mlp_forward(x2, ws, bs, deltas, zs, **kw)
     else:
-        y, block_mins, block_maxs = fxp_mlp_fwd_cuda(x2, ws, bs, deltas, zs, **kw)
+        phase = quant_phase.reshape(1).to(torch.int32) if dev_phase else None
+        y, block_mins, block_maxs = fxp_mlp_fwd_cuda(x2, ws, bs, deltas, zs, phase=phase, **kw)
         mins, maxs = block_mins.amin(dim=0), block_maxs.amax(dim=0)
     return y.reshape(*x.shape[:-1], ws[-1].shape[-1]), mins, maxs
 
@@ -202,6 +224,113 @@ def fxp_mlp_infer(
     return y.detach()
 
 
+class TrainStepOut(NamedTuple):
+    """What `fxp_mlp_train_step` returns (the reference's fields): trees as
+    (ws, bs), the loss sums, and the site extrema of both passes."""
+
+    actor: tuple
+    critic: tuple
+    actor_t: tuple
+    critic_t: tuple
+    actor_m: tuple
+    actor_v: tuple
+    critic_m: tuple
+    critic_v: tuple
+    closs_sum: Tensor  # Σ w·(q − y)²
+    y_sum: Tensor  # Σ w·y
+    q_sum: Tensor  # Σ w·q(obs, actor(obs))
+    c_mins: Tensor  # (L,) critic sites, critic-loss pass
+    c_maxs: Tensor
+    a_mins: Tensor  # (2L,) actor sites then critic sites, actor pass
+    a_maxs: Tensor
+
+
+def _hyper(inv_w: Tensor, gamma: float, tau: float, c) -> Tensor:
+    """The (12,) step scalars on inv_w's device (`ref.HYPER_LEN` layout):
+    (1 − τ) folded in Python double, then float32, as the host soft update
+    folds it."""
+    full = lambda v: torch.full((), v, dtype=torch.float32, device=inv_w.device)  # noqa: E731
+    return torch.stack([inv_w, full(gamma), full(tau), full(1 - tau), c.lr, c.b1, c.one_minus_b1, c.b2,
+                        c.one_minus_b2, c.eps, c.bc1, c.bc2]).to(torch.float32)
+
+
+def fxp_mlp_train_step(
+    obs: Tensor,
+    action: Tensor,
+    reward: Tensor,
+    done: Tensor,
+    next_obs: Tensor,
+    w: Tensor,
+    actor_wb,
+    critic_wb,
+    actor_t_wb,
+    critic_t_wb,
+    actor_m,
+    actor_v,
+    critic_m,
+    critic_v,
+    deltas: Optional[Tensor],
+    zs: Optional[Tensor],
+    consts_c,
+    consts_a,
+    quant_phase,
+    *,
+    actor_acts: Sequence[str],
+    critic_acts: Sequence[str],
+    obs_dim: int,
+    act_dim: int,
+    gamma: float,
+    tau: float,
+    n_bits: int = 16,
+    qat: bool = True,
+    fxp32_phase1: bool = True,
+    fxp_weights: bool = True,
+) -> TrainStepOut:
+    """One whole DDPG update in two fused steps (module docstring).
+
+    obs/next_obs (B, obs_dim), action (B, act_dim); reward, done, w (B,),
+    w the row weights (ones when the batch has no mask).  Every tree is
+    (ws, bs) of unpadded leaves: the nets, their targets, and their Adam
+    moments.  deltas/zs: (2L,) site operands (actor sites, then critic
+    sites), None when qat is off.  consts_c / consts_a: `adam.StepConstants`
+    of the post-increment critic / actor step.  quant_phase: the QAT phase,
+    a bool or a 0-d tensor (on the card it is read in-kernel).
+    """
+    dev = check_same_device(obs, action, reward, done, next_obs, w)
+    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
+    tree = lambda t: ([f32(x) for x in t[0]], [f32(x) for x in t[1]])  # noqa: E731
+    obs, action, reward, done, next_obs, w = (f32(t) for t in (obs, action, reward, done, next_obs, w))
+    reward, done, w = reward.reshape(-1), done.reshape(-1), w.reshape(-1)
+    if obs.shape[-1] != obs_dim or action.shape[-1] != act_dim:
+        raise ValueError(f"obs {tuple(obs.shape)}, action {tuple(action.shape)} for dims {obs_dim}/{act_dim}")
+    n = len(actor_acts)
+    deltas, zs = _norm_quant_params(deltas, zs, 2 * n, qat, dev)
+    inv_w = 1.0 / torch.clamp(torch.sum(w), min=1.0)
+    hyper_c, hyper_a = _hyper(inv_w, gamma, tau, consts_c), _hyper(inv_w, gamma, tau, consts_a)
+    kw = dict(actor_acts=tuple(actor_acts), critic_acts=tuple(critic_acts), n_bits=n_bits, qat=qat,
+              fxp32_phase1=fxp32_phase1, fxp_weights=fxp_weights)
+    actor, critic, actor_t, critic_t = (tree(t) for t in (actor_wb, critic_wb, actor_t_wb, critic_t_wb))
+    am, av, cm, cv = (tree(t) for t in (actor_m, actor_v, critic_m, critic_v))
+    if dev.type == "cpu":
+        quant = bool(quant_phase)
+        c_out = ref_ddpg_critic_step(obs, action, reward, done, next_obs, w, actor_t, critic, critic_t, cm, cv,
+                                     deltas, zs, hyper_c, quant, **kw)
+        a_out = ref_ddpg_actor_step(obs, w, actor, am, av, actor_t, c_out[0], deltas, zs, hyper_a, quant, **kw)
+    else:
+        phase = torch.as_tensor(quant_phase, device=dev).reshape(1).to(torch.int32)
+        c_out = ddpg_critic_step_cuda(obs, action, reward, done, next_obs, w, actor_t, critic, critic_t, cm, cv,
+                                      deltas, zs, hyper_c, phase, **kw)
+        a_out = ddpg_actor_step_cuda(obs, w, actor, am, av, actor_t, c_out[0], deltas, zs, hyper_a, phase, **kw)
+    new_c, new_cm, new_cv, new_ct, mins1, maxs1, part1 = c_out
+    new_a, new_am, new_av, new_at, mins2, maxs2, part2 = a_out
+    return TrainStepOut(
+        actor=new_a, critic=new_c, actor_t=new_at, critic_t=new_ct,
+        actor_m=new_am, actor_v=new_av, critic_m=new_cm, critic_v=new_cv,
+        closs_sum=part1[:, 0].sum(), y_sum=part1[:, 1].sum(), q_sum=part2[:, 0].sum(),
+        c_mins=mins1.amin(dim=0), c_maxs=maxs1.amax(dim=0), a_mins=mins2.amin(dim=0), a_maxs=maxs2.amax(dim=0),
+    )
+
+
 def fused_cost_hint(dims: Sequence[int], phase: str = "act") -> dict:
     """Dispatcher hook: launch/FLOP shape of the fused path — the whole
     network in ONE launch, batch as the only grid axis.  phase="train" is a
@@ -213,4 +342,5 @@ def fused_cost_hint(dims: Sequence[int], phase: str = "act") -> dict:
     return {"launches": 1, "flops_per_item": mlp_flops(dims), "parallelism": "intra_batch"}
 
 
-__all__ = ["fxp_mlp_forward", "fxp_mlp_train", "fxp_mlp_infer", "fused_cost_hint"]
+__all__ = ["fxp_mlp_forward", "fxp_mlp_train", "fxp_mlp_infer", "fxp_mlp_train_step", "TrainStepOut",
+           "fused_cost_hint"]

@@ -20,8 +20,12 @@ config carries across unchanged):
     kernel 3 (`csrc/fxp_mlp_bwd.cu`) runs the whole backward
     (`kernels.fxp_mlp.ops.fxp_mlp_train`).  For CPU tensors their plain
     versions run instead;
-  * "pallas_fused_step" — the whole update in two launches (kernels 4 and
-    5): not ported yet, raises;
+  * "pallas_fused_step" — the whole update in two fused steps: kernel 4
+    (critic forwards, TD target, backward, Adam and the target's soft
+    update) and kernel 5 (the same for the actor, through the updated
+    critic), `csrc/fxp_ddpg_step.cu` via
+    `kernels.fxp_mlp.ops.fxp_mlp_train_step`; their plain twins for CPU
+    tensors.  Acting is kernel B, as for "pallas";
   * "pallas_layer" — the per-layer chain has no backward: forward only,
     `update` raises, as in the reference.
 
@@ -30,10 +34,13 @@ micro-batches through, in three modes: "fused" (kernel B, one launch),
 "layer" (kernel A per layer) and "jnp" (plain PyTorch; the name stays
 because it is a `stats()` key).
 
-One read of the QAT phase per `update`: the phase decides which quantizer
-and which kernel mode every site and launch of the update uses, so it is
-read on the host once and handed to each `QATContext`; range updates stay
-on the device.
+The QAT phase: "jnp" and "pallas" updates read it on the host once per
+`update` and hand the bool to each `QATContext`, since it decides which
+quantizer and which kernel mode every site and launch uses.
+"pallas_fused_step" and acting through kernel B never read it on the host:
+the kernels take the device-side flag.  Range updates stay on the device
+either way.  So `act` and the fused `update` run without a device sync,
+which lets `rl/loop.train_device` capture a whole timestep as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from repro_torch.core import fixedpoint as fxp
 from repro_torch.core.qat import FrozenQuant, QATContext, QATState, freeze_quant, quantize_grads
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.fxp_matmul.ops import fxp_dense_chain
-from repro_torch.kernels.fxp_mlp.ops import fxp_mlp_infer, fxp_mlp_train
+from repro_torch.kernels.fxp_mlp.ops import fxp_mlp_infer, fxp_mlp_train, fxp_mlp_train_step
 from repro_torch.optim import adam, fxp_adam
 from repro_torch.rl.envs.base import EnvSpec
 
@@ -160,6 +167,15 @@ def init(spec: EnvSpec, cfg: DDPGConfig, *, generator: torch.Generator, device: 
     )
 
 
+def _params_to_wb(params: Params, n: int) -> tuple[list, list]:
+    return [params[f"l{i}"]["w"] for i in range(n)], [params[f"l{i}"]["b"] for i in range(n)]
+
+
+def _wb_to_params(wb) -> Params:
+    ws, bs = wb
+    return {f"l{i}": {"w": w, "b": b} for i, (w, b) in enumerate(zip(ws, bs))}
+
+
 def _dense(x: Tensor, layer: dict, activation: str) -> Tensor:
     y = x @ layer["w"] + layer["b"]
     if activation == "relu":
@@ -173,9 +189,7 @@ def act_batch(actor: Params, obs: Tensor, frozen: Optional[FrozenQuant] = None, 
     """Pure batched greedy policy (see module docstring for the modes).
     Takes only the actor params and a `FrozenQuant` snapshot, so the serve
     path cannot touch live QAT range monitors."""
-    n = len(ACTOR_ACTS)
-    ws = [actor[f"l{i}"]["w"] for i in range(n)]
-    bs = [actor[f"l{i}"]["b"] for i in range(n)]
+    ws, bs = _params_to_wb(actor, len(ACTOR_ACTS))
     if mode == "fused":
         if frozen is None:
             y = fxp_mlp_infer(obs, ws, bs, activations=ACTOR_ACTS, quant_phase=False)
@@ -246,16 +260,14 @@ def _fused_mlp(params: Params, x: Tensor, ctx: Optional[QATContext], *, sites: l
     is its backward when autograd needs one).  Range observations flow
     back into `ctx` via `observe`, so QAT state evolves as on the
     per-layer path."""
-    n = len(activations)
-    ws = [params[f"l{i}"]["w"] for i in range(n)]
-    bs = [params[f"l{i}"]["b"] for i in range(n)]
+    ws, bs = _params_to_wb(params, len(activations))
     if ctx is None or not ctx.state.config.enabled:
         y, _, _ = fxp_mlp_train(x, ws, bs, activations=activations, quant_phase=False, qat=False)
         return y
     cfg = ctx.state.config
     deltas, zs = ctx.site_quant_params(sites)
     y, mns, mxs = fxp_mlp_train(
-        x, ws, bs, deltas, zs, activations=activations, quant_phase=ctx.quant, n_bits=cfg.n_bits,
+        x, ws, bs, deltas, zs, activations=activations, quant_phase=ctx.quant_operand, n_bits=cfg.n_bits,
         fxp32_phase1=cfg.fxp32_phase1,
     )
     for j, site in enumerate(sites):
@@ -343,6 +355,74 @@ def _grads_tree(params: Params, grads: list[Tensor]) -> Params:
     return {k: {n: next(it) for n in layer} for k, layer in params.items()}
 
 
+def _update_fused_step(state: DDPGState, batch: dict[str, Tensor], cfg: DDPGConfig
+                       ) -> tuple[DDPGState, dict[str, Tensor]]:
+    """The whole update through `fxp_mlp_train_step` (kernels 4 and 5):
+    critic fwd+bwd+Adam+soft update, then the actor's through the updated
+    critic.  Losses, QAT range evolution and the optimizer trajectory track
+    backend "pallas" (the reference's `_update_fused_step`).  Nothing here
+    reads the device on the host."""
+    obs, action = batch["obs"], batch["action"]
+    reward, next_obs = batch["reward"], batch["next_obs"]
+    done = batch["done"].to(torch.float32)
+    mask = batch.get("mask")
+    w = torch.ones((obs.shape[0],), dtype=torch.float32, device=obs.device) if mask is None else mask.to(torch.float32)
+
+    qat_on = state.qat.config.enabled
+    deltas = zs = None
+    if qat_on:
+        deltas, zs = QATContext(state.qat).site_quant_params(ACTOR_SITES + CRITIC_SITES)
+    opt_c = fxp_adam.FxpAdamConfig(lr=cfg.critic_lr) if cfg.fxp_weights else adam.AdamConfig(lr=cfg.critic_lr)
+    opt_a = fxp_adam.FxpAdamConfig(lr=cfg.actor_lr) if cfg.fxp_weights else adam.AdamConfig(lr=cfg.actor_lr)
+    consts_c = adam.step_constants(opt_c, state.critic_opt.step + 1)
+    consts_a = adam.step_constants(opt_a, state.actor_opt.step + 1)
+
+    n = len(ACTOR_ACTS)
+    wb = lambda p: _params_to_wb(p, n)  # noqa: E731
+    with torch.no_grad():
+        # the phase goes in even with QAT off, as the reference's does: past
+        # the delay the fused step runs the hi-limb datapath either way
+        out = fxp_mlp_train_step(
+            obs, action, reward, done, next_obs, w,
+            wb(state.actor), wb(state.critic), wb(state.actor_target), wb(state.critic_target),
+            wb(state.actor_opt.mu), wb(state.actor_opt.nu), wb(state.critic_opt.mu), wb(state.critic_opt.nu),
+            deltas, zs, consts_c, consts_a, state.qat.quantized_phase,
+            actor_acts=ACTOR_ACTS, critic_acts=CRITIC_ACTS, obs_dim=int(obs.shape[-1]),
+            act_dim=int(action.shape[-1]), gamma=cfg.gamma, tau=cfg.tau, n_bits=state.qat.config.n_bits,
+            qat=qat_on, fxp32_phase1=state.qat.config.fxp32_phase1, fxp_weights=cfg.fxp_weights,
+        )
+        # range evolution mirrors update()'s two contexts: the critic-loss
+        # pass observes the critic sites, the actor pass the actor sites and
+        # the critic sites again on top
+        if qat_on:
+            ctx1 = QATContext(state.qat)
+            for j, site in enumerate(CRITIC_SITES):
+                ctx1.observe(site, out.c_mins[j], out.c_maxs[j])
+            ctx2 = QATContext(ctx1.finalize())
+            for j, site in enumerate(ACTOR_SITES + CRITIC_SITES):
+                ctx2.observe(site, out.a_mins[j], out.a_maxs[j])
+            qat_final = ctx2.finalize().tick()
+        else:
+            qat_final = state.qat.tick()
+
+        sum_w = torch.clamp(torch.sum(w), min=1.0)
+        new_state = DDPGState(
+            actor=_wb_to_params(out.actor),
+            critic=_wb_to_params(out.critic),
+            actor_target=_wb_to_params(out.actor_t),
+            critic_target=_wb_to_params(out.critic_t),
+            actor_opt=adam.AdamState(step=state.actor_opt.step + 1, mu=_wb_to_params(out.actor_m),
+                                     nu=_wb_to_params(out.actor_v)),
+            critic_opt=adam.AdamState(step=state.critic_opt.step + 1, mu=_wb_to_params(out.critic_m),
+                                      nu=_wb_to_params(out.critic_v)),
+            qat=qat_final,
+            step=state.step + 1,
+        )
+        metrics = {"critic_loss": out.closs_sum / sum_w, "actor_loss": -(out.q_sum / sum_w),
+                   "q_mean": out.y_sum / sum_w}
+    return new_state, metrics
+
+
 def update(state: DDPGState, batch: dict[str, Tensor], cfg: DDPGConfig) -> tuple[DDPGState, dict[str, Tensor]]:
     """One FIXAR timestep's training work: critic BP/WU, then actor BP/WU
     through the *updated* critic (the operation sequence of Fig. 3), then
@@ -350,17 +430,14 @@ def update(state: DDPGState, batch: dict[str, Tensor], cfg: DDPGConfig) -> tuple
 
     `batch` holds (B, ·) tensors `obs`, `action`, `reward`, `next_obs`,
     `done`, and optionally `mask`, (B,) row weights: rows with weight 0 add
-    exactly zero gradient.  Trains with backend "jnp" or "pallas" (module
-    docstring); the other two raise."""
+    exactly zero gradient.  Trains with backend "jnp", "pallas" or
+    "pallas_fused_step" (module docstring); "pallas_layer" raises."""
     if cfg.backend == "pallas_fused_step":
-        raise NotImplementedError(
-            "backend='pallas_fused_step' (kernels 4 and 5, the whole update in two launches) is not "
-            "ported yet: ROADMAP.md Queue 2, item 1; train with backend='pallas'"
-        )
+        return _update_fused_step(state, batch, cfg)
     if cfg.backend not in ("jnp", "pallas"):
         raise ValueError(
             f"backend={cfg.backend!r} is forward/inference-only (the per-layer kernel chain has no "
-            "backward); train with backend='jnp' or backend='pallas'"
+            "backward); train with backend='jnp', backend='pallas', or backend='pallas_fused_step'"
         )
     obs, action = batch["obs"], batch["action"]
     reward, next_obs = batch["reward"], batch["next_obs"]

@@ -1,30 +1,47 @@
 """FIXAR's end-to-end DRL loop, the operation sequence of Fig. 3 (port of
-the host driver of `repro.rl.loop`).
+`repro.rl.loop`).
 
-`train_host` is the paper-faithful loop: each timestep acts (actor forward
-plus exploration noise), steps the env fleet, stores the fleet's
-transitions and samples a batch from replay, then runs one `ddpg.update`
-once the buffer holds `warmup_steps` transitions.  It times the three
-Fig.-9 segments — env, runtime (replay and transfer) and accelerator (act
-and update) — each ended by a `torch.cuda.synchronize()` on the card, and
-emits them as `loop.*` trace spans when given a tracer.  Env fleet, replay
-and agent all live on the loop's device.
+Every driver runs the same timestep: act (actor forward plus exploration
+noise), step the env fleet, store the fleet's transitions, sample a batch
+from replay, and run one `ddpg.update` once the buffer holds
+`warmup_steps` transitions.  Env fleet, replay and agent all live on the
+loop's device, and whether a step updates is known on the host: the
+buffer holds min(steps · n_envs, capacity) transitions.
 
-Not ported yet (`ROADMAP.md`): the `lax.scan` window drivers
-`train_device`/`train_fused`, whose PyTorch counterpart is a CUDA-graph-
-captured window; `learner=` (the learner engine) and `observability=`
-(the fleet telemetry bundle) raise.
+* `train_host` is the paper-faithful loop.  It times the three Fig.-9
+  segments — env, runtime (replay and transfer) and accelerator (act and
+  update) — each ended by a `torch.cuda.synchronize()` on the card, and
+  emits them as `loop.*` trace spans when given a tracer.
+* `train_device` runs the reference's device-resident driver (one
+  `lax.scan` per eval window there): on the card, the first updating
+  timestep runs eagerly, the second is captured once as a CUDA graph, and
+  that graph is replayed for every later updating timestep of every
+  window; the host reads back only each window's scalars and evaluates
+  between windows.  The warmup steps run eagerly.  A graph needs fixed
+  addresses, so each step's new state is copied into one static
+  `TrainState`, and the loop's generators are registered with the graph so
+  every replay draws fresh numbers.  Capture needs an update that reads
+  nothing on the host: on the card `train_device` takes
+  `backend="pallas_fused_step"` (kernels 4 and 5) and raises for the
+  others, and a capture that fails raises; it never falls back to eager
+  steps.  On the CPU (`device="cpu"`) the same timestep runs eagerly, for
+  every backend.
+* `train_fused` is the reference's chunked driver over the same windows.
+
+Not ported yet (`ROADMAP.md`): `learner=` (the learner engine) and
+`observability=` (the fleet telemetry bundle) raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.optim import adam
 from repro_torch.rl import ddpg, replay
 from repro_torch.rl.envs.base import EnvState, env_init, init_fleet, step_fleet
 from repro_torch.rl.noise import NoiseProcess, NoiseState
@@ -34,23 +51,27 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The host loop's config: the reference's `TrainConfig` without the
-    fields of what is not ported (`eval_every`/`eval_episodes`, read by no
-    driver here, and the window drivers' `chunk`)."""
+    """One config for every training driver (`train_host`, `train_device`,
+    `train_fused`), the reference's fields and defaults."""
 
     total_steps: int = 10_000
     warmup_steps: int = 1_000  # env steps before updates start
     replay_capacity: int = 100_000
+    eval_every: int = 5_000  # paper: evaluate every 5000 timesteps
+    eval_episodes: int = 10  # paper: 10 random starts
     n_envs: int = 1
     seed: int = 0
+    chunk: int = 1000  # train_fused window length
     noise_kind: str = "gaussian"  # rl/noise process: gaussian|ou|none
     noise_sigma: Optional[float] = None  # None -> dcfg.exploration_sigma
 
 
-def as_train_config(cfg=None) -> TrainConfig:
+def as_train_config(cfg=None, **overrides) -> TrainConfig:
     """Normalize onto `TrainConfig`: pass-through for a `TrainConfig`,
     a copy of its fields for a duck-typed config object (the reference's
-    `TrainConfig` among them), kwargs for a dict, defaults for None."""
+    `TrainConfig` among them), kwargs for a dict, defaults for None.
+    `overrides` are per-call kwargs (`train_fused(chunk=...)`); only those
+    not None win."""
     if cfg is None:
         cfg = TrainConfig()
     elif isinstance(cfg, dict):
@@ -58,7 +79,8 @@ def as_train_config(cfg=None) -> TrainConfig:
     elif not isinstance(cfg, TrainConfig):
         names = (f.name for f in dataclasses.fields(TrainConfig))
         cfg = TrainConfig(**{n: getattr(cfg, n) for n in names if hasattr(cfg, n)})
-    return cfg
+    live = {k: v for k, v in overrides.items() if v is not None}
+    return dataclasses.replace(cfg, **live) if live else cfg
 
 
 def _noise_proc(cfg: TrainConfig, dcfg: ddpg.DDPGConfig) -> NoiseProcess:
@@ -97,6 +119,201 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _updates_at(step: int, cfg: TrainConfig) -> bool:
+    """Does timestep `step` (from 0) update?  The buffer then holds
+    min((step + 1) · n_envs, capacity) transitions: known on the host."""
+    return min((step + 1) * max(cfg.n_envs, 1), cfg.replay_capacity) >= cfg.warmup_steps
+
+
+def _timestep(ts: TrainState, env, proc: NoiseProcess, dcfg: ddpg.DDPGConfig, update: bool,
+              mark: Callable[[], None] = lambda: None) -> tuple[TrainState, Tensor]:
+    """One FIXAR timestep (module docstring), the one every driver runs;
+    returns the new state and the fleet's rewards.  Reads nothing on the
+    host.  `mark` is called after each of the Fig.-9 segments that ran:
+    act, env, replay, and the update when there is one."""
+    # 1. actor forward (inference) + exploration noise  [FPGA FP + PRNG]
+    nz, eps = proc.sample(ts.noise, ts.gen)
+    action = ddpg.act(ts.agent, ts.obs, cfg=dcfg, noise=eps)
+    mark()
+    # 2. environment transition (the fleet)             [host CPU in paper]
+    env_state, next_obs, reward, done = step_fleet(env, ts.env_state, action, generator=ts.env_gen)
+    mark()
+    # 3. store the fleet's transitions, 4. sample a batch [replay memory]
+    buf = replay.add_batch(
+        ts.buf, {"obs": ts.obs, "action": action, "reward": reward, "next_obs": next_obs, "done": done}
+    )
+    batch = replay.sample(buf, ts.gen, dcfg.batch_size)
+    mark()
+    # 5. critic/actor BP+WU                              [FPGA training]
+    agent = ts.agent
+    if update:
+        agent = ddpg.update(agent, batch, dcfg)[0]
+        mark()
+    return dataclasses.replace(ts, agent=agent, env_state=env_state, obs=next_obs, buf=buf, noise=nz), reward
+
+
+def _state_leaves(ts: TrainState) -> list[Tensor]:
+    """Every tensor of a `TrainState`, in a fixed order."""
+    a = ts.agent
+    nets = (a.actor, a.critic, a.actor_target, a.critic_target, a.actor_opt.mu, a.actor_opt.nu,
+            a.critic_opt.mu, a.critic_opt.nu)
+    out = [leaf for tree in nets for leaf in adam.tree_leaves(tree)]
+    out += [a.actor_opt.step, a.critic_opt.step, a.qat.step, a.step]
+    for name in sorted(a.qat.ranges):
+        r = a.qat.ranges[name]
+        out += [r.a_min, r.a_max, r.count]
+    b = ts.buf
+    out += [ts.env_state.q, ts.env_state.qd, ts.env_state.t, ts.obs, ts.noise.x,
+            b.obs, b.action, b.reward, b.next_obs, b.done, b.ptr, b.size]
+    return out
+
+
+class _Window:
+    """Runs timesteps on one static `TrainState` (module docstring): each
+    step's new state is copied into it, and on the card the updating
+    timestep is captured once as a CUDA graph and replayed."""
+
+    def __init__(self, ts: TrainState, env, cfg: TrainConfig, dcfg: ddpg.DDPGConfig):
+        self.ts, self.env, self.cfg, self.dcfg = ts, env, cfg, dcfg
+        self.proc = _noise_proc(cfg, dcfg)
+        self.dev = ts.obs.device
+        self.reward_sum = torch.zeros((), dtype=torch.float32, device=self.dev)
+        self.graph = None
+        self.warm = False  # an updating step has run eagerly (kernels loaded)
+        if self.dev.type == "cuda":
+            if dcfg.backend != "pallas_fused_step":
+                raise ValueError(
+                    f"train_device on the card captures the updating timestep as a CUDA graph, which needs "
+                    f"backend='pallas_fused_step' (backend={dcfg.backend!r} reads the QAT phase on the host); "
+                    "pass device='cpu' to run it eagerly"
+                )
+
+    def _step(self, update: bool) -> None:
+        new, reward = _timestep(self.ts, self.env, self.proc, self.dcfg, update)
+        pairs = [(d, s) for d, s in zip(_state_leaves(self.ts), _state_leaves(new)) if d is not s]
+        # one multi-tensor copy per dtype, not one copy kernel per leaf
+        groups: dict = {}
+        for d, s in pairs:
+            groups.setdefault(d.dtype, ([], []))
+            groups[d.dtype][0].append(d)
+            groups[d.dtype][1].append(s)
+        for dsts, srcs in groups.values():
+            torch._foreach_copy_(dsts, srcs)
+        self.reward_sum.add_(reward.to(torch.float32).mean())
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for gen in (self.ts.gen, self.ts.env_gen):
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph):
+            self._step(update=True)
+        self.graph = graph
+
+    def run(self, first: int, steps: int) -> tuple[Tensor, int]:
+        """Timesteps first .. first + steps − 1; returns (the sum of the
+        steps' mean rewards, on the device; the number of updates)."""
+        self.reward_sum.zero_()
+        updates = 0
+        for step in range(first, first + steps):
+            update = _updates_at(step, self.cfg)
+            updates += update
+            if self.dev.type != "cuda" or not update or not self.warm:
+                self._step(update)
+                self.warm = self.warm or update
+                continue
+            if self.graph is None:
+                self._capture()  # records the step; the replay below runs it
+            self.graph.replay()
+            train_device.graph_replays += 1
+        return self.reward_sum, updates
+
+
+def _eval_generator(cfg: TrainConfig, steps_done: int, dev: torch.device) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(cfg.seed + 7 + steps_done)
+
+
+def train_device(
+    env,
+    cfg: Optional[TrainConfig] = None,
+    dcfg: Optional[ddpg.DDPGConfig] = None,
+    *,
+    device: DeviceLike = None,
+    eval_fn: Optional[Callable] = None,
+) -> tuple[TrainState, dict[str, Any]]:
+    """Device-resident training (module docstring): one window of
+    `cfg.eval_every` timesteps at a time, evaluated after each.  History
+    per window: `step`, `eval_reward`, `train_reward` (the window's mean
+    fleet reward), `ips` (env steps/s = window · n_envs / wall) and
+    `updates_per_s` (updates / wall).  `train_device.graph_replays` counts
+    the timesteps that ran as graph replays, in this driver and in
+    `train_fused` (never on the CPU)."""
+    cfg = as_train_config(cfg)
+    dcfg = ddpg.DDPGConfig() if dcfg is None else dcfg
+    ts = init_train_state(env, cfg, dcfg, device=device)
+    win = _Window(ts, env, cfg, dcfg)
+    evaluator = evaluate if eval_fn is None else eval_fn
+    history = {"step": [], "eval_reward": [], "train_reward": [], "ips": [], "updates_per_s": []}
+    steps_done = 0
+    while steps_done < cfg.total_steps:
+        window = min(cfg.eval_every, cfg.total_steps - steps_done)
+        t0 = time.perf_counter()
+        reward_sum, updates = win.run(steps_done, window)
+        reward = float(reward_sum) / window  # the window's one read of the device
+        dt = time.perf_counter() - t0
+        steps_done += window
+        ev = evaluator(env, win.ts.agent, dcfg, _eval_generator(cfg, steps_done, win.dev), cfg.eval_episodes)
+        history["step"].append(steps_done)
+        history["eval_reward"].append(float(ev))
+        history["train_reward"].append(reward)
+        history["ips"].append(window * max(cfg.n_envs, 1) / dt)
+        history["updates_per_s"].append(updates / dt)
+    return win.ts, history
+
+
+train_device.graph_replays = 0
+
+
+def train_fused(
+    env,
+    cfg: TrainConfig,
+    dcfg: ddpg.DDPGConfig,
+    eval_fn: Optional[Callable] = None,
+    chunk: Optional[int] = None,
+    *,
+    device: DeviceLike = None,
+) -> tuple[TrainState, dict[str, Any]]:
+    """The reference's chunked driver over the same windows as
+    `train_device`, `cfg.chunk` timesteps at a time (`chunk` overrides it).
+    History per eval window (every `cfg.eval_every` steps), accumulated
+    over all of the window's chunks: `step`, `eval_reward`, `train_reward`,
+    `ips`."""
+    cfg = as_train_config(cfg, chunk=chunk)
+    ts = init_train_state(env, cfg, dcfg, device=device)
+    win = _Window(ts, env, cfg, dcfg)
+    evaluator = evaluate if eval_fn is None else eval_fn
+    history = {"step": [], "eval_reward": [], "train_reward": [], "ips": []}
+    steps_done = 0
+    win_reward, win_chunks, win_steps, win_secs = 0.0, 0, 0, 0.0
+    while steps_done < cfg.total_steps:
+        t0 = time.perf_counter()
+        reward_sum, _ = win.run(steps_done, cfg.chunk)
+        mean_r = float(reward_sum) / cfg.chunk
+        dt = time.perf_counter() - t0
+        steps_done += cfg.chunk
+        win_reward += mean_r
+        win_chunks += 1
+        win_steps += cfg.chunk * max(cfg.n_envs, 1)
+        win_secs += dt
+        if steps_done % cfg.eval_every < cfg.chunk:
+            ev = evaluator(env, win.ts.agent, dcfg, _eval_generator(cfg, steps_done, win.dev), cfg.eval_episodes)
+            history["step"].append(steps_done)
+            history["eval_reward"].append(float(ev))
+            history["train_reward"].append(win_reward / win_chunks)
+            history["ips"].append(win_steps / win_secs)
+            win_reward, win_chunks, win_steps, win_secs = 0.0, 0, 0, 0.0
+    return win.ts, history
+
+
 def train_host(
     env,
     cfg: TrainConfig,
@@ -123,34 +340,18 @@ def train_host(
     dev = ts.obs.device
     proc = _noise_proc(cfg, dcfg)
     times = {"env": 0.0, "runtime": 0.0, "accelerator": 0.0}
-    agent, env_state, obs, buf, nz = ts.agent, ts.env_state, ts.obs, ts.buf, ts.noise
+    stamps: list[float] = []  # the step's start, then the end of each segment
+
+    def mark() -> None:
+        _sync(dev)
+        stamps.append(time.perf_counter())
+
     for step in range(cfg.total_steps):
-        t0 = time.perf_counter()
-        # 1. actor forward (inference) + exploration noise  [FPGA FP + PRNG]
-        nz, eps = proc.sample(nz, ts.gen)
-        action = ddpg.act(agent, obs, cfg=dcfg, noise=eps)
-        _sync(dev)
-        t1 = time.perf_counter()
-
-        # 2. environment transition (the fleet)             [host CPU in paper]
-        env_state, next_obs, reward, done = step_fleet(env, env_state, action, generator=ts.env_gen)
-        _sync(dev)
-        t2 = time.perf_counter()
-
-        # 3. store the fleet's transitions, 4. sample a batch [replay memory]
-        buf = replay.add_batch(
-            buf, {"obs": obs, "action": action, "reward": reward, "next_obs": next_obs, "done": done}
-        )
-        batch = replay.sample(buf, ts.gen, dcfg.batch_size)
-        _sync(dev)
-        t3 = time.perf_counter()
-
-        # 5. critic/actor BP+WU                              [FPGA training]
-        if buf.size >= cfg.warmup_steps:
-            agent, _ = ddpg.update(agent, batch, dcfg)
-            _sync(dev)
-        t4 = time.perf_counter()
-
+        stamps[:] = [time.perf_counter()]
+        update = _updates_at(step, cfg)
+        ts, _ = _timestep(ts, env, proc, dcfg, update, mark)
+        t0, t1, t2, t3 = stamps[:4]
+        t4 = stamps[4] if update else time.perf_counter()
         times["accelerator"] += (t1 - t0) + (t4 - t3)
         times["env"] += t2 - t1
         times["runtime"] += t3 - t2
@@ -160,9 +361,6 @@ def train_host(
             tracer.complete("loop.replay", t2, t3, cat="loop", step=step)
             if t4 > t3:
                 tracer.complete("loop.update", t3, t4, cat="loop", step=step)
-        obs = next_obs
-
-    ts = dataclasses.replace(ts, agent=agent, env_state=env_state, obs=obs, buf=buf, noise=nz)
     return ts, {"times": times, "total_steps": cfg.total_steps}
 
 
@@ -185,4 +383,13 @@ def evaluate(env, agent: ddpg.DDPGState, dcfg: ddpg.DDPGConfig, generator: torch
         return total.mean()
 
 
-__all__ = ["TrainConfig", "as_train_config", "TrainState", "init_train_state", "train_host", "evaluate"]
+__all__ = [
+    "TrainConfig",
+    "as_train_config",
+    "TrainState",
+    "init_train_state",
+    "train_host",
+    "train_device",
+    "train_fused",
+    "evaluate",
+]

@@ -5,8 +5,11 @@
 layout `sample` returns and `ddpg.update` consumes); `sample` draws a
 uniform random batch.  Unlike the reference's pure functions, `add` writes
 into the buffer's storage in place (no copy of the whole buffer per step)
-and returns the buffer with its cursor advanced.  `ptr` and `size` are host
-ints: the loop is host-driven, so it reads them without a device sync.
+and returns the buffer with its cursor advanced.  `ptr` and `size` are 0-d
+int64 tensors on the buffer's device, as the reference keeps them, and
+`sample` bounds its draw on the device: neither reads the device on the
+host, so a CUDA graph can capture a store and a sample.  (A loop that needs
+the size on the host computes it: min(transitions stored, capacity).)
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ class ReplayBuffer:
     reward: Tensor  # (cap,)
     next_obs: Tensor  # (cap, obs_dim)
     done: Tensor  # (cap,) bool
-    ptr: int  # next write slot
-    size: int  # valid entries
+    ptr: Tensor  # 0-d int64: next write slot
+    size: Tensor  # 0-d int64: valid entries
 
     @property
     def capacity(self) -> int:
@@ -44,8 +47,8 @@ def init(capacity: int, obs_dim: int, act_dim: int, *, device: DeviceLike = None
         reward=zeros(capacity),
         next_obs=zeros(capacity, obs_dim),
         done=zeros(capacity, dtype=torch.bool),
-        ptr=0,
-        size=0,
+        ptr=zeros(dtype=torch.int64),
+        size=zeros(dtype=torch.int64),
     )
 
 
@@ -68,7 +71,7 @@ def add(buf: ReplayBuffer, obs, action, reward, next_obs, done) -> ReplayBuffer:
         (buf.done, done),
     ):
         store[idx] = rows[b - keep :].to(store.dtype)
-    return dataclasses.replace(buf, ptr=(buf.ptr + b) % cap, size=min(buf.size + b, cap))
+    return dataclasses.replace(buf, ptr=(buf.ptr + b) % cap, size=torch.clamp(buf.size + b, max=cap))
 
 
 def add_batch(buf: ReplayBuffer, batch: dict[str, Tensor]) -> ReplayBuffer:
@@ -91,8 +94,12 @@ def take(buf: ReplayBuffer, idx: Tensor) -> dict[str, Tensor]:
 
 def sample(buf: ReplayBuffer, generator: torch.Generator, batch: int) -> dict[str, Tensor]:
     """Uniform random batch of B transitions (paper: 'a random batch of B
-    transitions ... sampled in order to send to FPGA')."""
-    idx = torch.randint(0, max(buf.size, 1), (batch,), generator=generator, device=generator.device)
+    transitions ... sampled in order to send to FPGA').  The slots are
+    ⌊u·size⌋ for u uniform in [0, 1) (float64), drawn from `generator`:
+    the bound is the device-side size, never read on the host."""
+    n = torch.clamp(buf.size, min=1).to(generator.device)
+    u = torch.rand((batch,), generator=generator, dtype=torch.float64, device=generator.device)
+    idx = torch.minimum((u * n.to(torch.float64)).to(torch.int64), n - 1)
     return take(buf, idx)
 
 

@@ -156,7 +156,9 @@ def test_five_update_trajectory_matches_reference():
 
 
 @pytest.mark.parametrize("backend,err,match", [
-    ("pallas_fused_step", NotImplementedError, "ROADMAP.md"),
+    # the reference's guard (`tests/kernels/test_fxp_mlp_step.py:255`): the
+    # message names all three trainable backends
+    ("pallas_layer", ValueError, "pallas_fused_step"),
     ("pallas_layer", ValueError, "pallas_layer"),
 ])
 def test_untrainable_backends_raise(backend, err, match):

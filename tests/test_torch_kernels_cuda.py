@@ -206,3 +206,122 @@ def test_fxp_mlp_train_on_the_card_launches_both_kernels(dev):
         grads[where] = [t.grad.cpu() for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+# --------------------------------------------------------------------------
+# kernels 4 and 5 (the fused DDPG step) against their plain twins
+# --------------------------------------------------------------------------
+
+STEP_ACTS = (("relu", "relu", "tanh"), ("relu", "relu", "none"))
+# (atol, rtol) of params, mu, nu, targets in both phases: the monitor-phase
+# contract of tests/test_torch_ddpg_step.py.  One step at Adam lr 1e-4 moves
+# a param by a few quanta and a target by about τ·(p − t), so a looser bound
+# could not tell a step from none.
+STEP_TOL = [(2.0**-16, 0.0), (2e-6, 1e-4), (1e-7, 1e-4), (1e-6, 0.0)]
+
+
+def _step_operands(dev, batch, masked, dims=(17, 6, (400, 300))):
+    """A seeded fused-step case on `dev`: batch, trees, site operands, hyper."""
+    from repro_torch.core.fixedpoint import affine_params, project, FXP32
+    from repro_torch.kernels.fxp_mlp.ops import _hyper
+    from repro_torch.optim import adam
+
+    obs, act, hid = dims
+    gen = torch.Generator().manual_seed(batch + masked)
+    a_dims, c_dims = (obs, *hid, act), (obs + act, *hid, 1)
+
+    def tree(d, scale=None, moments=False):
+        ws = [_rand(gen, k, n, scale=scale or k**-0.5) for k, n in zip(d[:-1], d[1:])]
+        bs = [_rand(gen, n, scale=scale or k**-0.5) for k, n in zip(d[:-1], d[1:])]
+        if moments:
+            return [w.to(dev) for w in ws], [b.to(dev) for b in bs]
+        return [project(w, FXP32).to(dev) for w in ws], [project(b, FXP32).to(dev) for b in bs]
+
+    def vtree(m):
+        return [t * t * 2 + 1e-10 for t in m[0]], [t * t * 2 + 1e-10 for t in m[1]]
+
+    am, cm = tree(a_dims, 1e-3, True), tree(c_dims, 1e-3, True)
+    case = {
+        "obs": _rand(gen, batch, obs, scale=2).to(dev), "action": _rand(gen, batch, act).to(dev),
+        "reward": _rand(gen, batch).to(dev), "done": (torch.rand(batch, generator=gen) < 0.1).float().to(dev),
+        "next_obs": _rand(gen, batch, obs, scale=2).to(dev),
+        "w": (torch.arange(batch) < batch - masked).float().to(dev),
+        "actor": tree(a_dims), "actor_t": tree(a_dims), "actor_m": am, "actor_v": vtree(am),
+        "critic": tree(c_dims), "critic_t": tree(c_dims), "critic_m": cm, "critic_v": vtree(cm),
+    }
+    d, z = affine_params(-(torch.rand(6, generator=gen) * 3 + 1), torch.rand(6, generator=gen) * 3 + 1, 16)
+    case["deltas"], case["zs"] = d.to(dev), z.to(torch.float32).to(dev)
+    c = adam.step_constants(adam.AdamConfig(), torch.tensor(5, dtype=torch.int32, device=dev))
+    case["hyper"] = _hyper(1.0 / torch.clamp(case["w"].sum(), min=1.0), 0.99, 0.005, c)
+    return case
+
+
+def _assert_step_close(got, want, inputs, phase, sum_w):
+    # loss partials over Σw, the update's metrics: the reference's metric
+    # contracts per phase (a sum of rows of both signs can cancel, so its
+    # own relative error says little)
+    p_rtol, p_atol = (1e-5, 1e-6) if phase == "monitor" else (1e-3, 1e-5)
+    for k, (atol, rtol) in enumerate(STEP_TOL):
+        moved = 0.0
+        for g, w, x in zip([*got[k][0], *got[k][1]], [*want[k][0], *want[k][1]], [*inputs[k][0], *inputs[k][1]]):
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+            moved = max(moved, float((w - x).abs().max()))
+        # the twin's step moves params, mu and targets past their bound, so a
+        # tree left as it was fails; nu's one-step move, (1 − b2)·(g² − v),
+        # is of the order of its bound
+        assert k == 2 or moved > atol, (k, moved)
+    torch.testing.assert_close(got[4].amin(0), want[4][0], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got[5].amax(0), want[5][0], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got[6].sum(0) / sum_w, want[6][0] / sum_w, rtol=p_rtol, atol=p_atol)
+
+
+@pytest.mark.parametrize("phase", ["monitor", "quant"])
+@pytest.mark.parametrize("batch,masked", [(7, 0), (128, 0), (200, 30)])
+def test_ddpg_step_kernels_match_twins_and_repeat_bitwise(dev, batch, masked, phase):
+    from repro_torch.kernels.fxp_mlp.kernel import ddpg_actor_step_cuda, ddpg_critic_step_cuda
+    from repro_torch.kernels.fxp_mlp.ref import ref_ddpg_actor_step, ref_ddpg_critic_step
+
+    c = _step_operands(dev, batch, masked)
+    quant = phase == "quant"
+    phase_t = torch.tensor([int(quant)], dtype=torch.int32, device=dev)
+    kw = dict(actor_acts=STEP_ACTS[0], critic_acts=STEP_ACTS[1], n_bits=16, qat=True, fxp32_phase1=True,
+              fxp_weights=True)
+    c_args = (c["obs"], c["action"], c["reward"], c["done"], c["next_obs"], c["w"], c["actor_t"], c["critic"],
+              c["critic_t"], c["critic_m"], c["critic_v"], c["deltas"], c["zs"], c["hyper"])
+    before = (ddpg_critic_step_cuda.launches, ddpg_actor_step_cuda.launches)
+    got_c = ddpg_critic_step_cuda(*c_args, phase_t, **kw)
+    again_c = ddpg_critic_step_cuda(*c_args, phase_t, **kw)
+    want_c = ref_ddpg_critic_step(*c_args, quant, **kw)
+    a_args = (c["obs"], c["w"], c["actor"], c["actor_m"], c["actor_v"], c["actor_t"], want_c[0], c["deltas"],
+              c["zs"], c["hyper"])
+    got_a = ddpg_actor_step_cuda(*a_args, phase_t, **kw)
+    again_a = ddpg_actor_step_cuda(*a_args, phase_t, **kw)
+    want_a = ref_ddpg_actor_step(*a_args, quant, **kw)
+    torch.cuda.synchronize()
+    assert (ddpg_critic_step_cuda.launches, ddpg_actor_step_cuda.launches) == (before[0] + 2, before[1] + 2)
+    for got, again in ((got_c, again_c), (got_a, again_a)):
+        flat = lambda out: [t for tr in out[:4] for half in tr for t in half] + list(out[4:])  # noqa: E731
+        assert all(torch.equal(x, y) for x, y in zip(flat(got), flat(again)))
+    sum_w = torch.clamp(c["w"].sum(), min=1.0)
+    _assert_step_close(got_c, want_c, [c[k] for k in ("critic", "critic_m", "critic_v", "critic_t")], phase, sum_w)
+    _assert_step_close(got_a, want_a, [c[k] for k in ("actor", "actor_m", "actor_v", "actor_t")], phase, sum_w)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("batch", [1, 7, 128])
+def test_fxp_mlp_fwd_device_phase_matches_host_phase(dev, batch, quant):
+    """Kernel B reading the phase from a device int32 gives bitwise what the
+    host-phase instance gives."""
+    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_fwd_cuda
+
+    gen = torch.Generator().manual_seed(batch)
+    dims, acts = NETS[1]
+    ws, bs = _net(gen, dev, dims)
+    deltas, zs = _site_operands(dev, len(ws))
+    x = _rand(gen, batch, dims[0], scale=2).to(dev)
+    kw = dict(activations=acts, qat=True, n_bits=16, fxp32_phase1=True)
+    want = fxp_mlp_fwd_cuda(x, ws, bs, deltas, zs, quant=quant, **kw)
+    phase = torch.full((1,), int(quant), dtype=torch.int32, device=dev)
+    got = fxp_mlp_fwd_cuda(x, ws, bs, deltas, zs, quant=not quant, phase=phase, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
