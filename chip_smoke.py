@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--out FILE]
+    python3 chip_smoke.py [--seed N] [--out FILE]   (FILE: every phase's result as JSON)
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit.  It drives the port's three main paths: policy serving (slice
-1), DDPG training through backend "pallas" (slice 2), and training
-through the fused whole-update step, eagerly and as a captured CUDA graph
-(slice 3).  Phases, each printing one JSON line:
+toolkit.  It drives the port's four main paths: policy serving (slice
+1), DDPG training through backend "pallas" (slice 2), training through
+the fused whole-update step, eagerly and as a captured CUDA graph (slice
+3), and Algorithm 1 over the per-layer datapath with the standalone
+monitor + quantizer at each site (slice 4).  Phases, each printing one
+JSON line:
 
   1. device   — the card's name and power limit (nvidia-smi), CUDA version,
                 TF32 switched off for matmul and cuDNN;
-  2. build    — nvcc builds the four kernel libraries from
+  2. build    — nvcc builds the five kernel libraries from
                 `src/repro_torch/csrc/`, in parallel, into `build/kernels/`;
   3. kernel_a — the dense-layer kernel against its plain version: the three
                 actor layer shapes, B in {1, 7, 8, 32, 128, 512} (the
@@ -33,18 +35,42 @@ through the fused whole-update step, eagerly and as a captured CUDA graph
                 params, moments, targets, site extrema, loss partials; two
                 calls bitwise equal; the twin's step must move each tree
                 further than its tolerance, so a stale tree cannot pass;
-  8. serve    — serving main path: a seeded random actor, ranges captured by
+  8. kernel_mq — kernel 6 (the standalone monitor + quantizer) against its
+                plain version: the reference test's shapes, the paper's site
+                inputs (B in {1, 7, 128, 512} × width in {17, 23, 400,
+                300}), a 2^24-element sweep and a length that is not a
+                multiple of the block, both phases, incoming ranges
+                (−3, 3.5) and (+inf, −inf), y and both extrema bitwise; an
+                input holding a NaN; two calls bitwise equal; one call under
+                `torch.cuda.set_sync_debug_mode("error")`;
+  9. serve    — serving main path: a seeded random actor, ranges captured by
                 monitor-phase fused forwards and frozen (Algorithm 1's
                 monitor-then-freeze), then `PolicyEngine` serving 256
                 threaded requests in each forced mode (fused, layer, jnp) and
                 under adaptive dispatch, every reply checked against the
                 plain `act_batch`.  Kernel launch counts are zeroed just
                 before this phase and read just after it;
-  9. update   — one `ddpg.update(backend="pallas")` on the card against the
+ 10. layer_monitor — slice 4's path: Algorithm 1 over the per-layer
+                datapath (`fxp_dense_chain`, kernel 6 at each site, then
+                kernel A) for the paper's actor 17-400-300-6 and critic
+                23-400-300-1 at B = 128 and 512.  Monitor phase from
+                (+inf, −inf): each site's extrema against kernel B's from
+                the same input (site 0 exactly, later sites 2e-5); quant
+                phase with the captured ranges frozen: kernel 6 must return
+                them unchanged.  Every kernel 6 result bitwise the plain
+                version's.  Launch counts zeroed just before, read just
+                after: kernel 6 and kernel A once per site per walk;
+ 11. fxp_raw  — the raw fixed-point API on CUDA tensors against the CPU
+                and the numpy int64 oracle, bitwise (`fxp_matmul_raw` at
+                (128, 400) @ (400, 300), saturating `quantize`, `fxp_mul`,
+                `fxp_add`, `affine_quantize` / `affine_dequantize`), and
+                `numerics.sqrt_rn` on 2^20 values against the float64-
+                rounded square root;
+ 12. update   — one `ddpg.update(backend="pallas")` on the card against the
                 same update by the plain versions on the CPU, from the same
                 state, at B = 128, in the monitor and the quant phase;
- 10. update_fused — the same for backend "pallas_fused_step";
- 11. train    — training main path, backend "pallas": `rl.loop.train_host`
+ 13. update_fused — the same for backend "pallas_fused_step";
+ 14. train    — training main path, backend "pallas": `rl.loop.train_host`
                 on the paper's configuration (`configs/fixar_ddpg.CONFIG`:
                 halfcheetah, actor 17-400-300-6, critic 23-400-300-1,
                 B = 128) cut to 2000 env steps, updates from step 1000, the
@@ -54,7 +80,7 @@ through the fused whole-update step, eagerly and as a captured CUDA graph
                 counts are zeroed just before `train_host` and read just
                 after it: kernel B must show 5 per update + 1 per env step,
                 kernel 3 3 per update;
- 12. train_fused — the same configuration with backend "pallas_fused_step",
+ 15. train_fused — the same configuration with backend "pallas_fused_step",
                 through `train_host` (kernels 4 and 5 once per update,
                 kernel B once per env step, kernel 3 and kernel B's
                 residual mode never) and through `train_device` (a warmup
@@ -64,18 +90,20 @@ through the fused whole-update step, eagerly and as a captured CUDA graph
                 same run made again with its graph window under
                 `torch.profiler` counts by name the kernels each replay
                 ran); both agents evaluated and served;
- 13. profile  — `torch.profiler` over 20 updates at B = 128, backend "pallas"
+ 16. profile  — `torch.profiler` over 20 updates at B = 128, backend "pallas"
                 and "pallas_fused_step", and over 20 replays of the captured
                 timestep: host wall and device busy time per step (so the
                 device's idle share), kernels and CUDA runtime calls per
                 step, the costliest kernels and host ops;
- 14. times    — each kernel at the main paths' shapes: kernels A and B at
+ 17. times    — each kernel at the main paths' shapes: kernels A and B at
                 the serving shapes (B in {1, 128, 512}, both precision
                 phases), kernel B with residuals and kernel 3 at B = 128 for
                 the actor and the critic, kernels 4 and 5 at B = 128, both
-                phases: kernel, plain version, library yardstick and the
-                least time the card could take (`bound_ms`);
- 15. engine   — host wall time of synchronous `run_batch` calls per mode
+                phases, kernel 6 at B × 400 for B = 512 and 128 and a
+                2^24-element sweep, both phases: kernel, plain version,
+                library yardstick and the least time the card could take
+                (`bound_ms`);
+ 18. engine   — host wall time of synchronous `run_batch` calls per mode
                 and batch (the engine's own cost, without queueing).
 
 Then the `{"kernels": [...]}` line and, last, the status line
@@ -106,7 +134,9 @@ contract of `tests/test_torch_ddpg_step.py`; one step at Adam lr 1e-4 moves
 a param by a few quanta and a target by about τ·(p − t), so a looser bound
 could not tell a step from none.  Extrema as kernel B's; loss partials over
 Σw (the update's metrics) rtol 1e-5 / atol 1e-6 (monitor) and 1e-3 / 1e-5
-(quant), the reference's metric contracts.
+(quant), the reference's metric contracts.  Kernel 6 and the raw
+fixed-point API: bitwise, the contract for elementwise fixed-point ops
+(min and max are order-free; a NaN matches a NaN).
 """
 
 from __future__ import annotations
@@ -165,8 +195,12 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+PHASES: list = []  # every emitted line, for --out
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    PHASES.append({"phase": phase, **fields})
+    print(json.dumps(PHASES[-1]), flush=True)
 
 
 def compare(got: torch.Tensor, want: torch.Tensor, tol: float, what: str, atol: float | None = None) -> dict:
@@ -256,7 +290,7 @@ def phase_device() -> dict:
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
-    seconds = _build.build(["fxp_dense", "fxp_mlp_fwd", "fxp_mlp_bwd", "fxp_ddpg_step"])
+    seconds = _build.build(["fxp_dense", "fxp_mlp_fwd", "fxp_mlp_bwd", "fxp_ddpg_step", "fxp_monitor_quant"])
     ptxas = {}
     for name in seconds:
         log = _build.log_path(name)
@@ -582,6 +616,243 @@ def phase_kernel_step(gen: torch.Generator, dev) -> dict:
     return {name: max(v for ph in w.values() for v in ph.values()) for name, w in worst.items()}
 
 
+# kernel 6 (the standalone monitor + quantizer): the reference test's shapes,
+# the paper's site inputs (batch × layer input width), a sweep larger than L2,
+# and a length that is not a multiple of the block (csrc THREADS = 256)
+MQ_SHAPES = ([(64,), (7, 33), (256, 400), (3, 5, 17), (1, 1), (1024,)]
+             + [(b, w) for b in (1, 7, 128, 512) for w in (17, 23, 400, 300)]
+             + [(1 << 24,), (1000003,)])
+MQ_RANGES = {"captured": (-3.0, 3.5), "empty": (math.inf, -math.inf)}
+LAYER_BATCHES = (128, 512)
+
+
+def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit patterns, a NaN matching any NaN."""
+    a, b = a.detach().to(b.device), b.detach()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+
+def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| over the positions where neither is NaN."""
+    d = (a.double() - b.double()).abs()
+    d = d[~d.isnan()]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def phase_kernel_mq(gen: torch.Generator, dev) -> float:
+    """Kernel 6 against its plain version on the card: y, new_min and
+    new_max bitwise at MQ_SHAPES, both phases, incoming ranges MQ_RANGES;
+    an input holding a NaN (extrema NaN in the monitor phase, frozen in the
+    quant phase); two calls bitwise equal; one call under
+    `torch.cuda.set_sync_debug_mode("error")` (nothing in a call syncs)."""
+    from repro_torch.kernels.quantize import monitor_quant, ref_monitor_quant
+
+    cases, worst = 0, 0.0
+    for shape in MQ_SHAPES:
+        x = (torch.randn(*shape, generator=gen) * 4).to(dev)
+        for label, (a_min, a_max) in MQ_RANGES.items():
+            for quant in (False, True):
+                got = monitor_quant(x, a_min, a_max, quant)
+                again = monitor_quant(x, a_min, a_max, quant)
+                want = ref_monitor_quant(x, a_min, a_max, quant)
+                torch.cuda.synchronize()
+                tag = f"kernel 6 {shape} {label} {'quant' if quant else 'monitor'}"
+                for g, a, w, what in zip(got, again, want, ("y", "new_min", "new_max")):
+                    worst = max(worst, _max_abs(g, w))
+                    require(_bitwise(g, w), f"{tag} {what}: not bitwise the plain version's")
+                    require(_bitwise(g, a), f"{tag} {what}: two calls differ")
+                cases += 1
+    x = (torch.randn(70001, generator=gen) * 4).to(dev)
+    x[12345] = math.nan
+    for quant in (False, True):
+        got = monitor_quant(x, -3.0, 3.5, quant)
+        want = ref_monitor_quant(x, -3.0, 3.5, quant)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("y", "new_min", "new_max")):
+            worst = max(worst, _max_abs(g, w))
+            require(_bitwise(g, w), f"kernel 6 NaN input {quant=} {what}: not bitwise the plain version's")
+        require(bool(got[1].isnan()) != quant and bool(got[2].isnan()) != quant,
+                f"kernel 6 NaN input {quant=}: extrema {float(got[1])}, {float(got[2])}")
+        cases += 1
+    a_min, a_max = torch.full((), -3.0, device=dev), torch.full((), 3.5, device=dev)
+    phase = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = monitor_quant(x, a_min, a_max, phase)
+        got_py = monitor_quant(x, -3.0, 3.5, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, got_py):
+        require(_bitwise(g, w), "kernel 6: device-tensor and Python phase/ranges differ")
+    emit("kernel_mq", cases=cases, shapes=[list(s) for s in MQ_SHAPES], ranges=list(MQ_RANGES),
+         tolerance="bitwise (y, new_min, new_max)", max_abs=worst, nan_case=True, bitwise_repeat=True,
+         sync_debug_error=True)
+    return worst
+
+
+def phase_layer_monitor(gen: torch.Generator, dev) -> dict:
+    """This slice's path at full width: Algorithm 1 over the per-layer
+    datapath (`fxp_dense_chain` with `monitor_quant` at each site), for the
+    paper's actor and critic at LAYER_BATCHES.  Monitor phase: each site
+    monitored from (+inf, −inf) and projected to Q15.16, then kernel A in
+    full precision; its extrema held against kernel B's per-site extrema
+    from the same input (site 0 exactly, later sites at 2e-5: kernels A and
+    B sum in different orders).  Quant phase: the captured ranges frozen,
+    kernel 6 must return them unchanged, kernel A in half precision.  Every
+    kernel 6 result bitwise the plain version's on the same site input.
+    Launch counts are zeroed just before the walks and read just after."""
+    from repro_torch.kernels.fxp_matmul import fxp_dense_chain
+    from repro_torch.kernels.fxp_matmul.kernel import fxp_dense_cuda
+    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_fwd_cuda
+    from repro_torch.kernels.quantize import monitor_quant, ref_monitor_quant
+    from repro_torch.kernels.quantize.kernel import monitor_quant_cuda
+
+    cases = []
+    for net in NETS:
+        dims, acts, ws, bs, deltas, zs = _net_operands(gen, dev, net)
+        for batch in LAYER_BATCHES:
+            x = (torch.randn(batch, dims[0], generator=gen) * 2).to(dev)
+            _, bmins, bmaxs = fxp_mlp_fwd_cuda(x, ws, bs, deltas, zs, **_case_kw(acts, "monitor"))
+            cases.append(dict(net=net, batch=batch, x=x, ws=ws, bs=bs, acts=acts,
+                              fused=(bmins.amin(0), bmaxs.amax(0))))
+
+    def walk(c: dict, quant: bool, ranges=None) -> list:
+        sites = []
+
+        def site(i: int, xi: torch.Tensor) -> torch.Tensor:
+            a_min, a_max = ranges[i] if quant else (math.inf, -math.inf)
+            y, new_min, new_max = monitor_quant(xi, a_min, a_max, quant)
+            sites.append((xi, y, new_min, new_max))
+            return y
+
+        fxp_dense_chain(c["x"], c["ws"], c["bs"], activations=c["acts"], full_precision=not quant, site_fn=site)
+        return sites
+
+    sync(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    for c in cases:
+        c["monitor"] = walk(c, False)
+        c["quant"] = walk(c, True, [(s[2], s[3]) for s in c["monitor"]])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {"fxp_monitor_quant": monitor_quant_cuda.launches, "fxp_dense": fxp_dense_cuda.launches}
+    n_sites = sum(len(c["ws"]) for c in cases)
+    want = {"fxp_monitor_quant": 2 * n_sites, "fxp_dense": 2 * n_sites}
+    require(launches == want, f"layer_monitor: launches {launches}, expected {want}")
+
+    extrema_err = 0.0
+    ranges = {}
+    for c in cases:
+        tag = f"layer_monitor {c['net']} B={c['batch']}"
+        mins, maxs = c["fused"]
+        ranges[f"{c['net']} B={c['batch']}"] = [[float(s[2]), float(s[3])] for s in c["monitor"]]
+        for i, ((xi, y, mn, mx), (_, yq, mnq, mxq)) in enumerate(zip(c["monitor"], c["quant"])):
+            if i == 0:
+                require(float(mn) == float(mins[0]) and float(mx) == float(maxs[0]),
+                        f"{tag} site 0: extrema {float(mn)}, {float(mx)} != kernel B's {float(mins[0])}, "
+                        f"{float(maxs[0])}")
+            for got, fused, what in ((mn, mins[i], "min"), (mx, maxs[i], "max")):
+                extrema_err = max(extrema_err, compare(got.reshape(1), fused.reshape(1), TOL,
+                                                       f"{tag} site {i} {what} vs kernel B")["max_abs"])
+            for got, want_t, what in zip((y, mn, mx), ref_monitor_quant(xi, math.inf, -math.inf, False),
+                                         ("y", "min", "max")):
+                require(_bitwise(got, want_t), f"{tag} site {i} monitor {what}: not bitwise the plain version's")
+            require(_bitwise(mnq, mn) and _bitwise(mxq, mx), f"{tag} site {i}: frozen range moved")
+        for i, (xi, yq, mnq, mxq) in enumerate(c["quant"]):
+            want_q = ref_monitor_quant(xi, c["monitor"][i][2], c["monitor"][i][3], True)
+            require(_bitwise(yq, want_q[0]), f"{tag} site {i} quant y: not bitwise the plain version's")
+    report = {"nets": {net: "-".join(map(str, NETS[net][0])) for net in NETS}, "batches": list(LAYER_BATCHES),
+              "sites_per_walk": {net: len(NETS[net][0]) - 1 for net in NETS}, "walks": 2 * len(cases),
+              "launches": launches, "launches_expected": want, "cuda_launches": {
+                  "fxp_monitor_quant": 2 * launches["fxp_monitor_quant"], "fxp_dense": launches["fxp_dense"]},
+              "wall_s": wall, "extrema_vs_kernel_b_max_abs": extrema_err, "extrema_tolerance": TOL,
+              "captured_ranges": ranges}
+    emit("layer_monitor", **report)
+    return report
+
+
+def phase_fxp_raw(gen: torch.Generator, dev) -> dict:
+    """The raw fixed-point API on CUDA tensors against the port's CPU results
+    and the numpy int64 oracle, bitwise: `quantize` (saturating at ±40000,
+    NaN to 0, ties to even), `fxp_matmul_raw` at (128, 400) @ (400, 300)
+    (CUDA has no int64 matmul: K-chunked exact sums), `fxp_mul`, `fxp_add`,
+    `affine_quantize` / `affine_dequantize`; and `numerics.sqrt_rn` on 2^20
+    float32 values against the float64-rounded square root.  Reports, as an
+    observation, how many of those square roots the card's float32
+    `torch.sqrt` and quotients by a Python number (PyTorch multiplies by
+    the reciprocal) differ from the IEEE results in."""
+    from repro_torch.core import fixedpoint as fxp
+    from repro_torch.numerics import sqrt_rn
+
+    rng = np.random.default_rng(int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))
+    cpu = torch.device("cpu")
+
+    def both(fn, *arrays):
+        got = fn(*[torch.from_numpy(a).to(dev) for a in arrays])
+        want = fn(*[torch.from_numpy(a) for a in arrays])
+        sync(dev)
+        return got.to(cpu), want
+
+    checks = {}
+
+    def check(name, got, want, oracle=None):
+        require(_bitwise(got, want), f"fxp_raw {name}: card and CPU differ")
+        if oracle is not None:
+            require(np.array_equal(got.numpy(), oracle), f"fxp_raw {name}: the int64 oracle differs")
+        checks[name] = list(got.shape)
+
+    edges = np.array([40000.0, -40000.0, np.nan, np.inf, -np.inf, 0.5 / 65536, 1.5 / 65536, 2.5 / 65536], np.float32)
+    got, want = both(lambda t: fxp.quantize(t, fxp.FXP32), edges)
+    check("quantize edges", got, want)
+    require(got.tolist() == [2147483647, -2147483648, 0, 2147483647, -2147483648, 0, 2, 2],
+            f"fxp_raw quantize edges {got.tolist()}")
+    a = rng.uniform(-4, 4, (128, 400)).astype(np.float32)
+    w = rng.uniform(-2, 2, (400, 300)).astype(np.float32)
+    ar, wr = (fxp.quantize(torch.from_numpy(v), fxp.FXP32).numpy() for v in (a, w))
+    for name, v in (("quantize a", a), ("quantize w", w)):
+        check(name, *both(lambda t: fxp.quantize(t, fxp.FXP32), v))
+    acc = ar.astype(np.int64) @ wr.astype(np.int64)
+    oracle = np.clip((acc + (1 << 15)) >> 16, fxp.FXP32.raw_min, fxp.FXP32.raw_max).astype(np.int32)
+    check("fxp_matmul_raw (128,400)@(400,300)",
+          *both(lambda x, y: fxp.fxp_matmul_raw(x, y, fxp.FXP32, fxp.FXP32, fxp.FXP32), ar, wr), oracle)
+    ra, rb = (rng.integers(-(2**31), 2**31 - 1, 1 << 16, endpoint=True).astype(np.int32) for _ in range(2))
+    prod = (ra.astype(np.int64) * rb + (1 << 15)) >> 16
+    check("fxp_mul", *both(lambda x, y: fxp.fxp_mul(x, y, fxp.FXP32, fxp.FXP32, fxp.FXP32), ra, rb),
+          np.clip(prod, fxp.FXP32.raw_min, fxp.FXP32.raw_max).astype(np.int32))
+    check("fxp_add", *both(lambda x, y: fxp.fxp_add(x, y, fxp.FXP32), ra, rb),
+          np.clip(ra.astype(np.int64) + rb, fxp.FXP32.raw_min, fxp.FXP32.raw_max).astype(np.int32))
+    xs = np.concatenate([(rng.standard_normal(1 << 16) * 3).astype(np.float32),
+                         np.array([1e12, -1e12, np.nan], np.float32)])
+
+    def affine(t, dequant):
+        delta, z = fxp.affine_params(torch.full((), -3.0, device=t.device), torch.full((), 3.5, device=t.device), 16)
+        q = fxp.affine_quantize(t, delta, z, 16)
+        return fxp.affine_dequantize(q, delta, z) if dequant else q
+
+    check("affine_quantize", *both(lambda t: affine(t, False), xs))
+    check("affine_dequantize", *both(lambda t: affine(t, True), xs))
+    v = (rng.uniform(0.5, 2.0, 1 << 20) * np.exp2(rng.integers(-60, 60, 1 << 20))).astype(np.float32)
+    vt = torch.from_numpy(v).to(dev)
+    got = sqrt_rn(vt).cpu()
+    rn = np.sqrt(v.astype(np.float64)).astype(np.float32)
+    require(np.array_equal(got.numpy().view(np.int32), rn.view(np.int32)), "fxp_raw sqrt_rn: not correctly rounded")
+    checks["sqrt_rn"] = [1 << 20]
+    torch_sqrt_off = int((torch.sqrt(vt).cpu().numpy().view(np.int32) != rn.view(np.int32)).sum())
+    scalar_div_off = int((vt / 65535.0 != vt / torch.full((), 65535.0, device=dev)).sum())
+    report = {"checks": checks, "tolerance": "bitwise (card = CPU = int64 oracle)",
+              "observed": {"float32_torch_sqrt_not_rn_of_2^20": torch_sqrt_off,
+                           "quotients_by_python_number_off_ieee_of_2^20": scalar_div_off}}
+    emit("fxp_raw", **report)
+    return report
+
+
 def _paper_ddpg(qat_delay: int, backend: str = "pallas"):
     """The paper's DDPG settings (`CONFIG.ddpg`: B = 128, Adam lr 1e-4,
     Q15.16 weights, 16-bit QAT) on `backend`, the QAT delay at `qat_delay`
@@ -710,11 +981,15 @@ def _evaluate_and_serve(env, agent, dcfg, gen: torch.Generator, dev, seed: int) 
 
 
 def _reset_counts() -> None:
+    """Every kernel wrapper's count, and the graph replays, to 0."""
+    from repro_torch.kernels.fxp_matmul.kernel import fxp_dense_cuda
     from repro_torch.kernels.fxp_mlp.kernel import (ddpg_actor_step_cuda, ddpg_critic_step_cuda, fxp_mlp_bwd_cuda,
                                                     fxp_mlp_fwd_cuda)
+    from repro_torch.kernels.quantize.kernel import monitor_quant_cuda
     from repro_torch.rl import loop
 
-    for fn in (fxp_mlp_fwd_cuda, fxp_mlp_bwd_cuda, ddpg_critic_step_cuda, ddpg_actor_step_cuda):
+    for fn in (fxp_dense_cuda, fxp_mlp_fwd_cuda, fxp_mlp_bwd_cuda, ddpg_critic_step_cuda, ddpg_actor_step_cuda,
+               monitor_quant_cuda):
         fn.launches = 0
     fxp_mlp_fwd_cuda.residual_launches = 0
     loop.train_device.graph_replays = 0
@@ -1268,12 +1543,39 @@ def phase_times(gen: torch.Generator, dev, dev_info: dict) -> dict:
                 "library_ms": None, "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
                 "launches_per_call": 1, "cuda_launches_per_call": 2,
             })
+    # kernel 6 at the per-layer path's widest site (B × 400) at the serving
+    # (512) and training (128) batches, and one sweep larger than L2; bytes:
+    # x read once, y written once, the scalars; operations a element, from
+    # the code: min and max, then the projection (monitor: ×2^16, two clip
+    # compares, rint, ÷2^16; quant: ÷delta, rint, +z, two clip compares,
+    # −z, ×delta)
+    from repro_torch.kernels.quantize import ref_monitor_quant
+    from repro_torch.kernels.quantize.kernel import monitor_quant_cuda
+
+    for shape in ((512, 400), (128, 400), (1 << 24,)):
+        x = (torch.randn(*shape, generator=gen) * 4).to(dev).reshape(-1)
+        n = x.numel()
+        for case in ("monitor", "quant"):
+            quant = case == "quant"
+            a_min, a_max = torch.full((1,), -3.0, device=dev), torch.full((1,), 3.5, device=dev)
+            phase_t = torch.full((1,), int(quant), dtype=torch.int32, device=dev)
+            phase_b = torch.full((), quant, dtype=torch.bool, device=dev)
+            bound, by = _bound_ms(8 * n + 4 * 5, (2 + (7 if quant else 5)) * n, dev_info)
+            rows.append({
+                "kernel": "fxp_monitor_quant", "shape": "x".join(map(str, shape)), "batch": shape[0], "phase": case,
+                "ms": device_time_ms(lambda: monitor_quant_cuda(x, a_min, a_max, phase_t), 100),
+                "plain_ms": device_time_ms(lambda: ref_monitor_quant(x, a_min, a_max, phase_b), 20),
+                "library_ms": None, "library_note_aminmax_ms": device_time_ms(lambda: torch.aminmax(x), 100),
+                "bound_ms": bound, "bound_by": by, "launches_per_call": 1, "cuda_launches_per_call": 2,
+            })
     emit("times", card=dev_info["nvidia_smi"], rows=rows,
          note="device time of back-to-back calls, operands warm in L2; library_ms for fxp_dense is "
               "torch.addmm on the precomputed hi and lo limbs plus the activation; fxp_mlp_fwd and "
               "fxp_mlp_bwd have no single PyTorch call computing their function (the backward is two "
               "products and three masks per layer, walked in order), nor do ddpg_critic_step and "
-              "ddpg_actor_step (a whole DDPG half-update)")
+              "ddpg_actor_step (a whole DDPG half-update), nor does fxp_monitor_quant (a reduction and a "
+              "phase-selected projection): its library_note_aminmax_ms is torch.aminmax on the same tensor, "
+              "the reduction alone")
     return {(r["kernel"], r["shape"], r["batch"], r["phase"]): r for r in rows}
 
 
@@ -1331,7 +1633,10 @@ def main(argv=None) -> int:
     err_b_res, err_qs = phase_kernel_b_res(gen, dev)
     err_bwd = phase_kernel_bwd(gen, dev)
     err_step = phase_kernel_step(gen, dev)
+    err_mq = phase_kernel_mq(gen, dev)
     serve_launches = phase_serve(gen, dev)
+    layer = phase_layer_monitor(gen, dev)
+    phase_fxp_raw(gen, dev)
     phase_update(gen, dev)
     phase_update(gen, dev, "pallas_fused_step")
     train = phase_train(gen, dev, args.seed)
@@ -1355,6 +1660,7 @@ def main(argv=None) -> int:
         "fxp_mlp_bwd": {"train": train["launches"]["fxp_mlp_bwd"]},
         "ddpg_critic_step": fused_path("ddpg_critic_step"),
         "ddpg_actor_step": fused_path("ddpg_actor_step"),
+        "fxp_monitor_quant": {"layer_monitor": layer["launches"]["fxp_monitor_quant"]},
     }
 
     def wrapper_count(paths: dict) -> int:
@@ -1375,6 +1681,8 @@ def main(argv=None) -> int:
         ("ddpg_actor_step", "src/repro_torch/csrc/fxp_ddpg_step.cu", "src/repro/kernels/fxp_mlp/kernel.py:632",
          ("ddpg_actor_step", "actor 17-400-300-6, critic 23-400-300-1", _paper_ddpg(0).batch_size, "monitor"),
          err_step["actor"], {k: {"atol": a, "rtol": r} for k, (a, r) in STEP_TOL.items()}),
+        ("fxp_monitor_quant", "src/repro_torch/csrc/fxp_monitor_quant.cu", "src/repro/kernels/quantize/kernel.py:30",
+         ("fxp_monitor_quant", "512x400", 512, "monitor"), err_mq, "bitwise"),
     ):
         row = times[key]
         entry = {
@@ -1394,11 +1702,15 @@ def main(argv=None) -> int:
         if name.startswith("ddpg_"):
             entry["cuda_launches_per_call"] = 2
             entry["library_note"] = "no single PyTorch call computes a whole DDPG half-update"
+        if name == "fxp_monitor_quant":
+            entry["cuda_launches_per_call"] = 2
+            entry["library_note"] = (f"no single PyTorch call computes it; torch.aminmax, the reduction alone: "
+                                     f"{row['library_note_aminmax_ms']} ms")
         kernels.append(entry)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"device": dev_info, "kernels": kernels,
-                                        "times": list(times.values())}, indent=1))
+                                        "times": list(times.values()), "phases": PHASES}, indent=1))
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

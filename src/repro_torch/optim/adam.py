@@ -14,6 +14,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.numerics import sqrt_rn
+
 Tensor = torch.Tensor
 Tree = dict[str, Any]
 
@@ -67,7 +69,7 @@ def init(params: Tree) -> AdamState:
 
 
 def global_norm(tree: Tree) -> Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32))) for leaf in tree_leaves(tree)))
+    return sqrt_rn(sum(torch.sum(torch.square(leaf.to(torch.float32))) for leaf in tree_leaves(tree)))
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float) -> tuple[Tree, Tensor]:
@@ -124,7 +126,7 @@ def leaf_update(
     v = c.b2 * v + c.one_minus_b2 * torch.square(g)
     mhat = m / c.bc1
     vhat = v / c.bc2
-    delta = mhat / (torch.sqrt(vhat) + c.eps)
+    delta = mhat / (sqrt_rn(vhat) + c.eps)
     if weight_decay > 0.0:
         delta = delta + weight_decay * p.to(torch.float32)
     return (p - c.lr * delta).to(p.dtype), m, v

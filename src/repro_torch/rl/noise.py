@@ -19,6 +19,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.numerics import sqrt_rn
 
 Tensor = torch.Tensor
 
@@ -53,7 +54,7 @@ class NoiseProcess:
             return state, torch.zeros_like(state.x)
         if self.kind == "gaussian":
             return state, self.sigma * normal
-        sqrt_dt = torch.sqrt(torch.full((), self.dt, dtype=torch.float32, device=state.x.device))
+        sqrt_dt = sqrt_rn(torch.full((), self.dt, dtype=torch.float32, device=state.x.device))
         x = state.x + self.theta * (-state.x) * self.dt + self.sigma * sqrt_dt * normal
         return NoiseState(x=x), x
 

@@ -325,3 +325,45 @@ def test_fxp_mlp_fwd_device_phase_matches_host_phase(dev, batch, quant):
     got = fxp_mlp_fwd_cuda(x, ws, bs, deltas, zs, quant=not quant, phase=phase, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _bitwise(a, b) -> bool:
+    """Equal bit patterns, a NaN matching any NaN."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("ranges", [(-3.0, 3.5), (float("inf"), float("-inf"))], ids=["captured", "empty"])
+@pytest.mark.parametrize("phase", [False, True])
+@pytest.mark.parametrize("shape", [(64,), (7, 33), (3, 5, 17), (1, 1), (512, 400), (1000003,)])
+def test_monitor_quant_kernel_matches_plain_bitwise_and_repeats(dev, shape, phase, ranges):
+    """Kernel 6 against its plain version: y and both extrema bitwise, in
+    both phases, N a multiple of the block and not; two calls bitwise."""
+    from repro_torch.kernels.quantize import monitor_quant, ref_monitor_quant
+    from repro_torch.kernels.quantize.kernel import monitor_quant_cuda
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = (torch.randn(*shape, generator=gen) * 4).to(dev)
+    before = monitor_quant_cuda.launches
+    got = monitor_quant(x, *ranges, phase)
+    again = monitor_quant(x, *ranges, phase)
+    want = ref_monitor_quant(x, *ranges, phase)
+    torch.cuda.synchronize()
+    assert monitor_quant_cuda.launches == before + 2
+    for g, a, w in zip(got, again, want):
+        assert _bitwise(g, w) and _bitwise(g, a)
+
+
+@pytest.mark.parametrize("phase", [False, True])
+def test_monitor_quant_kernel_propagates_nan(dev, phase):
+    from repro_torch.kernels.quantize import monitor_quant, ref_monitor_quant
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(70001, generator=gen).to(dev)
+    x[12345] = float("nan")
+    phase_t = torch.tensor(phase, device=dev)
+    got = monitor_quant(x, torch.tensor(-3.0, device=dev), torch.tensor(3.5, device=dev), phase_t)
+    want = ref_monitor_quant(x, -3.0, 3.5, phase)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _bitwise(g, w)
+    assert bool(got[1].isnan()) != phase and bool(got[2].isnan()) != phase

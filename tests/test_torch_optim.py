@@ -144,3 +144,21 @@ def test_global_norm_and_clip_match_reference():
     for k in want:
         for n in want[k]:
             np.testing.assert_allclose(got[k][n].numpy(), np.asarray(want[k][n]), rtol=1e-6, atol=1e-9)
+
+
+def test_sqrt_rn_is_correctly_rounded():
+    """`sqrt_rn` is the IEEE float32 square root (numpy's, and XLA's), bit
+    for bit, over 2^20 values spread across the exponent range; `leaf_update`
+    and `global_norm` take it because PyTorch's CPU float32 `torch.sqrt` is
+    one ulp off on part of these values."""
+    from repro_torch.numerics import sqrt_rn
+
+    rng = np.random.default_rng(0)
+    x = (rng.uniform(0.5, 2.0, 1 << 20) * np.exp2(rng.integers(-60, 60, 1 << 20))).astype(np.float32)
+    x[:4] = [0.0, 1.0, np.inf, np.float32(2.0**-149)]
+    got = sqrt_rn(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), np.sqrt(x).view(np.int32))
+    np.testing.assert_array_equal(got.view(np.int32), np.sqrt(x.astype(np.float64)).astype(np.float32).view(np.int32))
+    # XLA's CPU backend flushes the subnormal input to zero; elsewhere it agrees
+    np.testing.assert_array_equal(got[4:], np.asarray(jnp.sqrt(jnp.asarray(x[4:]))))
