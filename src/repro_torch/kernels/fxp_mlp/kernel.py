@@ -2,9 +2,11 @@
 
 * `fxp_mlp_fwd_cuda` — kernel B, the forward (`csrc/fxp_mlp_fwd.cu`;
   replaces `repro.kernels.fxp_mlp.kernel.fxp_mlp_pallas` → `_mlp_kernel`),
-  with or without the training residuals.  One block per row block; it
-  returns the per-block range monitor rows (n_blocks, L), which
-  `ops.fxp_mlp_forward` reduces.
+  with or without the training residuals.  A thread-block cluster per
+  block of rows, the layers' columns split over its blocks, persistent
+  clusters striding over the row blocks; `mlp_plan` is its launch plan
+  (pure Python).  It returns one row of range monitors per cluster,
+  (`monitor_rows(m, dims)`, L), which `ops.fxp_mlp_forward` reduces.
 * `fxp_mlp_bwd_cuda` — kernel 3, the backward (`csrc/fxp_mlp_bwd.cu`;
   replaces `fxp_mlp_bwd_pallas` → `_mlp_bwd_kernel`): dx, dW and db from
   the forward's residuals, in two CUDA launches (the chain over row
@@ -28,11 +30,12 @@ launch, raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._compat import round_up
 from repro_torch.kernels.fxp_matmul.kernel import ACTIVATION_CODES
 from repro_torch.kernels.fxp_mlp.ref import HYPER_LEN
 
@@ -47,10 +50,112 @@ MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 BWD_ROWS = 8  # csrc/fxp_mlp_bwd.cu BM: rows per block of the chain pass
 
 
+# Clusters of C blocks an H100 runs at once with kernel B's shared memory
+# (cudaOccupancyMaxActiveClusters on an H100 80GB HBM3: its GPCs hold 15
+# clusters of 8, not 132 // 8 = 16; `chip_smoke.py` reports the query).
+CLUSTER_SLOTS = {4: 30, 8: 15, 16: 7}
+STATIC_SMEM = 1024  # csrc/fxp_mlp_fwd.cu STATIC_SMEM: kept back for static shared memory
+KSPLIT_MAX_N = 8  # a layer this narrow sums K slices across the cluster
+
+
 def row_block(m: int) -> int:
     """Rows per block: 8, or 1 for a single row (the kernel's two
     instantiations)."""
     return 1 if m == 1 else 8
+
+
+def slice_width(d: int, c: int) -> int:
+    """Columns of a width-d vector each of c blocks owns: ⌈d / c⌉ rounded
+    up to 4 (16-byte rows); the last slices are shorter or empty."""
+    return round_up(-(-d // c), 4)
+
+
+class MlpPlan(NamedTuple):
+    """Kernel B's launch plan (csrc/fxp_mlp_fwd.cu's header): rows per
+    block, blocks per cluster, clusters in the grid, whether the weights
+    are resident in shared memory, which layers split K, how many copies of
+    the whole-input limb buffers a block keeps, and the shared-memory
+    layout in floats (smem in bytes)."""
+
+    bm: int
+    cluster: int
+    n_clusters: int
+    resident: bool
+    ksplit: tuple
+    kmax: int
+    smax: int
+    pmax: int
+    nbuf: int
+    w_off: tuple
+    full_off: int
+    act_off: int
+    part_off: int
+    smem: int
+
+
+def tma_rows(k: int) -> int:
+    """Rows of one tensor box of a column-split W slice: ⌈K/256⌉ boxes of
+    ⌈K / boxes⌉ rows rounded up to 8 (csrc/fxp_mlp_fwd.cu tma_rows)."""
+    boxes = -(-k // 256)
+    return round_up(-(-k // boxes), 8)
+
+
+def _w_extent(k: int, n: int, c: int, ksplit: bool) -> int:
+    """Floats of a block's resident W slice, 128-byte aligned."""
+    floats = slice_width(k, c) * n if ksplit else -(-k // 256) * tma_rows(k) * slice_width(n, c)
+    return round_up(floats, 32)
+
+
+def _layout(bm: int, c: int, dims: Sequence[int], resident: bool, nbuf: int) -> MlpPlan:
+    layers = list(zip(dims[:-1], dims[1:]))
+    ksplit = tuple(n <= KSPLIT_MAX_N for _, n in layers)
+    w_off, end = [], 0
+    for (k, n), ks in zip(layers, ksplit):
+        w_off.append(end)
+        if resident:
+            end += _w_extent(k, n, c, ks)
+    kmax = round_up(max(dims[:-1]), 4)
+    smax = max(slice_width(d, c) for d in dims)
+    pmax = round_up(max([n for (_, n), ks in zip(layers, ksplit) if ks], default=0), 4)
+    full_off = end
+    act_off = full_off + nbuf * 2 * bm * kmax
+    part_off = act_off + bm * smax
+    smem = 4 * (part_off + 2 * bm * pmax)
+    return MlpPlan(bm, c, 0, resident, ksplit, kmax, smax, pmax, nbuf, tuple(w_off), full_off, act_off, part_off,
+                   smem)
+
+
+def mlp_plan(m: int, dims: Sequence[int]) -> MlpPlan:
+    """The launch plan of kernel B for m rows through an MLP of widths
+    `dims` — FIXAR's adaptive parallelism: while the row blocks fit one wave
+    of clusters of 8 blocks, each layer is split 8 ways (intra-layer);
+    beyond, into 4 ways over twice as many clusters (intra-batch).  Weights
+    resident in shared memory where their slices fit (else clusters of 16,
+    else W read from L2 in clusters of 8), two copies of the input buffers
+    where they fit, else one; as many clusters as the card holds at once
+    (`CLUSTER_SLOTS`), or one per row block.  Raises for the shapes the
+    kernel does not take: the widths whose three row-block buffers
+    (3 · bm · max(dims) floats) exceed a block's shared memory."""
+    if m < 1 or len(dims) < 2 or min(dims) < 1:
+        raise ValueError(f"no plan for {m} rows through {list(dims)}")
+    bm = row_block(m)
+    if 3 * bm * max(dims) * 4 > MAX_SMEM:
+        raise ValueError(f"layer width {max(dims)} needs {3 * bm * max(dims) * 4} B of shared memory (> {MAX_SMEM})")
+    n_rb = -(-m // bm)
+    limit = MAX_SMEM - STATIC_SMEM
+    widths = (8, 16) if n_rb <= CLUSTER_SLOTS[8] else (4, 8, 16)
+    candidates = [(True, c) for c in widths] + [(False, 8)]
+    layouts = (_layout(bm, c, dims, resident, nbuf) for resident, c in candidates for nbuf in (2, 1))
+    plan = next((p for p in layouts if p.smem <= limit), None)
+    if plan is None:
+        raise AssertionError(f"no kernel B layout fits for {list(dims)}")
+    return plan._replace(n_clusters=min(n_rb, CLUSTER_SLOTS[plan.cluster]))
+
+
+def monitor_rows(m: int, dims: Sequence[int]) -> int:
+    """Rows of kernel B's mins/maxs outputs for m rows through `dims`: one
+    per cluster of the grid."""
+    return mlp_plan(m, dims).n_clusters
 
 
 def _launcher():
@@ -61,7 +166,9 @@ def _launcher():
             [ctypes.c_void_p] * 5
             + [ctypes.c_int]
             + [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 7
+            + [ctypes.c_int]
+            + [ctypes.c_void_p]
+            + [ctypes.c_int] * 5
             + [ctypes.c_void_p] * 4
         )
         fn.restype = ctypes.c_int
@@ -149,8 +256,8 @@ def fxp_mlp_fwd_cuda(
     on the current CUDA device.  `phase`, a (1,) int32 on the same device,
     is read in-kernel in place of `quant` (> 0: the quant phase), so the
     launch needs no host read of the phase; not with `save_residuals`.
-    Returns (y (M, N_L), mins, maxs), the last two (n_blocks, L) per-block
-    site extrema; with `save_residuals` also (qs, hs) as
+    Returns (y (M, N_L), mins, maxs), the last two (monitor_rows(M, dims),
+    L) per-cluster site extrema; with `save_residuals` also (qs, hs) as
     `ref.ref_mlp_forward` returns them (hs[L-1] is y).
     """
     if len(biases) != len(weights):
@@ -166,14 +273,20 @@ def fxp_mlp_fwd_cuda(
         if save_residuals:
             raise ValueError("kernel B takes a device phase only without residuals")
     m = int(x.shape[0])
-    bm = row_block(m)
-    smem = 3 * bm * max(dims) * 4
-    if smem > MAX_SMEM:
-        raise ValueError(f"layer width {max(dims)} needs {smem} B of shared memory (> {MAX_SMEM})")
-    n_blocks = -(-m // bm)
+    plan = mlp_plan(m, dims)
     y = torch.empty((m, dims[-1]), dtype=torch.float32, device=x.device)
-    mins = torch.empty((n_blocks, n_layers), dtype=torch.float32, device=x.device)
-    maxs = torch.empty((n_blocks, n_layers), dtype=torch.float32, device=x.device)
+    mins = torch.empty((plan.n_clusters, n_layers), dtype=torch.float32, device=x.device)
+    maxs = torch.empty((plan.n_clusters, n_layers), dtype=torch.float32, device=x.device)
+    # bulk copies need 16-byte rows: a resident slice of W loads with them
+    # where W's width is a multiple of 4, W is 16-byte aligned and a tensor
+    # box is at most 256 columns wide
+    bulk = [int(plan.resident and w.shape[1] % 4 == 0 and w.data_ptr() % 16 == 0
+                and (ks or slice_width(int(w.shape[1]), plan.cluster) <= 256))
+            for w, ks in zip(weights, plan.ksplit)]
+    c_plan = (ctypes.c_int * (12 + 3 * n_layers))(
+        plan.bm, plan.cluster, plan.n_clusters, int(plan.resident), plan.kmax, plan.smax, plan.pmax, plan.nbuf,
+        plan.full_off, plan.act_off, plan.part_off, plan.smem,
+        *[int(k) for k in plan.ksplit], *bulk, *plan.w_off)
     qs = hs = []
     if save_residuals:
         qs = [torch.empty((m, k), dtype=torch.float32, device=x.device) for k in dims[:-1]]
@@ -196,7 +309,7 @@ def fxp_mlp_fwd_cuda(
         mins.data_ptr(),
         maxs.data_ptr(),
         m,
-        bm,
+        c_plan,
         int(bool(quant)),
         int(bool(qat)),
         int(bool(fxp32_phase1)),
@@ -506,6 +619,10 @@ __all__ = [
     "ddpg_critic_step_cuda",
     "ddpg_actor_step_cuda",
     "row_block",
+    "mlp_plan",
+    "monitor_rows",
+    "slice_width",
+    "MlpPlan",
     "MAX_LAYERS",
     "STEP_MAX_LAYERS",
     "BWD_ROWS",
