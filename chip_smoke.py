@@ -16,12 +16,16 @@ JSON line:
   2. build    — nvcc builds the five kernel libraries from
                 `src/repro_torch/csrc/`, in parallel, into `build/kernels/`;
   3. kernel_a — the dense-layer kernel against its plain version: the three
-                actor layer shapes, B in {1, 7, 8, 32, 128, 512} (the
-                serving buckets and a ragged 7), full and half precision,
-                relu/tanh/none;
-  4. kernel_b — the fused MLP kernel against its plain version at
-                17-400-300-6, same batches, QAT off / monitor / quant phase,
-                y and the site mins/maxs;
+                actor layer shapes and two ragged ones (K no multiple of
+                the split, N no multiple of 4), B in {1, 7, 8, 32, 128,
+                512} (the serving buckets and a ragged 7) and the launch
+                plans' edges {9, 16, 17, 120, 121, 511}, full and half
+                precision, relu/tanh/none; two calls bitwise equal;
+  4. kernel_b — the fused MLP kernel against its plain version at the actor
+                17-400-300-6 and the critic 23-400-300-1, same batches,
+                QAT off / monitor / quant phase, y and the site mins/maxs
+                (as many rows as `monitor_rows` says); two calls bitwise
+                equal; the card's cluster occupancy for the plans;
   5. kernel_b_res — kernel B with the training residuals against the plain
                 version's: qs, hs, y and the site mins/maxs at 17-400-300-6
                 and 23-400-300-1, B in {1, 7, 128, 256}, QAT off / monitor /
@@ -63,9 +67,11 @@ JSON line:
  11. fxp_raw  — the raw fixed-point API on CUDA tensors against the CPU
                 and the numpy int64 oracle, bitwise (`fxp_matmul_raw` at
                 (128, 400) @ (400, 300), saturating `quantize`, `fxp_mul`,
-                `fxp_add`, `affine_quantize` / `affine_dequantize`), and
+                `fxp_add`, `affine_quantize` / `affine_dequantize`),
                 `numerics.sqrt_rn` on 2^20 values against the float64-
-                rounded square root;
+                rounded square root, and the card path's one quotient by a
+                Python number (`site_project`'s / 2^16) bitwise the IEEE
+                quotient on 2^20 values;
  12. update   — one `ddpg.update(backend="pallas")` on the card against the
                 same update by the plain versions on the CPU, from the same
                 state, at B = 128, in the monitor and the quant phase;
@@ -95,14 +101,16 @@ JSON line:
                 timestep: host wall and device busy time per step (so the
                 device's idle share), kernels and CUDA runtime calls per
                 step, the costliest kernels and host ops;
- 17. times    — each kernel at the main paths' shapes: kernels A and B at
-                the serving shapes (B in {1, 128, 512}, both precision
-                phases), kernel B with residuals and kernel 3 at B = 128 for
-                the actor and the critic, kernels 4 and 5 at B = 128, both
-                phases, kernel 6 at B × 400 for B = 512 and 128 and a
-                2^24-element sweep, both phases: kernel, plain version,
-                library yardstick and the least time the card could take
-                (`bound_ms`);
+ 17. times    — each kernel at the main paths' shapes: kernel A as the
+                three-layer chain and layer by layer, and kernel B, at the
+                serving shapes (B in {1, 8, 128, 512}, both precision
+                phases), kernel B's device-phase instance at B = 1 (the
+                launch a captured timestep replays), kernel B with
+                residuals and kernel 3 at B = 128 for the actor and the
+                critic, kernels 4 and 5 at B = 128, both phases, kernel 6
+                at B × 400 for B = 512 and 128 and a 2^24-element sweep,
+                both phases: kernel, plain version, library yardstick and
+                the least time the card could take (`bound_ms`);
  18. engine   — host wall time of synchronous `run_batch` calls per mode
                 and batch (the engine's own cost, without queueing).
 
@@ -161,7 +169,12 @@ SRC = REPO / "src"
 
 ACTOR_DIMS = (17, 400, 300, 6)
 CHECK_BATCHES = (1, 7, 8, 32, 128, 512)  # the serving buckets, and a ragged 7
-TIME_BATCHES = (1, 128, 512)
+# the launch plans' edges: the first two row blocks, a ragged third, the
+# widest one-wave batch of clusters of 8 (15 row blocks) and the next, and
+# a ragged last row block
+PLAN_BATCHES = (9, 16, 17, 120, 121, 511)
+RAGGED_DENSE = ((301, 70), (257, 300))  # (K, N): K no multiple of the split, N no multiple of 4
+TIME_BATCHES = (1, 8, 128, 512)
 TOL = 2e-5
 TOL_QUANT = 1e-3
 CRITIC_DIMS = (23, 400, 300, 1)
@@ -306,26 +319,47 @@ def _layer_operands(gen: torch.Generator, dev) -> list:
     return [(actor[f"l{i}"]["w"], actor[f"l{i}"]["b"]) for i in range(len(ACTOR_DIMS) - 1)]
 
 
+def _extra(gen: torch.Generator) -> torch.Generator:
+    """A generator for cases added in PR 15, seeded from `gen`'s seed
+    without drawing from it, so the phases that share `gen` keep the inputs
+    they had before those cases existed."""
+    return torch.Generator().manual_seed(gen.initial_seed() + 15)
+
+
 def phase_kernel_a(gen: torch.Generator, dev) -> float:
-    from repro_torch.kernels.fxp_matmul.kernel import fxp_dense_cuda
+    from repro_torch.kernels.fxp_matmul.kernel import dense_plan, fxp_dense_cuda
     from repro_torch.kernels.fxp_matmul.ref import ref_fxp_dense
 
     worst = {"max_abs": 0.0, "max_rel": 0.0}
     cases = 0
-    for w, b in _layer_operands(gen, dev):
+    plans = set()
+    extra = _extra(gen)
+    layers = [(w, b, True) for w, b in _layer_operands(gen, dev)]
+    # the plan's edges beyond the actor: K not a multiple of the split on a
+    # width not a multiple of 4 (the tiled body's 4-byte copies)
+    for k, n in RAGGED_DENSE:
+        layers.append((((torch.rand(k, n, generator=extra) * 2 - 1) * k**-0.5).to(dev),
+                       (torch.rand(n, generator=extra) * 2 - 1).to(dev), False))
+    for w, b, actor in layers:
         k = w.shape[0]
-        for batch in CHECK_BATCHES:
-            x = (torch.randn(batch, k, generator=gen) * 2).to(dev)
+        for batch in CHECK_BATCHES + PLAN_BATCHES:
+            g = gen if actor and batch in CHECK_BATCHES else extra
+            x = (torch.randn(batch, k, generator=g) * 2).to(dev)
+            plans.add((batch, k, w.shape[1], dense_plan(batch, k, w.shape[1])[:3]))
             for full in (True, False):
                 for act in ("relu", "tanh", "none"):
                     for bias in (b, None) if act == "none" else (b,):
                         got = fxp_dense_cuda(x, w, bias, full_precision=full, activation=act)
+                        again = fxp_dense_cuda(x, w, bias, full_precision=full, activation=act)
                         want = ref_fxp_dense(x, w, bias, full_precision=full, activation=act)
                         torch.cuda.synchronize()
-                        e = compare(got, want, TOL, f"kernel A {tuple(w.shape)} B={batch} full={full} {act}")
+                        tag = f"kernel A {tuple(w.shape)} B={batch} full={full} {act}"
+                        require(torch.equal(got, again), f"{tag}: two calls on the same inputs differ")
+                        e = compare(got, want, TOL, tag)
                         worst = {key: max(worst[key], e[key]) for key in worst}
                         cases += 1
-    emit("kernel_a", cases=cases, tolerance=TOL, **worst)
+    emit("kernel_a", cases=cases, tolerance=TOL, bitwise_repeat=True,
+         plans=sorted([*p[:3], *p[3]] for p in plans), **worst)
     return worst["max_abs"]
 
 
@@ -339,36 +373,66 @@ def _site_operands(ws, bs, x_cal, acts=NETS["actor"][1]):
     return deltas.contiguous(), zs.to(torch.float32).contiguous()
 
 
-def phase_kernel_b(gen: torch.Generator, dev) -> tuple[float, float]:
-    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_fwd_cuda
-    from repro_torch.kernels.fxp_mlp.ref import ref_mlp_forward
-    from repro_torch.rl import ddpg
+def _cluster_slots() -> dict:
+    """cudaOccupancyMaxActiveClusters for kernel B's plans at the paper's
+    actor (B = 1 and 120: clusters of 8; B = 128: of 4), beside the count
+    the plan assumes (`CLUSTER_SLOTS`).  A plan the card cannot schedule
+    fails; fewer slots than assumed only make a second wave."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fxp_mlp.kernel import CLUSTER_SLOTS, mlp_plan
 
+    lib = _build.load("fxp_mlp_fwd")
+    out = {}
+    for batch in (1, 120, 128):
+        p = mlp_plan(batch, ACTOR_DIMS)
+        n = lib.fxp_mlp_fwd_max_clusters(p.bm, p.cluster, p.smem, int(p.resident))
+        require(n >= 1, f"kernel B's plan for B={batch} cannot be scheduled ({n})")
+        out[f"B={batch} C={p.cluster} smem={p.smem}"] = {"queried": n, "assumed": CLUSTER_SLOTS[p.cluster]}
+    return out
+
+
+def phase_kernel_b(gen: torch.Generator, dev) -> tuple[float, float]:
+    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_fwd_cuda, mlp_plan, monitor_rows
+    from repro_torch.kernels.fxp_mlp.ref import ref_mlp_forward
+
+    worst = {"off": 0.0, "monitor": 0.0, "quant": 0.0, "minmax": 0.0}
+    plans = {}
+    extra = _extra(gen)
     layers = _layer_operands(gen, dev)
     ws, bs = [w for w, _ in layers], [b for _, b in layers]
     deltas, zs = _site_operands(ws, bs, (torch.randn(512, ACTOR_DIMS[0], generator=gen) * 2).to(dev))
-    worst = {"off": 0.0, "monitor": 0.0, "quant": 0.0, "minmax": 0.0}
-    for batch in CHECK_BATCHES:
-        x = (torch.randn(batch, ACTOR_DIMS[0], generator=gen) * 2).to(dev)
-        for case in ("off", "monitor", "quant"):
-            qat, quant = case != "off", case == "quant"
-            kw = dict(activations=ddpg.ACTOR_ACTS, quant=quant, qat=qat, n_bits=16, fxp32_phase1=True)
-            y, bmins, bmaxs = fxp_mlp_fwd_cuda(x, ws, bs, deltas if qat else None, zs if qat else None, **kw)
-            y_ref, mins_ref, maxs_ref = ref_mlp_forward(x, ws, bs, deltas, zs, **kw)
-            torch.cuda.synchronize()
-            tag = f"kernel B B={batch} {case}"
-            require(bmins.shape == (-(-batch // (1 if batch == 1 else 8)), 3), f"{tag}: mins shape {bmins.shape}")
-            e = compare(y, y_ref, TOL_QUANT if quant else TOL, f"{tag} y")
-            worst[case] = max(worst[case], e["max_abs"])
-            mins, maxs = bmins.amin(0), bmaxs.amax(0)
-            require(
-                float(mins[0]) == float(mins_ref[0]) and float(maxs[0]) == float(maxs_ref[0]),
-                f"{tag}: layer-0 extrema {float(mins[0])}, {float(maxs[0])} != "
-                f"{float(mins_ref[0])}, {float(maxs_ref[0])}",
-            )
-            for got, want, what in ((mins, mins_ref, "mins"), (maxs, maxs_ref, "maxs")):
-                worst["minmax"] = max(worst["minmax"], compare(got, want, TOL, f"{tag} {what}")["max_abs"])
-    emit("kernel_b", tolerance={"off": TOL, "monitor": TOL, "quant": TOL_QUANT, "minmax": TOL}, max_abs=worst)
+    nets = {"actor": (ACTOR_DIMS, NETS["actor"][1], ws, bs, deltas, zs), "critic": _net_operands(extra, dev, "critic")}
+    for net, (dims, acts, ws, bs, deltas, zs) in nets.items():
+        for batch in CHECK_BATCHES + PLAN_BATCHES:
+            g = gen if net == "actor" and batch in CHECK_BATCHES else extra
+            x = (torch.randn(batch, dims[0], generator=g) * 2).to(dev)
+            p = mlp_plan(batch, dims)
+            plans[f"{net} B={batch}"] = {"bm": p.bm, "cluster": p.cluster, "n_clusters": p.n_clusters,
+                                         "resident": p.resident, "nbuf": p.nbuf, "smem": p.smem}
+            for case in ("off", "monitor", "quant"):
+                kw = _case_kw(acts, case)
+                quant = kw["quant"]
+                d, z = (deltas, zs) if kw["qat"] else (None, None)
+                y, bmins, bmaxs = fxp_mlp_fwd_cuda(x, ws, bs, d, z, **kw)
+                again = fxp_mlp_fwd_cuda(x, ws, bs, d, z, **kw)
+                y_ref, mins_ref, maxs_ref = ref_mlp_forward(x, ws, bs, deltas, zs, **kw)
+                torch.cuda.synchronize()
+                tag = f"kernel B {net} B={batch} {case}"
+                require(all(torch.equal(a, b) for a, b in zip((y, bmins, bmaxs), again)),
+                        f"{tag}: two calls on the same inputs differ")
+                require(bmins.shape == (monitor_rows(batch, dims), len(ws)), f"{tag}: mins shape {bmins.shape}")
+                e = compare(y, y_ref, TOL_QUANT if quant else TOL, f"{tag} y")
+                worst[case] = max(worst[case], e["max_abs"])
+                mins, maxs = bmins.amin(0), bmaxs.amax(0)
+                require(
+                    float(mins[0]) == float(mins_ref[0]) and float(maxs[0]) == float(maxs_ref[0]),
+                    f"{tag}: layer-0 extrema {float(mins[0])}, {float(maxs[0])} != "
+                    f"{float(mins_ref[0])}, {float(maxs_ref[0])}",
+                )
+                for got, want, what in ((mins, mins_ref, "mins"), (maxs, maxs_ref, "maxs")):
+                    worst["minmax"] = max(worst["minmax"], compare(got, want, TOL, f"{tag} {what}")["max_abs"])
+    emit("kernel_b", tolerance={"off": TOL, "monitor": TOL, "quant": TOL_QUANT, "minmax": TOL}, max_abs=worst,
+         bitwise_repeat=True, plans=plans, cluster_slots=_cluster_slots())
     return max(worst["off"], worst["monitor"], worst["minmax"]), worst["quant"]
 
 
@@ -844,6 +908,21 @@ def phase_fxp_raw(gen: torch.Generator, dev) -> dict:
     rn = np.sqrt(v.astype(np.float64)).astype(np.float32)
     require(np.array_equal(got.numpy().view(np.int32), rn.view(np.int32)), "fxp_raw sqrt_rn: not correctly rounded")
     checks["sqrt_rn"] = [1 << 20]
+    # the one quotient by a Python number on the card path (kernels/fxp_mlp/ref.py
+    # `site_project`, monitor phase: rint(clip(x·2^16)) / 2^16): PyTorch multiplies
+    # by the reciprocal, exact for a power of two, so it must be the IEEE quotient
+    from repro_torch.kernels.fxp_mlp.ref import site_project
+
+    q = torch.from_numpy(np.concatenate([
+        rng.integers(-(2**31), 2**31, 1 << 19).astype(np.float32),
+        (rng.standard_normal(1 << 19) * np.exp2(rng.integers(-30, 30, 1 << 19))).astype(np.float32)])).to(dev)
+    ieee = (q.double() / 65536.0).float()
+    require(_bitwise(q / float(2.0**16), ieee), "fxp_raw: x / 2^16 by a Python number is not the IEEE quotient")
+    xq = (q / 65536.0) * 1.37
+    got_sp = site_project(xq, False, None, None, n_bits=16, fxp32_phase1=True)
+    want_sp = (torch.round(torch.clamp(xq.double() * 65536.0, -2.0**31, 2.0**31 - 1)).float().double() / 65536.0).float()
+    require(_bitwise(got_sp, want_sp), "fxp_raw: site_project's 2^16 quotient is not the IEEE quotient")
+    checks["quotient by 2^16 (site_project)"] = [1 << 20]
     torch_sqrt_off = int((torch.sqrt(vt).cpu().numpy().view(np.int32) != rn.view(np.int32)).sum())
     scalar_div_off = int((vt / 65535.0 != vt / torch.full((), 65535.0, device=dev)).sum())
     report = {"checks": checks, "tolerance": "bitwise (card = CPU = int64 oracle)",
@@ -1412,59 +1491,71 @@ def phase_times(gen: torch.Generator, dev, dev_info: dict) -> dict:
     act_fn = {"relu": torch.relu, "tanh": torch.tanh}
     n_params = sum(w.numel() + b.numel() for w, b in layers)
     rows = []
+    extra = _extra(gen)
     for batch in TIME_BATCHES:
-        x = (torch.randn(batch, ACTOR_DIMS[0], generator=gen) * 2).to(dev)
+        g = extra if batch == 8 else gen  # B = 8 joined the rows in PR 15
+        x = (torch.randn(batch, ACTOR_DIMS[0], generator=g) * 2).to(dev)
         # per-layer inputs of the chain, so each layer is timed on its own shape
         inputs = [x]
         for (w, b), a in zip(layers[:-1], acts):
             inputs.append(ref_fxp_dense(inputs[-1], w, b, activation=a))
+        limbs = [limb_split(xi) for xi in inputs]
         for full in (True, False):
             passes = 2 if full else 1
             macs = sum(batch * w.shape[0] * w.shape[1] for w in ws)
+            phase = "full" if full else "half"
 
-            # kernel A: the three-layer chain of the `layer` mode
-            def chain_kernel():
-                for xi, (w, b), a in zip(inputs, layers, acts):
-                    fxp_dense_cuda(xi, w, b, full_precision=full, activation=a)
+            # kernel A: the three-layer chain of the `layer` mode, then each layer
+            def chain_kernel(sel=range(len(layers))):
+                for i in sel:
+                    fxp_dense_cuda(inputs[i], *layers[i], full_precision=full, activation=acts[i])
 
-            def chain_plain():
-                for xi, (w, b), a in zip(inputs, layers, acts):
-                    ref_fxp_dense(xi, w, b, full_precision=full, activation=a)
+            def chain_plain(sel=range(len(layers))):
+                for i in sel:
+                    ref_fxp_dense(inputs[i], *layers[i], full_precision=full, activation=acts[i])
 
-            limbs = [limb_split(xi) for xi in inputs]
-
-            def chain_library():
-                for (hi, lo), (w, b), a in zip(limbs, layers, acts):
+            def chain_library(sel=range(len(layers))):
+                for i in sel:
+                    (hi, lo), (w, b) = limbs[i], layers[i]
                     acc = torch.addmm(b, hi, w)
                     if full:
                         acc = torch.addmm(acc, lo, w)
-                    act_fn[a](acc)
+                    act_fn[acts[i]](acc)
 
-            a_bytes = 4 * sum(xi.numel() + w.numel() + b.numel() + xi.shape[0] * w.shape[1]
-                              for xi, (w, b) in zip(inputs, layers))
-            a_bound, a_by = _bound_ms(a_bytes, 2 * passes * macs, dev_info)
-            rows.append({
-                "kernel": "fxp_dense", "shape": "chain 17-400-300-6", "batch": batch,
-                "phase": "full" if full else "half",
-                "ms": device_time_ms(chain_kernel, 100),
-                "plain_ms": device_time_ms(chain_plain, 20),
-                "library_ms": device_time_ms(chain_library, 20),
-                "bound_ms": a_bound, "bound_by": a_by, "launches_per_call": 3,
-            })
+            for sel, shape in [(range(len(layers)), "chain 17-400-300-6")] + [
+                    ((i,), f"layer {ws[i].shape[0]}x{ws[i].shape[1]}") for i in range(len(layers))]:
+                a_bytes = 4 * sum(inputs[i].numel() + ws[i].numel() + bs[i].numel() + batch * ws[i].shape[1]
+                                  for i in sel)
+                a_bound, a_by = _bound_ms(a_bytes, 2 * passes * sum(batch * ws[i].numel() for i in sel), dev_info)
+                rows.append({
+                    "kernel": "fxp_dense", "shape": shape, "batch": batch, "phase": phase,
+                    "ms": device_time_ms(lambda: chain_kernel(sel), 100),
+                    "plain_ms": device_time_ms(lambda: chain_plain(sel), 20),
+                    "library_ms": device_time_ms(lambda: chain_library(sel), 20),
+                    "bound_ms": a_bound, "bound_by": a_by, "launches_per_call": len(sel),
+                })
 
-            # kernel B: the whole network in one launch, QAT sites on
+            # kernel B: the whole network in one launch, QAT sites on; bytes:
+            # x, the parameters and deltas/zs read once, y and the 2·L site
+            # extrema (the function's outputs) written once
             kw = dict(activations=acts, quant=not full, qat=True, n_bits=16, fxp32_phase1=True)
-            n_blocks = -(-batch // (1 if batch == 1 else 8))
-            b_bytes = 4 * (x.numel() + n_params + batch * ACTOR_DIMS[-1] + 2 * len(ws) + 2 * n_blocks * len(ws))
+            b_bytes = 4 * (x.numel() + n_params + batch * ACTOR_DIMS[-1] + 2 * len(ws) + 2 * len(ws))
             b_bound, b_by = _bound_ms(b_bytes, 2 * passes * macs, dev_info)
-            rows.append({
+            b_row = {
                 "kernel": "fxp_mlp_fwd", "shape": "17-400-300-6", "batch": batch,
                 "phase": "monitor (full)" if full else "quant (half)",
                 "ms": device_time_ms(lambda: fxp_mlp_fwd_cuda(x, ws, bs, deltas, zs, **kw), 100),
                 "plain_ms": device_time_ms(lambda: ref_mlp_forward(x, ws, bs, deltas, zs, **kw), 20),
                 "library_ms": None,
                 "bound_ms": b_bound, "bound_by": b_by, "launches_per_call": 1,
-            })
+            }
+            rows.append(b_row)
+            if batch == 1:
+                # the device-phase instance: the launch a captured timestep replays when acting
+                phase_t = torch.full((1,), int(not full), dtype=torch.int32, device=dev)
+                rows.append({**b_row, "shape": "17-400-300-6, device phase",
+                             "ms": device_time_ms(lambda: fxp_mlp_fwd_cuda(x, ws, bs, deltas, zs, phase=phase_t,
+                                                                           **kw), 100)})
     # the training path's shapes: kernel B with residuals and kernel 3 at B = 128
     from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_bwd_cuda
     from repro_torch.kernels.fxp_mlp.ref import ref_mlp_backward
@@ -1481,8 +1572,7 @@ def phase_times(gen: torch.Generator, dev, dev_info: dict) -> dict:
         for case in ("monitor", "quant"):
             kw = _case_kw(nacts, case)
             passes = 1 if kw["quant"] else 2
-            n_blocks = -(-batch // 8)
-            f_bytes = 4 * (x.numel() + w_elems + b_elems + batch * dims[-1] + 2 * len(nws) + 2 * n_blocks * len(nws)
+            f_bytes = 4 * (x.numel() + w_elems + b_elems + batch * dims[-1] + 2 * len(nws) + 2 * len(nws)
                            + res_elems)
             f_bound, f_by = _bound_ms(f_bytes, 2 * passes * macs, dev_info)
             rows.append({

@@ -192,4 +192,8 @@ def test_kernel_wrapper_never_runs_the_plain_version():
                                  activations=("relu", "tanh"), quant=False, qat=False, n_bits=16,
                                  fxp32_phase1=True)
     assert pkernel.fxp_mlp_fwd_cuda.launches == before
-    assert [pkernel.row_block(m) for m in (1, 2, 8, 512)] == [1, 8, 8, 8]
+    # the launch plan: one row for a single row, else blocks of 8; one monitor
+    # row per cluster of the grid
+    plans = [pkernel.mlp_plan(m, (5, 33, 7)) for m in (1, 2, 8, 512)]
+    assert [p.bm for p in plans] == [1, 8, 8, 8]
+    assert [pkernel.monitor_rows(m, (5, 33, 7)) for m in (1, 2, 8, 512)] == [p.n_clusters for p in plans]

@@ -53,7 +53,7 @@ def test_fxp_dense_kernel_matches_plain(dev, shape, full, activation):
 @pytest.mark.parametrize("dims", [(5, 33, 7), (17, 400, 300, 6)])
 def test_fxp_mlp_fwd_kernel_matches_plain(dev, dims, batch, case):
     from repro_torch.core.fixedpoint import affine_params
-    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_fwd_cuda, row_block
+    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_fwd_cuda, monitor_rows
     from repro_torch.kernels.fxp_mlp.ref import ref_mlp_forward
 
     gen = torch.Generator().manual_seed(batch)
@@ -67,7 +67,7 @@ def test_fxp_mlp_fwd_kernel_matches_plain(dev, dims, batch, case):
     kw = dict(activations=acts, quant=quant, qat=qat, n_bits=16, fxp32_phase1=True)
     y, bmins, bmaxs = fxp_mlp_fwd_cuda(x, ws, bs, deltas if qat else None, zs if qat else None, **kw)
     y_ref, mins_ref, maxs_ref = ref_mlp_forward(x, ws, bs, deltas, zs, **kw)
-    assert bmins.shape == (-(-batch // row_block(batch)), len(ws))
+    assert bmins.shape == (monitor_rows(batch, dims), len(ws))
     torch.testing.assert_close(y, y_ref, **(dict(rtol=1e-3, atol=1e-3) if quant else TOL))
     torch.testing.assert_close(bmins.amin(0), mins_ref, **TOL)
     torch.testing.assert_close(bmaxs.amax(0), maxs_ref, **TOL)
@@ -367,3 +367,92 @@ def test_monitor_quant_kernel_propagates_nan(dev, phase):
     for g, w in zip(got, want):
         assert _bitwise(g, w)
     assert bool(got[1].isnan()) != phase and bool(got[2].isnan()) != phase
+
+
+# --------------------------------------------------------------------------
+# kernels A and B on their launch plans' edges: split-K clusters, cluster
+# widths, row blocks; two calls bitwise equal; kernel B inside a CUDA graph
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("full", [True, False])
+@pytest.mark.parametrize("shape", [(9, 400, 300), (16, 17, 400), (17, 300, 6), (511, 400, 300), (1, 300, 6),
+                                   (120, 301, 70), (121, 257, 300), (33, 400, 300), (512, 301, 70)])
+def test_fxp_dense_kernel_plan_edges_repeat_bitwise(dev, shape, full):
+    """Kernel A where its plan changes body, tile or split (K no multiple of
+    the split, N no multiple of 4): within the contract, two calls bitwise
+    equal (the split-K sum is a fixed-order cluster reduction)."""
+    from repro_torch.kernels.fxp_matmul.kernel import fxp_dense_cuda
+    from repro_torch.kernels.fxp_matmul.ref import ref_fxp_dense
+
+    gen = torch.Generator().manual_seed(sum(shape) + full)
+    m, k, n = shape
+    x, w, b = _rand(gen, m, k, scale=2).to(dev), _rand(gen, k, n, scale=k**-0.5).to(dev), _rand(gen, n).to(dev)
+    got = fxp_dense_cuda(x, w, b, full_precision=full, activation="relu")
+    again = fxp_dense_cuda(x, w, b, full_precision=full, activation="relu")
+    want = ref_fxp_dense(x, w, b, full_precision=full, activation="relu")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("case", ["off", "monitor", "quant"])
+@pytest.mark.parametrize("batch", [9, 16, 17, 120, 121, 511])
+@pytest.mark.parametrize("net", NETS, ids=["tiny", "actor", "critic"])
+def test_fxp_mlp_fwd_kernel_plan_edges_repeat_bitwise(dev, net, batch, case):
+    """Kernel B across its row-block and cluster-width edges (one wave of
+    clusters of 8 up to 120 rows, clusters of 4 beyond): y and extrema
+    against the plain version, as many monitor rows as `monitor_rows`
+    says, two calls bitwise equal."""
+    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_fwd_cuda, monitor_rows
+    from repro_torch.kernels.fxp_mlp.ref import ref_mlp_forward
+
+    dims, acts = net
+    gen = torch.Generator().manual_seed(batch + 7 * len(dims))
+    ws, bs = _net(gen, dev, dims)
+    x = _rand(gen, batch, dims[0], scale=3).to(dev)
+    deltas, zs = _site_operands(dev, len(ws))
+    qat, quant = case != "off", case == "quant"
+    kw = dict(activations=acts, quant=quant, qat=qat, n_bits=16, fxp32_phase1=True)
+    d, z = (deltas, zs) if qat else (None, None)
+    got = fxp_mlp_fwd_cuda(x, ws, bs, d, z, **kw)
+    again = fxp_mlp_fwd_cuda(x, ws, bs, d, z, **kw)
+    y_ref, mins_ref, maxs_ref = ref_mlp_forward(x, ws, bs, deltas, zs, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    y, bmins, bmaxs = got
+    assert bmins.shape == (monitor_rows(batch, dims), len(ws))
+    torch.testing.assert_close(y, y_ref, **(dict(rtol=1e-3, atol=1e-3) if quant else TOL))
+    torch.testing.assert_close(bmins.amin(0), mins_ref, **TOL)
+    torch.testing.assert_close(bmaxs.amax(0), maxs_ref, **TOL)
+    assert float(bmins.amin(0)[0]) == float(x.min()) and float(bmaxs.amax(0)[0]) == float(x.max())
+
+
+@pytest.mark.parametrize("net", NETS[1:], ids=["actor", "critic"])
+def test_fxp_mlp_fwd_device_phase_graph_replays_across_a_phase_flip(dev, net):
+    """Kernel B's device-phase instance captured in a CUDA graph (a cluster
+    launch) and replayed with the phase flipped between replays: each replay
+    bitwise the host-phase instance of that phase."""
+    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_fwd_cuda
+
+    dims, acts = net
+    gen = torch.Generator().manual_seed(11)
+    ws, bs = _net(gen, dev, dims)
+    deltas, zs = _site_operands(dev, len(ws))
+    x = _rand(gen, 1, dims[0], scale=2).to(dev)
+    phase = torch.zeros((1,), dtype=torch.int32, device=dev)
+    kw = dict(activations=acts, qat=True, n_bits=16, fxp32_phase1=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the eager launch before the capture sets the kernel's attributes
+        fxp_mlp_fwd_cuda(x, ws, bs, deltas, zs, quant=False, phase=phase, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fxp_mlp_fwd_cuda(x, ws, bs, deltas, zs, quant=False, phase=phase, **kw)
+    for p in (0, 1, 0, 1):
+        phase.fill_(p)
+        graph.replay()
+        want = fxp_mlp_fwd_cuda(x, ws, bs, deltas, zs, quant=bool(p), **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), p

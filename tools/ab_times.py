@@ -2,15 +2,17 @@
 """Time one tree's kernels with its own `chip_smoke.py` `times` phase, for an
 A/B comparison of two trees on one card.
 
-    python3 tools/ab_times.py TREE [--label NAME]
+    python3 tools/ab_times.py TREE [--label NAME] [--smoke DIR]
 
 TREE is a checkout of the repository (for example the parent commit,
 unpacked with `git archive` into a directory `.gitignore` lists).  The
-script imports TREE's `chip_smoke.py` and its `src/`, builds TREE's kernels
-into TREE/build/kernels, runs the `device` and `times` phases, and prints
-one JSON line with the label and every `times` row.  Run the two trees in
-turns in one call on one card (parent, change, change, parent) and compare
-rows of the same kernel, shape, batch and phase.
+script imports TREE's `src/` and the `chip_smoke.py` of DIR (TREE's own by
+default), builds TREE's kernels into TREE/build/kernels, runs the `device`
+and `times` phases, and prints one JSON line with the label and every
+`times` row.  With `--smoke .` an older tree is timed at the current
+script's rows, so rows added since have an earlier time too.  Run the two
+trees in turns in one call on one card (parent, change, change, parent)
+and compare rows of the same kernel, shape, batch and phase.
 """
 
 from __future__ import annotations
@@ -26,9 +28,10 @@ def main(argv=None) -> int:
     ap.add_argument("tree", type=pathlib.Path)
     ap.add_argument("--label", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", type=pathlib.Path, default=None, help="directory of the chip_smoke.py to time with")
     args = ap.parse_args(argv)
     tree = args.tree.resolve()
-    sys.path[:0] = [str(tree), str(tree / "src")]
+    sys.path[:0] = [str((args.smoke or tree).resolve()), str(tree / "src")]
     import torch
 
     import chip_smoke
