@@ -35,10 +35,15 @@ JSON line:
                 phases; two calls on the same inputs bitwise equal;
   7. kernel_step — kernels 4 and 5 (the fused DDPG step) against their plain
                 twins at the paper's shapes, B = 128 and a multi-block
-                ragged B = 200 with 30 rows of weight 0, both phases: new
-                params, moments, targets, site extrema, loss partials; two
-                calls bitwise equal; the twin's step must move each tree
-                further than its tolerance, so a stale tree cannot pass;
+                ragged B = 200 with 30 rows of weight 0, a standing case
+                (the inputs of a ReLU decision that flipped, restored from
+                `tests/data/kernel_step_relu_flip.gen`) and the chain
+                passes' plan edges (B in {1, 7, 8, 9, 16, 17, 120, 121, 241,
+                511}), both phases: new params, moments, targets, site
+                extrema, loss partials; two calls bitwise equal; the twin's
+                step must move each tree further than its tolerance, so a
+                stale tree cannot pass; the plans and the card's cluster
+                occupancy for them;
   8. kernel_mq — kernel 6 (the standalone monitor + quantizer) against its
                 plain version: the reference test's shapes, the paper's site
                 inputs (B in {1, 7, 128, 512} × width in {17, 23, 400,
@@ -140,9 +145,21 @@ phases): params within 2⁻¹⁶, targets 1e-6, mu 2e-6 and nu 1e-7 (rtol
 1e-4: a gradient can land one Q15.16 quantum apart), the monitor-phase
 contract of `tests/test_torch_ddpg_step.py`; one step at Adam lr 1e-4 moves
 a param by a few quanta and a target by about τ·(p − t), so a looser bound
-could not tell a step from none.  Extrema as kernel B's; loss partials over
-Σw (the update's metrics) rtol 1e-5 / atol 1e-6 (monitor) and 1e-3 / 1e-5
-(quant), the reference's metric contracts.  Kernel 6 and the raw
+could not tell a step from none.  mu and nu are widened, leaf by leaf, by
+how far the kernel's pass-2 operands lie from the twin's: the two sides may
+take a decision apart where the twin's operand lies within kernel B's
+forward contract (2e-5; 1e-3 in the quant phase) of its edge — a ReLU at a
+pre-activation near 0, a product input's rounding — and a flip moves a
+gradient by a row's cotangent or a rounding step, past the one quantum.
+Each of the kernel's product inputs must be a rounding of a value within
+that window, each of its cotangents within the twin's plus the bound such
+flips give (`_flip_bound`); the gradients may then differ by |q_k|ᵀ|ΔG| +
+|Δq|ᵀ|G|, and m by (1 − b1) times that (`_pass2_slack`, `_step_atol`).
+Extrema as kernel B's; loss partials over Σw (the update's metrics) rtol
+1e-5 / atol 1e-6 (monitor) and 1e-3 / 1e-5 (quant), the reference's
+metric contracts at its training batches, beside what one row's output,
+held within the forward contract, can move them by: at B = 9 one flipped
+bf16 limb moves the mean of eight rows past 1e-5.  Kernel 6 and the raw
 fixed-point API: bitwise, the contract for elementwise fixed-point ops
 (min and max are order-free; a NaN matches a NaN).
 """
@@ -552,16 +569,238 @@ def phase_kernel_bwd(gen: torch.Generator, dev) -> float:
 
 # kernels 4 and 5 against their twins: (atol, rtol) of the four trees in
 # both phases, the monitor-phase contract of tests/test_torch_ddpg_step.py
-# (module docstring)
+# (module docstring); mu and nu widened leaf by leaf (`_step_atol`, below)
 STEP_TOL = {"params": (2.0**-16, 0.0), "mu": (2e-6, 1e-4), "nu": (1e-7, 1e-4), "targets": (1e-6, 0.0)}
 STEP_PHASES = ("monitor", "quant")
 STEP_CASES = ((128, 0), (200, 30))  # (B, rows masked by w = 0): the training batch, and multi-block ragged
+# the chain passes' plan edges: one row, the first row blocks of 8 and 16, the
+# widest one-wave batch of clusters of 8 (15 row blocks) and the next (16-row
+# blocks, or clusters of 4 for the critic pass), where the critic pass moves
+# to 16-row blocks (241), and persistent clusters (511)
+STEP_PLAN_BATCHES = (1, 7, 8, 9, 16, 17, 120, 121, 241, 511)
+# CUDA launches a wrapper call makes: kernel 4 its target pass, critic pass
+# and pass 2; kernel 5 its chain pass and pass 2
+STEP_CUDA_LAUNCHES = {"ddpg_critic_step": 3, "ddpg_actor_step": 2}
+# A standing case: the inputs on which kernel 5's first moments once landed
+# two quanta from its twin's (B = 200, 30 masked, monitor phase; a ReLU
+# decision at a pre-activation of -5.3e-7 went the other way).  The CPU
+# generator's state at that case, restored into a generator of its own.
+STEP_FLIP_STATE = REPO / "tests" / "data" / "kernel_step_relu_flip.gen"
+# The two sides may take a decision apart where the twin's operand lies
+# within STEP_FLIP_EPS of the decision's edge: kernel B's forward contract
+# (2e-5; 1e-3 in the quant phase, where one flipped 16-bit code moves a layer
+# by a quantization step), which holds the kernel's layer values that close
+# to the twin's.  Two kinds: a ReLU at a pre-activation near 0, and a
+# product input's rounding (the Q15.16 lattice; the 16-bit code and its
+# bf16 hi limb).  A flip adds or removes one row's cotangent from a unit's
+# gradient, or moves one product by a rounding step — steps the
+# one-quantum reasoning does not cover.
+STEP_FLIP_EPS = {"monitor": TOL, "quant": TOL_QUANT}
 # loss partials over Σw — the update's metrics — (rtol, atol): the
 # reference's metric contracts per phase (tests/kernels/
 # test_fxp_mlp_step.py:95, :110); in the quant phase one flipped 16-bit code
 # moves q by a quantization step.  (A sum of rows of both signs can cancel,
 # so the partial's own relative error says little.)
 PART_TOL = {"monitor": (1e-5, 1e-6), "quant": (1e-3, 1e-5)}
+
+
+def _twin_net(x0, ws, bs, acts, deltas, zs, quant: bool) -> dict:
+    """The twin's forward through one net (`ref_mlp_forward` with
+    residuals), with each layer's pre-activation recomputed as the twin
+    computes it (hi·W, + lo·W before the quant phase, + b)."""
+    from repro_torch.kernels.fxp_matmul.ref import limb_split
+    from repro_torch.kernels.fxp_mlp.ref import ref_mlp_forward
+
+    _, _, _, qs, hs = ref_mlp_forward(x0, ws, bs, deltas, zs, activations=acts, quant=quant, n_bits=16, qat=True,
+                                      fxp32_phase1=True, save_residuals=True)
+    pre = []
+    for q, w, b in zip(qs, ws, bs):
+        hi, lo = limb_split(q, with_lo=not quant)
+        acc = hi @ w
+        pre.append((acc if quant else acc + lo @ w) + b)
+    return {"x0": x0, "ws": ws, "acts": acts, "deltas": deltas, "zs": zs, "qs": qs, "hs": hs, "pre": pre}
+
+
+def _product_input(x, quant: bool, delta, z):
+    """What a layer's products consume of its input x: the site projection,
+    then (the quant phase) its bf16 hi limb — non-decreasing in x."""
+    from repro_torch.kernels.fxp_matmul.ref import limb_split
+    from repro_torch.kernels.fxp_mlp.ref import site_project
+
+    v = site_project(x, quant, delta, z, n_bits=16, fxp32_phase1=True)
+    return limb_split(v, with_lo=False)[0] if quant else v
+
+
+def _flip_bound(net: dict, g: torch.Tensor, quant: bool, eps: float, pin=None) -> tuple:
+    """`ref_mlp_backward` of the cotangent g through `net` (a `_twin_net`),
+    keeping per layer the twin's masked cotangent G and a bound P on how far
+    the kernel's may lie from it where a decision within eps of its edge
+    goes the other way: a ReLU at a pre-activation |z| ≤ eps adds or
+    removes its row's cotangent; a straight-through mask within eps of a
+    clip bound passes or stops its row's dx; changes from above pass where
+    either side passes.  `pin` bounds the change of g itself.  Returns
+    ([G_l], [P_l], the input cotangent, its bound)."""
+    from repro_torch.kernels.fxp_mlp.ref import ste_pass_mask
+
+    n = len(net["ws"])
+    gs, ps = [None] * n, [None] * n
+    p = torch.zeros_like(g, dtype=torch.float64) if pin is None else pin
+    site = dict(n_bits=16, fxp32_phase1=True)
+    for li in reversed(range(n)):
+        h, z, act = net["hs"][li], net["pre"][li], net["acts"][li]
+        if act == "relu":
+            flip = z.abs() <= eps
+            p = g.double().abs() * flip + p * ((h > 0.0) | flip)
+            g = torch.where(h > 0.0, g, torch.zeros_like(g))
+        elif act == "tanh":
+            g = g * (1.0 - h * h)
+            p = p * (1.0 - h.double() ** 2).abs()
+        gs[li], ps[li] = g, p
+        x_in = net["x0"] if li == 0 else net["hs"][li - 1]
+        dx = g @ net["ws"][li].t()
+        p = p @ net["ws"][li].double().abs().t()
+        mask = ste_pass_mask(x_in, quant, net["deltas"][li], net["zs"][li], **site)
+        if mask is not None:
+            lo = ste_pass_mask(x_in - eps, quant, net["deltas"][li], net["zs"][li], **site)
+            hi = ste_pass_mask(x_in + eps, quant, net["deltas"][li], net["zs"][li], **site)
+            flip = (lo != mask) | (hi != mask)
+            p = p * (mask | flip) + dx.double().abs() * flip
+            dx = torch.where(mask, dx, torch.zeros_like(dx))
+        g = dx
+    return gs, ps, g, p
+
+
+def _pass2_slack(net: dict, gs: list, ps: list, quant: bool, eps: float, kernel) -> tuple:
+    """What pass 2 reduces — q_l and G_l per layer of the trained net — on
+    the kernel's side against the twin's, and the most that moves each
+    gradient.  Each product input of the kernel's must be a rounding of a
+    value within eps of the twin's pre-projection input (the Q15.16
+    lattice; the 16-bit code and its bf16 hi limb), each cotangent within
+    the twin's plus its flip bound P and 1e-4 of its size (sum order).
+    Then |ΔdW| ≤ |q_k|ᵀ|ΔG| + |Δq|ᵀ|G|, |Δdb| ≤ Σ|ΔG|.  Without the
+    kernel's (kernel None), the bound alone: |ΔdW| ≤ |q|ᵀP.  Returns
+    (slack [dW_l], [db_l], twin's [dW_l], [db_l]), float64."""
+    n = len(net["ws"])
+    sw, sb, gw, gb = [None] * n, [None] * n, [None] * n, [None] * n
+    for li in range(n):
+        q, g, p = net["qs"][li].double(), gs[li].double(), ps[li]
+        gw[li], gb[li] = q.t() @ g, g.sum(0)
+        if kernel is None:
+            sw[li], sb[li] = q.abs().t() @ p, p.sum(0)
+            continue
+        kq, kg = kernel[0][li].double(), kernel[1][li].double()
+        x_in = net["x0"] if li == 0 else net["hs"][li - 1]
+        reach = eps * (1.0 + x_in.abs())
+        lo = _product_input(x_in - reach, quant, net["deltas"][li], net["zs"][li]).double()
+        hi = _product_input(x_in + reach, quant, net["deltas"][li], net["zs"][li]).double()
+        require(bool(((kq >= lo) & (kq <= hi)).all()), f"layer {li}: a product input outside its rounding window")
+        dg = (kg - g).abs()
+        limit = p + 1e-4 * (g.abs() + g.abs().max())
+        require(bool((dg <= limit).all()), f"layer {li}: a cotangent {float((dg - limit).max())} past its flip bound")
+        sw[li] = kq.abs().t() @ dg + (kq - q).abs().t() @ g.abs()
+        sb[li] = dg.sum(0)
+    return sw, sb, gw, gb
+
+
+def _step_twin(c: dict, name: str, quant: bool, critic=None) -> tuple:
+    """The twin's side of kernel 4 (name "critic") or 5 ("actor", through
+    `critic`): the trained net (a `_twin_net`), its masked cotangents G_l
+    and their flip bounds P_l (`_flip_bound`), every net it ran, and the
+    per-row q (the critic's output) and y (kernel 4's TD target, else
+    None)."""
+    from repro_torch.kernels.fxp_mlp.ref import H_GAMMA, H_INVW
+
+    kw, hyper, w = c["kw"], c["hyper"], c["w"]
+    n = len(kw["actor_acts"])
+    da_, za, dc, zc = c["deltas"][:n], c["zs"][:n], c["deltas"][n:], c["zs"][n:]
+    eps = STEP_FLIP_EPS["quant" if quant else "monitor"]
+    if name == "critic":
+        next_a = _twin_net(c["next_obs"], *c["actor_t"], kw["actor_acts"], da_, za, quant)["hs"][-1]
+        q_next = _twin_net(torch.cat([c["next_obs"], next_a], dim=-1), *c["critic_t"], kw["critic_acts"], dc, zc,
+                           quant)["hs"][-1]
+        y = c["reward"] + (hyper[H_GAMMA] * (1.0 - c["done"])) * q_next[:, 0]
+        net = _twin_net(torch.cat([c["obs"], c["action"]], dim=-1), *c["critic"], kw["critic_acts"], dc, zc, quant)
+        q = net["hs"][-1][:, 0]
+        g = torch.zeros_like(net["hs"][-1])
+        g[:, 0] = (hyper[H_INVW] * w) * (2.0 * (q - y))
+        # q and y are each held within the forward contract of the twin's
+        pin = torch.zeros_like(g, dtype=torch.float64)
+        pin[:, 0] = 2.0 * (hyper[H_INVW] * w).double().abs() * eps * (2.0 + q.double().abs() + y.double().abs())
+        gs, ps, _, _ = _flip_bound(net, g, quant, eps, pin)
+        return net, gs, ps, [net], {"q": q, "y": y}
+    net = _twin_net(c["obs"], *c["actor"], kw["actor_acts"], da_, za, quant)
+    xa = torch.cat([c["obs"], net["hs"][-1]], dim=-1)
+    crit = _twin_net(xa, *critic, kw["critic_acts"], dc, zc, quant)
+    g = torch.zeros_like(crit["hs"][-1])
+    g[:, 0] = (-hyper[H_INVW]) * w
+    _, _, dxa, pin = _flip_bound(crit, g, quant, eps)
+    o = c["obs"].shape[1]
+    gs, ps, _, _ = _flip_bound(net, dxa[:, o:].contiguous(), quant, eps, pin[:, o:])
+    return net, gs, ps, [crit, net], {"q": crit["hs"][-1][:, 0], "y": None}
+
+
+def _step_slack(c: dict, name: str, quant: bool, critic=None, kernel=None) -> tuple:
+    """For kernel 4 (name "critic") or 5 ("actor", through `critic`): per
+    leaf of the trained net ([w0, w1, ..., b0, b1, ...]), the slack of its
+    gradient and the twin's gradient, float64 (`_pass2_slack`; `kernel` the
+    kernel's own (qs, gs) of the trained net, or None), the number of ReLU
+    decisions within the window, and the twin's per-row q and y
+    (`_step_twin`)."""
+    eps = STEP_FLIP_EPS["quant" if quant else "monitor"]
+    net, gs, ps, nets, rows = _step_twin(c, name, quant, critic)
+    sw, sb, gw, gb = _pass2_slack(net, gs, ps, quant, eps, kernel)
+    window = sum(int((z.abs() <= eps).sum()) for nt in nets for z, a in zip(nt["pre"], nt["acts"]) if a == "relu")
+    return sw + sb, gw + gb, window, rows
+
+
+def _step_atol(c: dict, slack, grads, tree: str) -> list:
+    """Per-leaf absolute tolerance of one tree (STEP_TOL's atol; mu and nu
+    widened by the flip slack S of each gradient: m moves by (1 − b1)·Δg,
+    v by (1 − b2)·|Δ(g²)| ≤ (1 − b2)·S·(2|g| + S + 2⁻¹⁶))."""
+    from repro_torch.kernels.fxp_mlp.ref import H_OMB1, H_OMB2
+
+    atol = STEP_TOL[tree][0]
+    if tree == "mu":
+        return [atol + float(c["hyper"][H_OMB1]) * s for s in slack]
+    if tree == "nu":
+        return [atol + float(c["hyper"][H_OMB2]) * s * (2.0 * g.abs() + s + 2.0**-16) for s, g in zip(slack, grads)]
+    return [atol] * len(slack)
+
+
+def _step_cases(gen: torch.Generator, dev):
+    """The fused-step cases: STEP_CASES drawn from `gen`, the standing case
+    restored from STEP_FLIP_STATE, then the launch plans' edges
+    (STEP_PLAN_BATCHES, a fifth of the rows masked) from a generator of their
+    own, so earlier phases keep their inputs.  Yields (label, batch, masked,
+    case)."""
+    for batch, masked in STEP_CASES:
+        yield f"B={batch} masked={masked}", batch, masked, _step_case(gen, dev, batch, masked)
+    flip = torch.Generator()
+    flip.set_state(torch.from_numpy(np.fromfile(STEP_FLIP_STATE, dtype=np.uint8)))
+    yield "relu_flip B=200 masked=30", 200, 30, _step_case(flip, dev, 200, 30)
+    edges = torch.Generator().manual_seed(gen.initial_seed() + 16)
+    for batch in STEP_PLAN_BATCHES:
+        yield f"plan B={batch} masked={batch // 5}", batch, batch // 5, _step_case(edges, dev, batch, batch // 5)
+
+
+def _step_plans(batches) -> dict:
+    """Kernels 4 and 5's chain-pass plans at the paper's nets, with
+    cudaOccupancyMaxActiveClusters for each (beside the count the plan
+    assumes, `CLUSTER_SLOTS`).  A plan the card cannot schedule fails."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fxp_mlp.kernel import CLUSTER_SLOTS, step_plan
+
+    lib = _build.load("fxp_ddpg_step")
+    out = {}
+    for batch in batches:
+        for mode, which in enumerate(("target", "critic", "actor")):
+            p = step_plan(batch, ACTOR_DIMS, CRITIC_DIMS, which)
+            n = lib.fxp_ddpg_step_max_clusters(mode, p.bm, p.cluster, p.smem, int(p.resident))
+            require(n >= 1, f"kernel 4/5 {which} pass plan for B={batch} cannot be scheduled ({n})")
+            out[f"{which} B={batch}"] = {"bm": p.bm, "cluster": p.cluster, "n_clusters": p.n_clusters,
+                                         "resident": p.resident, "nbuf": p.nbuf, "smem": p.smem,
+                                         "cluster_slots": {"queried": n, "assumed": CLUSTER_SLOTS[p.cluster]}}
+    return out
 
 
 def _step_case(gen: torch.Generator, dev, batch: int, masked: int) -> dict:
@@ -615,23 +854,75 @@ def _actor_args(c: dict, critic) -> tuple:
             c["hyper"])
 
 
+def _one_row(c: dict, rows: dict, eps: float) -> torch.Tensor:
+    """What one row whose outputs moved within the forward contract (a
+    flipped decision: the quant phase's 16-bit code or bf16 limb) can move
+    each loss partial by: w·ε(1+|q|) for Σ w·q; for kernel 4,
+    w(2|d|·Δd + Δd²), Δd = ε(2 + |q| + |y|), for Σ w(q−y)² and w·ε(1+|y|)
+    for Σ w·y — the largest row's, beside PART_TOL (the reference's metric
+    contract at its training batches, where a row is a 32nd or less of the
+    mean)."""
+    w, q = c["w"].double().abs(), rows["q"].double()
+    if rows["y"] is None:
+        return (w * eps * (1.0 + q.abs())).max().reshape(1)
+    y = rows["y"].double()
+    dd = eps * (2.0 + q.abs() + y.abs())
+    return torch.stack([(w * (2.0 * (q - y).abs() * dd + dd * dd)).max(), (w * eps * (1.0 + y.abs())).max()])
+
+
+def _check_step(got, want, c: dict, name: str, phase: str, tag: str, critic=None,
+                kernel=None) -> tuple[dict, dict, dict]:
+    """One kernel-4/5 result against its twin's: the four trees at STEP_TOL
+    (mu and nu each leaf widened by how far the kernel's pass-2 operands,
+    `kernel`, lie from the twin's, `_step_atol`), the site extrema (layer 0
+    exactly, the rest at kernel B's 2e-5), the loss partials at PART_TOL
+    (over Σw) beside one row's forward contract (`_one_row`).  The twin's step must move params, mu
+    and targets further than STEP_TOL (else the comparison could not tell a
+    kernel that left a tree as it was); nu's move, (1 − b2)·(g² − v), is of
+    the order of its own tolerance in one step, and is reported.  Returns
+    the worst errors, the twin's least moves and the flip slack used."""
+    quant = phase == "quant"
+    slack, grads, window, rows = _step_slack(c, name, quant, critic, kernel)
+    errs, moved = {}, {}
+    inputs = [c[name], c[f"{name}_m"], c[f"{name}_v"], c[f"{name}_t"]]
+    for k, tree in enumerate(STEP_TOL):
+        rtol = STEP_TOL[tree][1]
+        step = 0.0
+        for g, w, x, atol in zip([*got[k][0], *got[k][1]], [*want[k][0], *want[k][1]], [*inputs[k][0], *inputs[k][1]],
+                                 _step_atol(c, slack, grads, tree)):
+            e = compare(g, w, rtol, f"{tag} {tree}", atol=atol)["max_abs"]
+            errs[tree] = max(errs.get(tree, 0.0), e)
+            step = max(step, float((w - x).abs().max()))
+        require(tree == "nu" or step > STEP_TOL[tree][0], f"{tag}: the twin moved {tree} by {step}, within "
+                f"{STEP_TOL[tree][0]}")
+        moved[tree] = step
+    mins, maxs = got[4].amin(0), got[5].amax(0)
+    require(float(mins[0]) == float(want[4][0, 0]) and float(maxs[0]) == float(want[5][0, 0]),
+            f"{tag}: layer-0 extrema differ")
+    for what, g, w in (("mins", mins, want[4][0]), ("maxs", maxs, want[5][0])):
+        errs["extrema"] = max(errs.get("extrema", 0.0), compare(g, w, TOL, f"{tag} {what}")["max_abs"])
+    rtol, atol = PART_TOL[phase]
+    sum_w = torch.clamp(c["w"].sum(), min=1.0).double()
+    errs["partials"] = compare(got[6].sum(0) / sum_w, want[6][0] / sum_w, rtol, f"{tag} partials / Σw",
+                               atol=atol + _one_row(c, rows, STEP_FLIP_EPS[phase]) / sum_w)["max_abs"]
+    flips = {"decisions_in_window": window, "max_slack_quanta": max(float(s.max()) for s in slack) / 2.0**-16}
+    return errs, moved, flips
+
+
 def phase_kernel_step(gen: torch.Generator, dev) -> dict:
-    """Kernels 4 and 5 against their plain twins on the same card inputs, at
-    STEP_CASES in both phases: the four trees at STEP_TOL, the site extrema
-    (layer 0 exactly, the rest at kernel B's 2e-5), the loss partials at
-    PART_TOL (over Σw); two calls on the same inputs bitwise equal.
-    Kernel 5 runs through the twin's updated critic on both sides.  The
-    twin's step must move params, mu and targets further than STEP_TOL
-    (else the comparison could not tell a kernel that left a tree as it
-    was); nu's move, (1 − b2)·(g² − v), is of the order of its own
-    tolerance in one step, and is reported."""
-    from repro_torch.kernels.fxp_mlp.kernel import ddpg_actor_step_cuda, ddpg_critic_step_cuda
+    """Kernels 4 and 5 against their plain twins on the same card inputs
+    (`_step_cases`) in both phases (`_check_step`); two calls on the same
+    inputs bitwise equal.  Kernel 5 runs through the twin's updated critic
+    on both sides."""
+    from repro_torch.kernels.fxp_mlp.kernel import ddpg_actor_step_cuda, ddpg_critic_step_cuda, step_monitor_rows
     from repro_torch.kernels.fxp_mlp.ref import ref_ddpg_actor_step, ref_ddpg_critic_step
 
     worst = {name: {phase: {} for phase in STEP_PHASES} for name in ("critic", "actor")}
     moved = {name: {phase: {} for phase in STEP_PHASES} for name in ("critic", "actor")}
-    for batch, masked in STEP_CASES:
-        c = _step_case(gen, dev, batch, masked)
+    flips = {}
+    labels = []
+    for label, batch, masked, c in _step_cases(gen, dev):
+        labels.append(label)
         for phase in STEP_PHASES:
             quant = phase == "quant"
             phase_t = torch.full((1,), int(quant), dtype=torch.int32, device=dev)
@@ -640,43 +931,39 @@ def phase_kernel_step(gen: torch.Generator, dev) -> dict:
                 ("critic", ddpg_critic_step_cuda, want_c, _critic_args(c)),
                 ("actor", ddpg_actor_step_cuda, None, _actor_args(c, want_c[0])),
             ):
-                got = kernel(*args, phase_t, **c["kw"])
+                kernel.keep_scratch = True
+                try:
+                    got = kernel(*args, phase_t, **c["kw"])
+                    scratch = kernel.scratch
+                finally:
+                    kernel.keep_scratch, kernel.scratch = False, None
                 again = kernel(*args, phase_t, **c["kw"])
                 want = twin_out if twin_out is not None else ref_ddpg_actor_step(*args, quant, **c["kw"])
                 torch.cuda.synchronize()
-                tag = f"kernel {4 if name == 'critic' else 5} B={batch} masked={masked} {phase}"
+                tag = f"kernel {4 if name == 'critic' else 5} {label} {phase}"
                 flat = lambda out: [t for tr in out[:4] for half in tr for t in half] + list(out[4:])  # noqa: E731
                 require(all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))),
                         f"{tag}: two calls on the same inputs differ")
                 n_sites = 3 if name == "critic" else 6
-                require(got[4].shape == (-(-batch // 8), n_sites), f"{tag}: mins shape {tuple(got[4].shape)}")
-                errs = worst[name][phase]
-                inputs = [c[name], c[f"{name}_m"], c[f"{name}_v"], c[f"{name}_t"]]
-                for k, tree in enumerate(STEP_TOL):
-                    atol, rtol = STEP_TOL[tree]
-                    step = 0.0
-                    for g, w, x in zip([*got[k][0], *got[k][1]], [*want[k][0], *want[k][1]],
-                                       [*inputs[k][0], *inputs[k][1]]):
-                        e = compare(g, w, rtol, f"{tag} {tree}", atol=atol)["max_abs"]
-                        errs[tree] = max(errs.get(tree, 0.0), e)
-                        step = max(step, float((w - x).abs().max()))
-                    require(tree == "nu" or step > atol, f"{tag}: the twin moved {tree} by {step}, within {atol}")
-                    moved[name][phase][tree] = min(moved[name][phase].get(tree, math.inf), step)
-                mins, maxs = got[4].amin(0), got[5].amax(0)
-                require(float(mins[0]) == float(want[4][0, 0]) and float(maxs[0]) == float(want[5][0, 0]),
-                        f"{tag}: layer-0 extrema differ")
-                for what, g, w in (("mins", mins, want[4][0]), ("maxs", maxs, want[5][0])):
-                    errs["extrema"] = max(errs.get("extrema", 0.0), compare(g, w, TOL, f"{tag} {what}")["max_abs"])
-                rtol, atol = PART_TOL[phase]
-                sum_w = torch.clamp(c["w"].sum(), min=1.0)
-                e = compare(got[6].sum(0) / sum_w, want[6][0] / sum_w, rtol, f"{tag} partials / Σw",
-                            atol=atol)["max_abs"]
-                errs["partials"] = max(errs.get("partials", 0.0), e)
-    emit("kernel_step", cases=[list(x) for x in STEP_CASES],
+                rows = step_monitor_rows(batch, ACTOR_DIMS, CRITIC_DIMS, name)
+                require(got[4].shape == (rows, n_sites) and got[6].shape[0] == rows,
+                        f"{tag}: mins shape {tuple(got[4].shape)}, partials {tuple(got[6].shape)}")
+                errs, mv, fl = _check_step(got, want, c, name, phase, tag, want_c[0] if name == "actor" else None,
+                                           scratch)
+                for k, v in errs.items():
+                    worst[name][phase][k] = max(worst[name][phase].get(k, 0.0), v)
+                for k, v in mv.items():
+                    moved[name][phase][k] = min(moved[name][phase].get(k, math.inf), v)
+                flips[tag] = fl
+    emit("kernel_step", cases=labels,
          tolerance={**{k: {"atol": a, "rtol": r} for k, (a, r) in STEP_TOL.items()},
+                    "mu_nu_flip_slack": {"window": STEP_FLIP_EPS, "note": "each leaf's atol widened by how far the "
+                                         "kernel's pass-2 operands (held to the decision windows) lie from the "
+                                         "twin's (_pass2_slack, _step_atol)"},
                     "extrema": {"layer0": "exact", "rtol": TOL, "atol": TOL},
                     "partials": {p: {"rtol": r, "atol": a} for p, (r, a) in PART_TOL.items()}},
-         max_abs=worst, twin_moved_least=moved, bitwise_repeat=True, cuda_launches_per_call=2)
+         max_abs=worst, twin_moved_least=moved, flips=flips, bitwise_repeat=True,
+         cuda_launches_per_call=STEP_CUDA_LAUNCHES, plans=_step_plans((*{b for b, _ in STEP_CASES}, *STEP_PLAN_BATCHES)))
     return {name: max(v for ph in w.values() for v in ph.values()) for name, w in worst.items()}
 
 
@@ -1088,8 +1375,9 @@ def _kernels_ran(run) -> tuple:
     the training kernels that ran on the card, counted by kernel name in the
     trace (CUDA-graph replays' too), keyed as `_counts` keys them: each
     wrapper call's first CUDA launch (kernel B's instance per call, with
-    residuals or not; kernel 3's chain pass; kernels 4 and 5's chain
-    passes), and `reduce_update`, the second pass kernels 4 and 5 share."""
+    residuals or not; kernel 3's chain pass; kernel 4's critic pass and
+    kernel 5's chain pass), kernel 4's target pass (`ddpg_critic_target`),
+    and `reduce_update`, the second pass kernels 4 and 5 share."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1100,10 +1388,11 @@ def _kernels_ran(run) -> tuple:
         torch.cuda._sleep(50_000_000)
         torch.cuda.synchronize()
         time.sleep(0.2)
-    ran = dict.fromkeys(("fxp_mlp_fwd", "fxp_mlp_fwd_residuals", "fxp_mlp_bwd", "ddpg_critic_step",
-                         "ddpg_actor_step", "reduce_update"), 0)
-    names = {"bwd_chain_kernel": "fxp_mlp_bwd", "critic_chain_kernel": "ddpg_critic_step",
-             "actor_chain_kernel": "ddpg_actor_step", "reduce_update_kernel": "reduce_update"}
+    ran = dict.fromkeys(("fxp_mlp_fwd", "fxp_mlp_fwd_residuals", "fxp_mlp_bwd", "ddpg_critic_target",
+                         "ddpg_critic_step", "ddpg_actor_step", "reduce_update"), 0)
+    names = {"bwd_chain_kernel": "fxp_mlp_bwd", "ddpg_target_kernel": "ddpg_critic_target",
+             "ddpg_critic_kernel": "ddpg_critic_step", "ddpg_actor_kernel": "ddpg_actor_step",
+             "reduce_update_kernel": "reduce_update"}
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
             continue
@@ -1207,8 +1496,8 @@ def phase_train_fused(gen: torch.Generator, dev, seed: int, pallas: dict) -> dic
     for first in range(cfg.warmup_steps, cfg.total_steps, 250):  # a trace of 250 replays is ≈ 120k kernels
         _, part = _kernels_ran(lambda first=first: win.run(first, min(250, cfg.total_steps - first)))
         ran = {k: ran.get(k, 0) + v for k, v in part.items()}
-    want_ran = {"fxp_mlp_fwd": replays, "fxp_mlp_fwd_residuals": 0, "fxp_mlp_bwd": 0, "ddpg_critic_step": replays,
-                "ddpg_actor_step": replays, "reduce_update": 2 * replays}
+    want_ran = {"fxp_mlp_fwd": replays, "fxp_mlp_fwd_residuals": 0, "fxp_mlp_bwd": 0, "ddpg_critic_target": replays,
+                "ddpg_critic_step": replays, "ddpg_actor_step": replays, "reduce_update": 2 * replays}
     require(ran == want_ran and loop.train_device.graph_replays == 2 * replays,
             f"train_device graph window: kernels that ran {ran}, expected {want_ran}")
     rerun_same = all(torch.equal(getattr(win.ts.agent, n)[layer][leaf], getattr(ts_d.agent, n)[layer][leaf])
@@ -1477,6 +1766,31 @@ def _bound_ms(bytes_moved: float, flops: float, dev_info: dict) -> tuple[float, 
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _pass_us(fn, calls: int = 50) -> dict:
+    """Device µs per call of each pass of kernels 4 and 5 that `fn` launches
+    (the chain passes and pass 2), by kernel name in a torch.profiler trace
+    of `calls` back-to-back calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(50_000_000)  # keeps the last calls' kernels inside the trace (`_kernels_ran`)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    out = {}
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
+        # (critic_chain_kernel, actor_chain_kernel: the chain passes before PR 16, timed by tools/ab_times.py)
+        for name in ("ddpg_target_kernel", "ddpg_critic_kernel", "ddpg_actor_kernel", "reduce_update_kernel",
+                     "critic_chain_kernel", "actor_chain_kernel"):
+            if name in e.key:
+                out[name] = out.get(name, 0.0) + us / calls
+    return out
+
+
 def phase_times(gen: torch.Generator, dev, dev_info: dict) -> dict:
     from repro_torch.kernels.fxp_matmul.kernel import fxp_dense_cuda
     from repro_torch.kernels.fxp_matmul.ref import limb_split, ref_fxp_dense
@@ -1598,6 +1912,7 @@ def phase_times(gen: torch.Generator, dev, dev_info: dict) -> dict:
     # each output written once; operations the forwards (2 passes in the
     # monitor phase), the backward products this step needs, and ≈ 23 f32
     # operations a parameter in the epilogue (projections, Adam, soft update)
+    from repro_torch.kernels.fxp_mlp import kernel as step_kernel
     from repro_torch.kernels.fxp_mlp.kernel import ddpg_actor_step_cuda, ddpg_critic_step_cuda
     from repro_torch.kernels.fxp_mlp.ref import ref_ddpg_actor_step, ref_ddpg_critic_step
 
@@ -1605,7 +1920,9 @@ def phase_times(gen: torch.Generator, dev, dev_info: dict) -> dict:
     obs, act = a_dims[0], a_dims[-1]
     macs = lambda d: sum(k * n for k, n in zip(d[:-1], d[1:]))  # noqa: E731
     elems = lambda d: macs(d) + sum(d[1:])  # noqa: E731  parameters of a net
-    n_blocks = -(-batch // 8)
+    # monitor rows; a tree before PR 16 (tools/ab_times.py --smoke) wrote one per 8 rows
+    rows_of = getattr(step_kernel, "step_monitor_rows", lambda m, a, c, w: -(-m // 8))
+    rows4, rows5 = (rows_of(batch, a_dims, c_dims, w) for w in ("critic", "actor"))
     c = _step_case(gen, dev, batch, 0)
     for case in ("monitor", "quant"):
         quant = case == "quant"
@@ -1614,11 +1931,11 @@ def phase_times(gen: torch.Generator, dev, dev_info: dict) -> dict:
         shared = 4 * (12 + 12 + 1)  # deltas, zs, hyper, phase
         flops4 = (2 * batch * passes * (macs(a_dims) + 2 * macs(c_dims))
                   + 2 * batch * (2 * macs(c_dims) - c_dims[0] * c_dims[1]) + 23 * elems(c_dims))
-        bytes4 = 4 * (batch * (2 * obs + act + 3) + elems(a_dims) + 8 * elems(c_dims) + n_blocks * 8) + shared
+        bytes4 = 4 * (batch * (2 * obs + act + 3) + elems(a_dims) + 8 * elems(c_dims) + rows4 * 8) + shared
         flops5 = (2 * batch * passes * (macs(a_dims) + macs(c_dims))
                   + 2 * batch * (macs(c_dims) - c_dims[0] * c_dims[1] + act * c_dims[1])
                   + 2 * batch * (2 * macs(a_dims) - a_dims[0] * a_dims[1]) + 23 * elems(a_dims))
-        bytes5 = 4 * (batch * (obs + 1) + 8 * elems(a_dims) + elems(c_dims) + n_blocks * 13) + shared
+        bytes5 = 4 * (batch * (obs + 1) + 8 * elems(a_dims) + elems(c_dims) + rows5 * 13) + shared
         for name, kernel, twin, args, flops, nbytes in (
             ("ddpg_critic_step", ddpg_critic_step_cuda, ref_ddpg_critic_step, _critic_args(c), flops4, bytes4),
             ("ddpg_actor_step", ddpg_actor_step_cuda, ref_ddpg_actor_step, _actor_args(c, c["critic"]), flops5,
@@ -1627,11 +1944,14 @@ def phase_times(gen: torch.Generator, dev, dev_info: dict) -> dict:
             bound, by = _bound_ms(nbytes, flops, dev_info)
             rows.append({
                 "kernel": name, "shape": "actor 17-400-300-6, critic 23-400-300-1", "batch": batch, "phase": case,
-                "ms": device_time_ms(lambda: kernel(*args, phase_t, **c["kw"]), 100),
+                # the host takes longer to enqueue a call than the card to run
+                # it: a long sleep lets the host enqueue all 100 first
+                "ms": device_time_ms(lambda: kernel(*args, phase_t, **c["kw"]), 100, sleep_cycles=400_000_000),
                 # ≈ 500 PyTorch ops a call: few calls behind a long sleep
                 "plain_ms": device_time_ms(lambda: twin(*args, quant, **c["kw"]), 5, sleep_cycles=400_000_000),
                 "library_ms": None, "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
-                "launches_per_call": 1, "cuda_launches_per_call": 2,
+                "launches_per_call": 1, "cuda_launches_per_call": STEP_CUDA_LAUNCHES[name],
+                "pass_us": _pass_us(lambda: kernel(*args, phase_t, **c["kw"])),
             })
     # kernel 6 at the per-layer path's widest site (B × 400) at the serving
     # (512) and training (128) batches, and one sweep larger than L2; bytes:
@@ -1790,7 +2110,8 @@ def main(argv=None) -> int:
             entry["cuda_launches_per_call"] = 2
             entry["library_note"] = "no single PyTorch call computes the masked backward chain"
         if name.startswith("ddpg_"):
-            entry["cuda_launches_per_call"] = 2
+            entry["cuda_launches_per_call"] = STEP_CUDA_LAUNCHES[name]
+            entry["pass_us"] = row["pass_us"]
             entry["library_note"] = "no single PyTorch call computes a whole DDPG half-update"
         if name == "fxp_monitor_quant":
             entry["cuda_launches_per_call"] = 2

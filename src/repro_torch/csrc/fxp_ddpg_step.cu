@@ -1,5 +1,5 @@
 // Kernels 4 and 5: one whole DDPG update — critic BP/WU, then actor BP/WU
-// through the updated critic — in four launches, for sm_90a.
+// through the updated critic — on thread-block clusters, for sm_90a.
 //
 // Replaces the TPU kernels `ddpg_critic_step_pallas` →
 // `_ddpg_critic_step_kernel` (kernel 4) and `ddpg_actor_step_pallas` →
@@ -24,29 +24,63 @@
 //
 // What bounds it on the H100, at the paper's shapes (actor 17-400-300-6,
 // 128,600 MACs a row; critic 23-400-300-1, 129,500) and B = 128: kernel 4
-// runs three forwards (two passes each in the monitor phase, one in the
+// runs three forwards (two limbs each in the monitor phase, one in the
 // quant phase) and the critic's two backward products: ≈ 265 MFLOP of f32
 // FMA in the monitor phase (≈ 4.0 µs at the 67 TFLOP/s non-tensor peak),
 // ≈ 166 MFLOP in the quant phase (≈ 2.5 µs), against ≈ 4.7 MB of
 // parameter, moment and target trees read and written (≈ 1.4 µs at
 // 3.35 TB/s); kernel 5 ≈ 231 / 165 MFLOP and ≈ 4.6 MB.  So
-// f32-compute-bound on paper, and latency-bound in practice: the chain
-// pass has 16 blocks at B = 128, each walking the layers in order.
+// f32-compute-bound on paper, and latency-bound in practice: each row
+// block walks a chain of a dozen dependent layer steps.
 //
-// Design:
-//  * The TPU grid ran row blocks in order ("arbitrary"), accumulated dW/db
-//    in VMEM and ran Adam on the last block.  CUDA blocks are unordered,
-//    so each kernel is two launches, as kernel 3 is (fxp_mlp_bwd.cu):
-//    pass 1 (`critic_chain_kernel`, `actor_chain_kernel`), one block per 8
-//    rows, runs the forwards and the cotangent chain in shared memory and
-//    stores what the products need: each trained layer's input q_l
-//    (M, K_l) and post-activation cotangent G_l (M, N_l), plus per-block
-//    monitor rows and loss partials.  Pass 2 (`reduce_update_kernel`) sums
-//    dW = qᵀG and db = ΣG over all rows in a fixed order, 32 × 32 output
-//    tiles of every layer in one grid, and each tile then applies Adam and
-//    the Polyak update to the parameters it owns: it holds their whole
-//    gradient, so there is no last block and no grid-wide barrier.  No
-//    atomics: two calls are bitwise equal.
+// Design — kernel B's weight-split clusters (csrc/fxp_mlp_fwd.cu), carried
+// through the backward:
+//  * Passes.  The chain pass runs every row's forwards and cotangent chain
+//    and stores what the products need: each trained layer's input q_l
+//    (M, K_l) and post-activation cotangent G_l (M, N_l), plus one row of
+//    monitors and loss partials per cluster.  Pass 2
+//    (`reduce_update_kernel`) sums dW = qᵀG and db = ΣG over all rows in a
+//    fixed order, 32 × 32 output tiles of every layer in one grid, and each
+//    tile applies Adam and the Polyak update to the parameters it owns.
+//    Kernel 5's chain is one launch (`ddpg_actor_kernel`: actor and critic
+//    resident).  Kernel 4's three nets do not fit a block's shared memory at
+//    8 blocks a cluster, so its chain is two launches: the target pass
+//    (`ddpg_target_kernel`: target actor, target critic, y to a scratch row)
+//    and the critic pass (`ddpg_critic_kernel`: the online critic forward,
+//    loss, backward).  Kernel 4 is three CUDA launches, kernel 5 two.
+//  * Clusters.  A cluster of C blocks runs the chain for one block of BM
+//    rows (8 or 16); persistent clusters stride over the row blocks.  Every
+//    width d is cut into C slices of sw(d) = ⌈⌈d/C⌉/4⌉·4 columns; block q
+//    owns slice q of every layer's input and output.  A layer with N > 8
+//    splits its columns (block q computes its N slice over all K, W[:, q]
+//    resident), a narrower one (6, 1) splits K (block q sums its own input
+//    slice for all N, W[q, :] resident; the partial sums are added over the
+//    cluster in rank order, every block getting the whole output).
+//  * Forward, per layer (kernel B's): a block monitors its own input slice,
+//    projects it, splits it into limbs and stores them into every peer's
+//    copy of the whole layer input through distributed shared memory
+//    (DSMEM) before one cluster barrier; each output of a column-split
+//    layer is one thread's fmaf chain in k order per limb, as in the kernel
+//    this one replaces.  The weight slices load once per launch by TMA
+//    (2-D tensor boxes) or bulk copies, completing on one mbarrier each.
+//  * Backward, per layer, on the same slices.  A column-split layer holds
+//    g for its own N slice: g·W[:, slice]ᵀ is a partial dx over all K
+//    inputs; each block stores each partial's columns into their owner's
+//    receive rows (DSMEM), one cluster barrier, and each owner adds the C
+//    partials in rank order — a reduce-scatter without atomics, so two
+//    calls are bitwise equal.  A K-split layer holds the whole g and its
+//    own W rows: its dx slice is local.  Where the layer below is K-split
+//    the dx goes to every block instead (all N ≤ 8 columns).  The
+//    straight-through mask and the next activation backward then need only
+//    the block's own slices.  Kernel 5's da is the action columns of the
+//    critic's layer 0, reduced onto the actor's output slicing and masked
+//    at the critic's first site.  Each block stores its slices of q_l and
+//    G_l.  Rows with w = 0, and rows past the batch, carry an exactly zero
+//    cotangent, so they add exactly zero to dW and db.
+//  * The receive rows reuse the forward's limb buffers (double-buffered by
+//    reduction parity); a cluster barrier separates the forward's last
+//    reads from the backward's first writes, and each row block from the
+//    next.
 //  * The phase is a device int32 and the 12 step scalars (1/max(Σw, 1), γ,
 //    τ, 1 − τ and Adam's constants with the bias corrections of this step,
 //    the reference's hyper vector) a device float array, both read
@@ -56,15 +90,23 @@
 //    contract it into an FMA that PyTorch's separate ops do not do; IEEE
 //    division and square root; no fast-math.  The tanh backward is written
 //    the same way.
-//  * The critic's first layer reads its (obs, action) concat from one
-//    shared-memory row; the reference split that weight by rows for the
-//    TPU's lanes, which changes its sum order at ulp level only.
-//  * Weights are streamed from L2, one thread per output column walking k
-//    (kernel B), and g Wᵀ is one warp per input column with a butterfly
-//    reduce (kernel 3).  Rows with w = 0 carry an exactly zero cotangent,
-//    so they add exactly zero to dW and db.
+//  * The critic's first layer reads its (obs, action) concat as one input;
+//    the reference split that weight by rows for the TPU's lanes, which
+//    changes its sum order at ulp level only.
+// Launch plan: `repro_torch.kernels.fxp_mlp.kernel.step_plan(m, actor_dims,
+// critic_dims, which)` computes BM, C, the cluster count, the instance
+// (resident or streamed W) and the shared-memory layout; this file checks
+// the layout's extents before it launches.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
+
+#include <mutex>
+
+#include "fxp_cluster.cuh"
 #include "fxp_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -74,11 +116,14 @@ using fxp::site_project;
 using fxp::ste_pass;
 
 constexpr int MAX_LAYERS = 4;
+constexpr int MAX_NETS = 2;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int BM = 8;     // rows per block in pass 1
 constexpr int TILE = 32;  // pass 2 tile: 32 (k) × 32 (n) outputs, 32-row steps
-constexpr int MAX_SMEM = 232448;  // a block's shared-memory limit on sm_90
+constexpr int STATIC_SMEM = 1024;  // bytes kept back for the chain kernels' static shared memory
+constexpr int RB = 4;              // rows of a backward partial-dx item
+
+enum Mode { TARGET = 0, CRITIC = 1, ACTOR = 2 };
 
 // the hyper vector (src/repro/kernels/fxp_mlp/kernel.py:42-54)
 constexpr int H_INVW = 0, H_GAMMA = 1, H_TAU = 2, H_OMTAU = 3, H_LR = 4, H_B1 = 5, H_OMB1 = 6,
@@ -88,44 +133,763 @@ struct Net {
   const float* w[MAX_LAYERS];  // (dims[l], dims[l+1]) row-major
   const float* b[MAX_LAYERS];  // (dims[l+1],)
   int dims[MAX_LAYERS + 1];
-  int acts[MAX_LAYERS];  // 0 none, 1 relu, 2 tanh
+  int acts[MAX_LAYERS];        // 0 none, 1 relu, 2 tanh
+  int ksplit[MAX_LAYERS];      // 1: the layer sums K slices across the cluster
+  int bulk[MAX_LAYERS];        // 1: its resident slice loads with bulk copies
+  int w_off[MAX_LAYERS];       // float offsets of the resident W slices
+  int x_off[MAX_LAYERS + 1];   // this block's slice of each layer's input; [L] of the last output
+  int hf_off[MAX_LAYERS];      // a K-split layer's whole output (every block holds it)
+  int site0;                   // the net's first site in deltas/zs
 };
 
-struct Sites {  // 2L sites: the actor's 0..L-1, the critic's L..2L-1
+struct StepArgs {
+  Net net[MAX_NETS];
+  int n_nets, n_layers;
+  int kmax, smax, pmax, rmax, gmax, nbuf;  // row strides (the plan's)
+  int full_off, part_off, g_off[2];         // float offsets of the buffers
+  const float* obs;       // (M, O)
+  const float* action;    // (M, A)
+  const float* reward;    // (M,)
+  const float* done;      // (M,) 0/1
+  const float* roww;      // (M,) row weights
+  const float* next_obs;  // (M, O)
+  float* y;               // (M,) the TD target: the target pass writes it, the critic pass reads it
+  float* q[MAX_LAYERS];   // (M, K_l) the trained net's product inputs
+  float* g[MAX_LAYERS];   // (M, N_l) its post-activation cotangents
+  float* mins;            // (n_clusters, sites)
+  float* maxs;
+  float* part;            // (n_clusters, partials)
+  int obs_dim, act_dim, M;
+};
+
+// The 2-D tensor maps of the column-split layers' W (bulk tensor copies).
+struct alignas(64) WeightMaps {
+  CUtensorMap m[MAX_NETS * MAX_LAYERS];
+};
+
+// Per-launch constants of a block.
+struct Ctx {
+  float* smem;
   const float* deltas;
   const float* zs;
-  int qat;
-  int fxp32_phase1;
   float q_max;
+  int C, q, quant, qat, fxp32_phase1;
 };
 
-struct CriticArgs {
-  Net actor_t, critic_t, critic;
-  const float* obs;  // (M, O)
-  const float* action;  // (M, A)
-  const float* reward;  // (M,)
-  const float* done;  // (M,) 0/1
-  const float* w;  // (M,) row weights
-  const float* next_obs;  // (M, O)
-  float* q[MAX_LAYERS];  // (M, K_l) the online critic's product inputs
-  float* g[MAX_LAYERS];  // (M, N_l) its post-activation cotangents
-  float* mins;  // (n_blocks, L)
-  float* maxs;
-  float* part;  // (n_blocks, 2)
-  int n_layers, obs_dim, act_dim, M, maxw;
+__host__ __device__ __forceinline__ int slice_width(int d, int c) { return ((d + c - 1) / c + 3) / 4 * 4; }
+
+// A column-split slice loads as ⌈K/256⌉ tensor boxes of tma_rows(K) rows
+// (a multiple of 8, so every box lands 128-byte aligned).
+__host__ __device__ __forceinline__ int tma_boxes(int k) { return (k + 255) / 256; }
+__host__ __device__ __forceinline__ int tma_rows(int k) { return ((k + tma_boxes(k) - 1) / tma_boxes(k) + 7) / 8 * 8; }
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
+
+template <typename T>
+__device__ __forceinline__ T* peer(T* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@p bra DONE;\n\t"
+      "bra LAB_WAIT;\n\t"
+      "DONE:\n\t}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Issue the bulk copies of layer l's resident slice (called by one warp):
+// a K-split slice is contiguous rows of W, one copy; a column-split slice is
+// a K × sw(N) window of W, ⌈K/256⌉ 2-D tensor boxes (columns past N and
+// rows past K arrive as zeros).
+__device__ void load_slice_bulk(const Net& nt, const CUtensorMap* map, int l, int q, int C, float* ws,
+                                unsigned long long* bar, int lane) {
+  const int K = nt.dims[l], N = nt.dims[l + 1];
+  if (nt.ksplit[l]) {
+    const int s = slice_width(K, C), klo = q * s, kn = max(0, min(s, K - klo));
+    if (lane == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(kn * N * 4)
+                   : "memory");
+      if (kn > 0)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                smem_u32(ws)),
+            "l"(nt.w[l] + (size_t)klo * N), "r"(kn * N * 4), "r"(smem_u32(bar))
+            : "memory");
+    }
+    return;
+  }
+  const int s = slice_width(N, C), nlo = q * s;
+  const int boxes = nlo < N ? tma_boxes(K) : 0, rows = tma_rows(K);
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+                 "r"(boxes * rows * s * 4)
+                 : "memory");
+  __syncwarp();
+  if (lane < boxes)
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], "
+        "[%4];\n" ::"r"(smem_u32(ws + (size_t)lane * rows * s)),
+        "l"(reinterpret_cast<unsigned long long>(map)), "r"(nlo), "r"(lane * rows), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// Copy layer l's resident slice with 4-byte asynchronous copies (W not fit
+// for bulk copies); each thread waits for its own before the layer's
+// cluster barrier.  Columns past N arrive as zeros, as from a tensor box.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ void load_slice_plain(const Net& nt, int l, int q, int C, float* ws) {
+  const int K = nt.dims[l], N = nt.dims[l + 1];
+  const float* w = nt.w[l];
+  if (nt.ksplit[l]) {
+    const int s = slice_width(K, C), klo = q * s, kn = max(0, min(s, K - klo));
+    for (int e = threadIdx.x; e < kn * N; e += THREADS) cp_async4(ws + e, w + (size_t)klo * N + e, true);
+  } else {
+    const int s = slice_width(N, C), nlo = q * s;
+    if (nlo >= N) return;
+    for (int e = threadIdx.x; e < K * s; e += THREADS) {
+      const int k = e / s, c = e % s;
+      cp_async4(ws + e, nlo + c < N ? w + (size_t)k * N + nlo + c : w, nlo + c < N);
+    }
+  }
+}
+
+// Column-split MAC: TR rows r0.. of the block, output column c of the
+// slice; each output one fmaf chain in k order per limb.  The limbs are
+// read four k at a time (one float4 per row and limb).
+template <int TR, bool RESIDENT>
+__device__ __forceinline__ void col_mac(const float* hi, const float* lo, int kmax, int K, const float* wp,
+                                        int w_stride, int c, bool quant, float (&ah)[TR], float (&al)[TR]) {
+#pragma unroll
+  for (int i = 0; i < TR; ++i) ah[i] = al[i] = 0.0f;
+  auto wload = [&](int k) { return RESIDENT ? wp[k * w_stride + c] : __ldg(wp + (size_t)k * w_stride + c); };
+  int k = 0;
+#pragma unroll 2
+  for (; k + 4 <= K; k += 4) {
+    const float w0 = wload(k), w1 = wload(k + 1), w2 = wload(k + 2), w3 = wload(k + 3);
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const float4 h = *reinterpret_cast<const float4*>(hi + i * kmax + k);
+      ah[i] = fmaf(h.w, w3, fmaf(h.z, w2, fmaf(h.y, w1, fmaf(h.x, w0, ah[i]))));
+      if (!quant) {
+        const float4 l = *reinterpret_cast<const float4*>(lo + i * kmax + k);
+        al[i] = fmaf(l.w, w3, fmaf(l.z, w2, fmaf(l.y, w1, fmaf(l.x, w0, al[i]))));
+      }
+    }
+  }
+  for (; k < K; ++k) {
+    const float wv = wload(k);
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      ah[i] = fmaf(hi[i * kmax + k], wv, ah[i]);
+      if (!quant) al[i] = fmaf(lo[i * kmax + k], wv, al[i]);
+    }
+  }
+}
+
+template <int BM, int TR, bool RESIDENT>
+__device__ __forceinline__ void col_layer(const StepArgs& a, const Net& nt, int l, const float* fh, const float* fl,
+                                          const float* wp, int w_stride, float* xout, int s_out, int nlo, int nq,
+                                          int rows, bool quant) {
+  const int K = nt.dims[l];
+  const float* __restrict__ B = nt.b[l];
+  const int act = nt.acts[l];
+  for (int u = threadIdx.x; u < (BM / TR) * nq; u += THREADS) {
+    const int c = u % nq, r0 = (u / nq) * TR;
+    if (r0 >= rows) continue;  // every row of this group is past the batch
+    float ah[TR], al[TR];
+    col_mac<TR, RESIDENT>(fh + r0 * a.kmax, fl + r0 * a.kmax, a.kmax, K, wp, w_stride, c, quant, ah, al);
+    const float bias = __ldg(B + nlo + c);
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const float acc = quant ? ah[i] : ah[i] + al[i];
+      xout[(r0 + i) * s_out + c] = activate(acc + bias, act);
+    }
+  }
+}
+
+// Shared arrays every block keeps beside the dynamic layout.
+struct Stat {
+  float* red_min;  // [WARPS]
+  float* red_max;
+  float* run_min;  // [2 · MAX_LAYERS] running extrema per monitored site
+  float* run_max;
+  unsigned long long* bars;  // [MAX_NETS · MAX_LAYERS] one per resident slice
 };
 
-struct ActorArgs {
-  Net actor, critic;
-  const float* obs;  // (M, O)
-  const float* w;  // (M,)
-  float* q[MAX_LAYERS];  // (M, K_l) the actor's product inputs
-  float* g[MAX_LAYERS];  // (M, N_l) its post-activation cotangents
-  float* mins;  // (n_blocks, 2L): actor sites, then critic sites
-  float* maxs;
-  float* part;  // (n_blocks, 1)
-  int n_layers, obs_dim, act_dim, M, maxw;
-};
+// One forward layer of net `ni` for the block's rows (module comment):
+// xin is this block's slice of the layer input (pre-projection, stride
+// sw(K)); the block's slice of the output goes to xout (stride sw(N)), a
+// K-split layer's whole output also to its hf buffer (stride pmax).
+// mon >= 0: fold the slice's extrema into run_min/max[mon].  q_out: store
+// the product inputs of the valid rows.  `it` counts layers (the limb
+// buffers' parity).
+template <int BM, bool RESIDENT>
+__device__ void fwd_layer(const StepArgs& a, const Ctx& x, const Stat& st, int ni, int l, const float* xin,
+                          float* xout, int mon, float* q_out, int row0, int rows, int& it) {
+  const Net& nt = a.net[ni];
+  const int K = nt.dims[l], N = nt.dims[l + 1], C = x.C, q = x.q;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int s_in = slice_width(K, C), klo = q * s_in, kn = max(0, min(s_in, K - klo));
+  const int s_out = slice_width(N, C), nlo = q * s_out, nq = max(0, min(s_out, N - nlo));
+  const bool ksplit = nt.ksplit[l];
+  const int KM = a.kmax;
+  float* fh = x.smem + a.full_off + (a.nbuf == 2 ? (it & 1) : 0) * 2 * BM * KM;
+  float* fl = fh + BM * KM;
+  const float inf = __int_as_float(0x7f800000);
+
+  // ---- range monitor of this block's slice: valid rows only ---------------
+  if (mon >= 0) {
+    float mn = inf, mx = -inf;
+    for (int e = tid; e < rows * kn; e += THREADS) {
+      const float v = xin[(e / kn) * s_in + e % kn];
+      mn = fminf(mn, v);
+      mx = fmaxf(mx, v);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) {
+      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    if (lane == 0) {
+      st.red_min[warp] = mn;
+      st.red_max[warp] = mx;
+    }
+  }
+
+  // ---- site projection + limb split of the slice, four columns at a time,
+  // stored into every block's copy of the whole input (a K-split layer keeps
+  // its slice to itself).  Past kn the float4 runs into the padding up to
+  // kmax, which no block owns and no MAC reads.
+  const int site = nt.site0 + l;
+  const float delta = x.qat ? x.deltas[site] : 1.0f;
+  const float z = x.qat ? x.zs[site] : 0.0f;
+  const int kn4 = (kn + 3) / 4;
+  for (int e = tid; e < BM * kn4; e += THREADS) {
+    const int r = e / kn4, c = (e % kn4) * 4;
+    const float4 v4 = *reinterpret_cast<const float4*>(xin + r * s_in + c);
+    float v[4] = {v4.x, v4.y, v4.z, v4.w}, h[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (x.qat) v[j] = site_project(v[j], x.quant, delta, z, x.q_max, x.fxp32_phase1);
+      h[j] = bf16_hi(v[j]);
+      lo[j] = v[j] - h[j];
+      if (q_out != nullptr && r < rows && c + j < kn) q_out[(size_t)(row0 + r) * K + klo + c + j] = x.quant ? h[j] : v[j];
+    }
+    const float4 h4 = make_float4(h[0], h[1], h[2], h[3]);
+    const float4 l4 = make_float4(lo[0], lo[1], lo[2], lo[3]);
+    const int o = r * KM + klo + c;
+    if (!ksplit) {
+      for (int p = 0; p < C; ++p) {
+        *reinterpret_cast<float4*>(peer(fh, p) + o) = h4;
+        if (!x.quant) *reinterpret_cast<float4*>(peer(fl, p) + o) = l4;
+      }
+      continue;
+    }
+    *reinterpret_cast<float4*>(fh + o) = h4;
+    *reinterpret_cast<float4*>(fl + o) = l4;
+  }
+  if (RESIDENT && !nt.bulk[l]) asm volatile("cp.async.wait_all;\n" ::: "memory");  // this thread's plain copies
+  cluster_sync();  // every block's copy of this layer's input is complete (and its W slice)
+  if (mon >= 0 && tid == 0) {
+    for (int i = 0; i < WARPS; ++i) {
+      st.run_min[mon] = fminf(st.run_min[mon], st.red_min[i]);
+      st.run_max[mon] = fmaxf(st.run_max[mon], st.red_max[i]);
+    }
+  }
+  const float* wl = RESIDENT ? x.smem + nt.w_off[l] : nt.w[l];
+  if (RESIDENT && nt.bulk[l]) mbar_wait(&st.bars[ni * MAX_LAYERS + l], 0);
+  const int act = nt.acts[l];
+
+  if (!ksplit) {
+    const float* wp = RESIDENT ? wl : wl + nlo;
+    const int w_stride = RESIDENT ? s_out : N;
+    int tr = BM;  // rows per thread: the fewest that keep one output column per thread
+    while (tr > 1 && (BM / tr) * 2 * nq <= THREADS) tr /= 2;
+    switch (tr) {
+#define FXP_COL_LAYER(TR)                                                                                        \
+  case TR:                                                                                                       \
+    if constexpr (TR <= BM)                                                                                      \
+      col_layer<BM, TR, RESIDENT>(a, nt, l, fh, fl, wp, w_stride, xout, s_out, nlo, nq, rows, x.quant);           \
+    break;
+      FXP_COL_LAYER(1)
+      FXP_COL_LAYER(2)
+      FXP_COL_LAYER(4)
+      FXP_COL_LAYER(8)
+      FXP_COL_LAYER(16)
+#undef FXP_COL_LAYER
+    }
+  } else {
+    // ---- K-split: partial sums of every output over this block's slice
+    const int PM = a.pmax;
+    float* part_hi = x.smem + a.part_off;
+    float* part_lo = part_hi + BM * PM;
+    for (int u = tid; u < BM * N; u += THREADS) {
+      const int r = u / N, n = u % N;
+      float ah = 0.0f, al = 0.0f;
+      if (r < rows) {
+        const float* hr = fh + r * KM + klo;
+        const float* lr = fl + r * KM + klo;
+        for (int k = 0; k < kn; ++k) {
+          const float wv = RESIDENT ? wl[k * N + n] : __ldg(wl + (size_t)(klo + k) * N + n);
+          ah = fmaf(hr[k], wv, ah);
+          if (!x.quant) al = fmaf(lr[k], wv, al);
+        }
+      }
+      part_hi[r * PM + n] = ah;
+      part_lo[r * PM + n] = al;
+    }
+    cluster_sync();  // every block's partial sums are complete
+    // every block adds all N outputs over the ranks in order: the same
+    // whole output in each
+    float* hf = x.smem + nt.hf_off[l];
+    const float* __restrict__ B = nt.b[l];
+    for (int u = tid; u < BM * N; u += THREADS) {
+      const int r = u / N, n = u % N, o = r * PM + n;
+      float v = 0.0f;
+      if (r < rows) {
+        float hv[16], lv[16];  // C ≤ 16: every load in flight before the ordered sum
+#pragma unroll
+        for (int p = 0; p < 16; ++p) {
+          if (p < C) {
+            hv[p] = *peer(part_hi + o, p);
+            lv[p] = *peer(part_lo + o, p);
+          }
+        }
+        float hi = hv[0], lo = lv[0];
+#pragma unroll
+        for (int p = 1; p < 16; ++p) {
+          if (p < C) {
+            hi += hv[p];
+            lo += lv[p];
+          }
+        }
+        const float acc = x.quant ? hi : hi + lo;
+        v = activate(acc + __ldg(B + n), act);
+      }
+      hf[o] = v;
+    }
+    __syncthreads();
+    for (int e = tid; e < BM * nq; e += THREADS) {
+      const int r = e / nq, c = e % nq;
+      xout[r * s_out + c] = hf[r * PM + nlo + c];
+    }
+  }
+  ++it;
+  // xout holds the next layer's input slice; with one buffer no block may
+  // fill the next layer's input before every peer is done with this one
+  if (a.nbuf == 2) {
+    __syncthreads();
+  } else {
+    cluster_sync();
+  }
+}
+
+// Activation backward in place on the cotangent of layer l's output: the
+// whole output (`full`, a K-split layer, stride pmax, from hf) or the
+// block's slice (stride sw(N), from xout, zeros past the slice's columns).
+// Rows past `rows` become 0.  With G, the valid rows of the block's own
+// columns go to G (M, N) for pass 2.
+template <int BM>
+__device__ void act_bwd(const StepArgs& a, const Ctx& x, const Net& nt, int l, float* g, bool full, float* G,
+                        int row0, int rows) {
+  const int N = nt.dims[l + 1], act = nt.acts[l];
+  const int s_out = slice_width(N, x.C), nlo = x.q * s_out, nq = max(0, min(s_out, N - nlo));
+  const float* h = x.smem + (full ? nt.hf_off[l] : nt.x_off[l + 1]);
+  const int width = full ? N : s_out, stride = full ? a.pmax : s_out;
+  for (int u = threadIdx.x; u < BM * width; u += THREADS) {
+    const int r = u / width, c = u % width, o = r * stride + c;
+    const int n = full ? c : nlo + c;  // the output column
+    const bool live = r < rows && (full || c < nq);
+    float v = live ? g[o] : 0.0f;
+    if (live && act == 1) {
+      v = h[o] > 0.0f ? v : 0.0f;
+    } else if (live && act == 2) {
+      const float hv = h[o];
+      v = __fmul_rn(v, __fsub_rn(1.0f, __fmul_rn(hv, hv)));
+    }
+    g[o] = v;
+    if (G != nullptr && live && n >= nlo && n < nlo + nq) G[(size_t)(row0 + r) * N + n] = v;
+  }
+  __syncthreads();
+}
+
+// dx of layer l over its input columns [kb, kb + D), from the cotangent g
+// of its output (act_bwd's result: the whole output for a K-split layer,
+// the block's slice for a column-split one), into dst: every block all D
+// columns (`to_full`, stride pmax) or the block's slice of sw(D) columns
+// (stride sw(D)); then the site's straight-through mask on x_in (the
+// layer's pre-projection input, in dst's form and stride) and zero rows
+// past `rows`.  `rit` counts reductions (the receive rows' parity).
+template <int BM, bool RESIDENT>
+__device__ void bwd_dx(const StepArgs& a, const Ctx& x, int ni, int l, const float* g, int kb, int D, bool to_full,
+                       float* dst, const float* x_in, int rows, int& rit) {
+  const Net& nt = a.net[ni];
+  const int K = nt.dims[l], N = nt.dims[l + 1], C = x.C, q = x.q, tid = threadIdx.x;
+  const int s_in = slice_width(K, C), klo = q * s_in, kn = max(0, min(s_in, K - klo));
+  const int s_out = slice_width(N, C), nlo = q * s_out, nq = max(0, min(s_out, N - nlo));
+  const int PM = a.pmax, RM = a.rmax;
+  const int sd = slice_width(D, C);
+  const int stride = to_full ? PM : sd;
+  const int dlo = to_full ? 0 : q * sd;
+  const int dn = to_full ? D : max(0, min(sd, D - dlo));
+  const float* wl = RESIDENT ? x.smem + nt.w_off[l] : nt.w[l];
+  float* recv = x.smem + a.full_off + (rit & 1) * C * BM * RM;  // [sender][BM][rmax]
+  const bool local = nt.ksplit[l] && !to_full && kb == 0 && D == K;
+
+  if (local) {
+    // ---- K-split, the block's own K slice: no exchange
+    for (int u = tid; u < BM * kn; u += THREADS) {
+      const int r = u / kn, k = u % kn;
+      float v = 0.0f;
+      if (r < rows)
+        for (int n = 0; n < N; ++n)
+          v = fmaf(g[r * PM + n], RESIDENT ? wl[k * N + n] : __ldg(wl + (size_t)(klo + k) * N + n), v);
+      dst[r * stride + k] = v;
+    }
+  } else if (nt.ksplit[l]) {
+    // ---- K-split, to every block or onto another slicing: each block
+    // contributes its own K rows and zeros elsewhere
+    for (int u = tid; u < BM * D; u += THREADS) {
+      const int r = u / D, j = u % D, k = kb + j;
+      float v = 0.0f;
+      if (r < rows && k >= klo && k < klo + kn)
+        for (int n = 0; n < N; ++n)
+          v = fmaf(g[r * PM + n], RESIDENT ? wl[(k - klo) * N + n] : __ldg(wl + (size_t)k * N + n), v);
+      if (to_full) {
+        for (int p = 0; p < C; ++p) peer(recv, p)[(q * BM + r) * RM + j] = v;
+      } else {
+        const int p = j / sd;
+        peer(recv, p)[(q * BM + r) * RM + j - p * sd] = v;
+      }
+    }
+  } else {
+    // ---- column-split: the partial over this block's N slice, RB rows and
+    // four input columns an item, in c order per output
+    const int d4 = (D + 3) / 4, nq4 = (nq + 3) / 4 * 4;
+    for (int u = tid; u < d4 * (BM / RB); u += THREADS) {
+      const int j0 = (u % d4) * 4, r0 = (u / d4) * RB;
+      float acc[RB][4];
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) acc[i][t] = 0.0f;
+      if (r0 < rows) {
+        int kr[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) kr[t] = kb + min(j0 + t, D - 1);  // past D: a row whose result is dropped
+        for (int c = 0; c < nq4; c += 4) {
+          float4 gv[RB], wv[4];
+#pragma unroll
+          for (int i = 0; i < RB; ++i) gv[i] = *reinterpret_cast<const float4*>(g + (r0 + i) * s_out + c);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            if (RESIDENT) {
+              wv[t] = *reinterpret_cast<const float4*>(wl + kr[t] * s_out + c);
+            } else {
+              const float* wr = wl + (size_t)kr[t] * N + nlo + c;
+              wv[t] = make_float4(c < nq ? __ldg(wr) : 0.0f, c + 1 < nq ? __ldg(wr + 1) : 0.0f,
+                                  c + 2 < nq ? __ldg(wr + 2) : 0.0f, c + 3 < nq ? __ldg(wr + 3) : 0.0f);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < RB; ++i)
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+              acc[i][t] = fmaf(gv[i].w, wv[t].w,
+                               fmaf(gv[i].z, wv[t].z, fmaf(gv[i].y, wv[t].y, fmaf(gv[i].x, wv[t].x, acc[i][t]))));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        const float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        const int o = (q * BM + r0 + i) * RM;
+        if (to_full) {
+          for (int p = 0; p < C; ++p) *reinterpret_cast<float4*>(peer(recv, p) + o + j0) = v;
+        } else {
+          const int p = j0 / sd;
+          *reinterpret_cast<float4*>(peer(recv, p) + o + j0 - p * sd) = v;
+        }
+      }
+    }
+  }
+  if (!local) {
+    cluster_sync();  // every block's partials are in their owners' receive rows
+    ++rit;
+  }
+  // ---- add the C partials in rank order; mask; zero rows past the batch
+  const int site = nt.site0 + l;
+  const bool mask = x.qat != 0;
+  const float delta = mask ? x.deltas[site] : 1.0f;
+  const float z = mask ? x.zs[site] : 0.0f;
+  const float lo = -z * delta;
+  const float hi = (x.q_max - z) * delta;
+  const int width = local ? kn : dn;
+  for (int u = tid; u < BM * width; u += THREADS) {
+    const int r = u / width, j = u % width;
+    float v = dst[r * stride + j];
+    if (!local) {
+      v = recv[r * RM + j];
+      for (int p = 1; p < C; ++p) v += recv[(p * BM + r) * RM + j];
+    }
+    if (r >= rows || (mask && !ste_pass(x_in[r * stride + j], x.quant, lo, hi, x.fxp32_phase1))) v = 0.0f;
+    dst[r * stride + j] = v;
+  }
+  __syncthreads();
+}
+
+// Load this block's slice of the first layer's input, the concat of
+// src1 (M, D1) and, past D1, src2 (M, K − D1) or the actor's output a
+// (from `a_full`, stride pmax, or from its owners' output slices through
+// DSMEM, `a_slice` at stride sa); rows past the batch are 0.
+template <int BM>
+__device__ void load_input(const Ctx& x, float* dst, int K, const float* __restrict__ src1, int D1,
+                           const float* __restrict__ src2, const float* a_full, int pmax, const float* a_slice, int sa,
+                           int row0, int rows) {
+  const int s = slice_width(K, x.C), klo = x.q * s, kn = max(0, min(s, K - klo));
+  for (int e = threadIdx.x; e < BM * kn; e += THREADS) {
+    const int r = e / kn, c = klo + e % kn;
+    float v = 0.0f;
+    if (r < rows) {
+      if (c < D1) {
+        v = src1[(size_t)(row0 + r) * D1 + c];
+      } else if (src2 != nullptr) {
+        v = src2[(size_t)(row0 + r) * (K - D1) + c - D1];
+      } else if (a_full != nullptr) {
+        v = a_full[r * pmax + c - D1];
+      } else {
+        const int j = c - D1, p = j / sa;
+        v = peer(a_slice, p)[r * sa + j - p * sa];
+      }
+    }
+    dst[r * s + e % kn] = v;
+  }
+  __syncthreads();
+}
+
+// Column 0 of a net's last output for row r: the whole output of a K-split
+// layer (every block), or block 0's output slice.
+__device__ __forceinline__ float out0(const StepArgs& a, const Ctx& x, const Net& nt, int r) {
+  const int L = a.n_layers;
+  return nt.ksplit[L - 1] ? x.smem[nt.hf_off[L - 1] + r * a.pmax]
+                          : x.smem[nt.x_off[L] + r * slice_width(nt.dims[L], x.C)];
+}
+
+// The chain pass of one mode for every row block the cluster walks.
+template <int BM, bool RESIDENT, int MODE>
+__device__ __forceinline__ void step_chain(const StepArgs& a, const WeightMaps& maps, const float* deltas,
+                                           const float* zs, const float* __restrict__ hyper, const int* phase,
+                                           int qat, int fxp32_phase1, float q_max) {
+  extern __shared__ __align__(128) float smem[];
+  __shared__ float red_min[WARPS], red_max[WARPS];
+  __shared__ float run_min[2 * MAX_LAYERS], run_max[2 * MAX_LAYERS];
+  __shared__ float run_part[2];
+  __shared__ float w_s[BM], d_s[BM];
+  __shared__ __align__(8) unsigned long long bars[MAX_NETS * MAX_LAYERS];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  Ctx x;
+  x.smem = smem;
+  x.deltas = deltas;
+  x.zs = zs;
+  x.q_max = q_max;
+  x.C = (int)cluster.num_blocks();
+  x.q = (int)cluster.block_rank();
+  x.quant = __ldg(phase) > 0;
+  x.qat = qat;
+  x.fxp32_phase1 = fxp32_phase1;
+  const Stat st = {red_min, red_max, run_min, run_max, bars};
+  const int C = x.C, q = x.q;
+  const int cid = blockIdx.x / C, n_clusters = gridDim.x / C;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int L = a.n_layers, NN = a.n_nets;
+  const float inf = __int_as_float(0x7f800000);
+
+  if (RESIDENT) {
+    if (tid == 0) {
+      for (int i = 0; i < NN * MAX_LAYERS; ++i)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&bars[i])) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    for (int ni = 0; ni < NN; ++ni)
+      for (int l = 0; l < L; ++l) {
+        const Net& nt = a.net[ni];
+        if (!nt.bulk[l])
+          load_slice_plain(nt, l, q, C, smem + nt.w_off[l]);
+        else if (warp == 0)
+          load_slice_bulk(nt, &maps.m[ni * MAX_LAYERS + l], l, q, C, smem + nt.w_off[l],
+                          &bars[ni * MAX_LAYERS + l], lane);
+      }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  if (tid < 2 * MAX_LAYERS) {
+    run_min[tid] = inf;
+    run_max[tid] = -inf;
+  }
+  if (tid < 2) run_part[tid] = 0.0f;
+
+  const Net& n0 = a.net[0];
+  const Net& n1 = a.net[MAX_NETS - 1];
+  const Net& trained = n0;                      // CRITIC: the critic; ACTOR: the actor
+  const Net& crit = MODE == CRITIC ? n0 : n1;   // the net whose output column 0 is q
+  const int O = a.obs_dim, A = a.act_dim;
+  const int n_rb = (a.M + BM - 1) / BM;
+  int it = 0, rit = 0;
+  for (int rb = cid; rb < n_rb; rb += n_clusters) {
+    if (rb != cid) cluster_sync();  // every peer is done with this block's buffers
+    const int row0 = rb * BM;
+    const int rows = min(BM, a.M - row0);
+    if (tid < BM) w_s[tid] = MODE != TARGET && tid < rows ? a.roww[row0 + tid] : 0.0f;
+
+    // ---- forwards -------------------------------------------------------
+    if (MODE == CRITIC) {
+      load_input<BM>(x, smem + n0.x_off[0], n0.dims[0], a.obs, O, a.action, nullptr, a.pmax, nullptr, 1, row0, rows);
+      for (int l = 0; l < L; ++l)
+        fwd_layer<BM, RESIDENT>(a, x, st, 0, l, smem + n0.x_off[l], smem + n0.x_off[l + 1], l, a.q[l], row0, rows,
+                                it);
+    } else {
+      // the actor (or target actor) on obs (next_obs), then the critic on
+      // the concat of that input and the actor's output
+      const float* src = MODE == TARGET ? a.next_obs : a.obs;
+      load_input<BM>(x, smem + n0.x_off[0], n0.dims[0], src, O, nullptr, nullptr, a.pmax, nullptr, 1, row0, rows);
+      for (int l = 0; l < L; ++l)
+        fwd_layer<BM, RESIDENT>(a, x, st, 0, l, smem + n0.x_off[l], smem + n0.x_off[l + 1], MODE == ACTOR ? l : -1,
+                                MODE == ACTOR ? a.q[l] : nullptr, row0, rows, it);
+      const bool a_split = n0.ksplit[L - 1];
+      if (!a_split) cluster_sync();  // every block's slice of the actor's output is complete
+      load_input<BM>(x, smem + n1.x_off[0], n1.dims[0], src, O, nullptr, a_split ? smem + n0.hf_off[L - 1] : nullptr,
+                     a.pmax, smem + n0.x_off[L], slice_width(A, C), row0, rows);
+      for (int l = 0; l < L; ++l)
+        fwd_layer<BM, RESIDENT>(a, x, st, 1, l, smem + n1.x_off[l], smem + n1.x_off[l + 1], MODE == ACTOR ? L + l : -1,
+                                nullptr, row0, rows, it);
+    }
+    if (MODE == TARGET) {
+      // ---- TD target, by the block that holds q_next's column 0
+      if (q == 0 && tid < rows) {
+        const float gamma = hyper[H_GAMMA];
+        const float not_done = __fsub_rn(1.0f, a.done[row0 + tid]);
+        a.y[row0 + tid] = __fadd_rn(a.reward[row0 + tid], __fmul_rn(__fmul_rn(gamma, not_done), out0(a, x, n1, tid)));
+      }
+      continue;
+    }
+
+    // ---- partials and the cotangent of q --------------------------------
+    const int NL = crit.dims[L];
+    const bool c_split = crit.ksplit[L - 1];
+    const bool has0 = c_split || q == 0;  // this block holds q's column 0
+    if (!c_split) cluster_sync();  // the forward's last limb reads are done before the receive rows fill
+    if (MODE == CRITIC && has0 && tid < rows) d_s[tid] = __fsub_rn(out0(a, x, crit, tid), a.y[row0 + tid]);
+    __syncthreads();
+    if (q == 0 && tid == 0) {
+      for (int r = 0; r < rows; ++r) {
+        if (MODE == CRITIC) {
+          run_part[0] = __fadd_rn(run_part[0], __fmul_rn(w_s[r], __fmul_rn(d_s[r], d_s[r])));
+          run_part[1] = __fadd_rn(run_part[1], __fmul_rn(w_s[r], a.y[row0 + r]));
+        } else {
+          run_part[0] = __fadd_rn(run_part[0], __fmul_rn(w_s[r], out0(a, x, crit, r)));
+        }
+      }
+    }
+    float* gb = smem + a.g_off[0];
+    float* gn = smem + a.g_off[1];
+    {
+      const float inv_w = hyper[H_INVW];
+      const int width = c_split ? NL : slice_width(NL, C), stride = c_split ? a.pmax : width;
+      for (int e = tid; e < BM * width; e += THREADS) {
+        const int r = e / width, c = e % width;
+        float v = 0.0f;
+        if (r < rows && c == 0 && has0)
+          v = MODE == CRITIC ? __fmul_rn(__fmul_rn(inv_w, w_s[r]), __fmul_rn(2.0f, d_s[r])) : __fmul_rn(-inv_w, w_s[r]);
+        gb[r * stride + c] = v;
+      }
+      __syncthreads();
+    }
+
+    // ---- the critic's chain: G_l for pass 2 (kernel 4), dx below ----------
+    const int cn = MODE == CRITIC ? 0 : 1;
+    for (int l = L - 1; l >= 0; --l) {
+      act_bwd<BM>(a, x, crit, l, gb, crit.ksplit[l], MODE == CRITIC ? a.g[l] : nullptr, row0, rows);
+      if (l > 0) {
+        const bool below_full = crit.ksplit[l - 1];
+        const float* x_in = smem + (below_full ? crit.hf_off[l - 1] : crit.x_off[l]);
+        bwd_dx<BM, RESIDENT>(a, x, cn, l, gb, 0, crit.dims[l], below_full, gn, x_in, rows, rit);
+      } else if (MODE == ACTOR) {
+        // da: the action columns of the critic's input, onto the actor's
+        // output slicing (every block, where the actor's last layer splits K)
+        const bool a_full = trained.ksplit[L - 1];
+        const float* x_in = smem + (a_full ? trained.hf_off[L - 1] : trained.x_off[L]);
+        bwd_dx<BM, RESIDENT>(a, x, cn, 0, gb, O, A, a_full, gn, x_in, rows, rit);
+      }
+      float* t = gb;
+      gb = gn;
+      gn = t;
+    }
+    if (MODE == ACTOR) {
+      // ---- the actor's chain: G_l for pass 2 -----------------------------
+      for (int l = L - 1; l >= 0; --l) {
+        act_bwd<BM>(a, x, trained, l, gb, trained.ksplit[l], a.g[l], row0, rows);
+        if (l > 0) {
+          const bool below_full = trained.ksplit[l - 1];
+          const float* x_in = smem + (below_full ? trained.hf_off[l - 1] : trained.x_off[l]);
+          bwd_dx<BM, RESIDENT>(a, x, 0, l, gb, 0, trained.dims[l], below_full, gn, x_in, rows, rit);
+          float* t = gb;
+          gb = gn;
+          gn = t;
+        }
+      }
+    }
+  }
+
+  cluster_sync();  // every block's running extrema are final
+  const int n_mon = MODE == CRITIC ? L : MODE == ACTOR ? 2 * L : 0;
+  if (q == 0 && tid < n_mon) {
+    float mn = *peer(&run_min[tid], 0), mx = *peer(&run_max[tid], 0);
+    for (int p = 1; p < C; ++p) {
+      mn = fminf(mn, *peer(&run_min[tid], p));
+      mx = fmaxf(mx, *peer(&run_max[tid], p));
+    }
+    a.mins[(size_t)cid * n_mon + tid] = mn;
+    a.maxs[(size_t)cid * n_mon + tid] = mx;
+  }
+  const int n_part = MODE == CRITIC ? 2 : MODE == ACTOR ? 1 : 0;
+  if (q == 0 && tid < n_part) a.part[(size_t)cid * n_part + tid] = run_part[tid];
+  cluster_sync();  // peers may still read this block's shared memory
+}
+
+template <int BM, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, 1)
+ddpg_target_kernel(const StepArgs a, const __grid_constant__ WeightMaps maps, const float* __restrict__ deltas,
+                   const float* __restrict__ zs, const float* __restrict__ hyper, const int* __restrict__ phase,
+                   int qat, int fxp32_phase1, float q_max) {
+  step_chain<BM, RESIDENT, TARGET>(a, maps, deltas, zs, hyper, phase, qat, fxp32_phase1, q_max);
+}
+
+template <int BM, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, 1)
+ddpg_critic_kernel(const StepArgs a, const __grid_constant__ WeightMaps maps, const float* __restrict__ deltas,
+                   const float* __restrict__ zs, const float* __restrict__ hyper, const int* __restrict__ phase,
+                   int qat, int fxp32_phase1, float q_max) {
+  step_chain<BM, RESIDENT, CRITIC>(a, maps, deltas, zs, hyper, phase, qat, fxp32_phase1, q_max);
+}
+
+template <int BM, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, 1)
+ddpg_actor_kernel(const StepArgs a, const __grid_constant__ WeightMaps maps, const float* __restrict__ deltas,
+                  const float* __restrict__ zs, const float* __restrict__ hyper, const int* __restrict__ phase,
+                  int qat, int fxp32_phase1, float q_max) {
+  step_chain<BM, RESIDENT, ACTOR>(a, maps, deltas, zs, hyper, phase, qat, fxp32_phase1, q_max);
+}
 
 // One leaf set of pass 2: inputs and outputs may alias (elementwise).
 struct UpdateArgs {
@@ -144,374 +908,6 @@ struct UpdateArgs {
   int tile0[MAX_LAYERS + 1];  // first tile of layer l; tile0[L] = total
   int tiles_n[MAX_LAYERS];
 };
-
-__device__ __forceinline__ float f32_inf() { return __int_as_float(0x7f800000); }
-
-// Min/max of the block's valid rows of x (BM, K at stride ldx), written by
-// thread 0; `red` is 2·WARPS floats of shared memory.
-__device__ void monitor(const float* x, int ldx, int K, int rows, float* out_min, float* out_max,
-                        float* red) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  float mn = f32_inf(), mx = -f32_inf();
-  for (int e = tid; e < rows * K; e += THREADS) {
-    const float v = x[(e / K) * ldx + e % K];
-    mn = fminf(mn, v);
-    mx = fmaxf(mx, v);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) {
-    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  }
-  if (lane == 0) {
-    red[warp] = mn;
-    red[WARPS + warp] = mx;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int i = 1; i < WARPS; ++i) {
-      mn = fminf(mn, red[i]);
-      mx = fmaxf(mx, red[WARPS + i]);
-    }
-    *out_min = mn;
-    *out_max = mx;
-  }
-  __syncthreads();
-}
-
-// One dense layer of kernel B for the block's BM rows: x (BM, K at stride
-// ldx) → out (BM, N at stride ldo) = act(x̂·W + b), x̂ the site projection
-// of x (site >= 0) split into hi and lo limbs.  With q_out, the valid
-// rows' product inputs (hi in the quant phase, x̂ before it) go to
-// q_out (M, K).
-__device__ void dense(const float* x, int ldx, int K, const float* __restrict__ W,
-                      const float* __restrict__ B, int N, int act, float* out, int ldo,
-                      float* hi_s, float* lo_s, int quant, const Sites& st, int site,
-                      float* __restrict__ q_out, int row0, int rows) {
-  const int tid = threadIdx.x;
-  const bool project = st.qat && site >= 0;
-  const float delta = project ? st.deltas[site] : 1.0f;
-  const float z = project ? st.zs[site] : 0.0f;
-  for (int e = tid; e < BM * K; e += THREADS) {
-    const int r = e / K, c = e % K;
-    float v = x[r * ldx + c];
-    if (project) v = site_project(v, quant, delta, z, st.q_max, st.fxp32_phase1);
-    const float h = bf16_hi(v);
-    hi_s[e] = h;
-    lo_s[e] = v - h;
-    if (q_out != nullptr && r < rows) q_out[(size_t)(row0 + r) * K + c] = quant ? h : v;
-  }
-  __syncthreads();
-  for (int n = tid; n < N; n += THREADS) {
-    float ah[BM], al[BM];
-#pragma unroll
-    for (int r = 0; r < BM; ++r) ah[r] = al[r] = 0.0f;
-    if (quant) {
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) {
-        const float wv = __ldg(W + (size_t)k * N + n);
-#pragma unroll
-        for (int r = 0; r < BM; ++r) ah[r] = fmaf(hi_s[r * K + k], wv, ah[r]);
-      }
-    } else {
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) {
-        const float wv = __ldg(W + (size_t)k * N + n);
-#pragma unroll
-        for (int r = 0; r < BM; ++r) {
-          ah[r] = fmaf(hi_s[r * K + k], wv, ah[r]);
-          al[r] = fmaf(lo_s[r * K + k], wv, al[r]);
-        }
-      }
-    }
-    const float bias = __ldg(B + n);
-#pragma unroll
-    for (int r = 0; r < BM; ++r) {
-      const float acc = quant ? ah[r] : ah[r] + al[r];
-      out[r * ldo + n] = activate(acc + bias, act);
-    }
-  }
-  __syncthreads();
-}
-
-// Activation backward in place on g (BM, N) from the layer's output h (BM,
-// N at stride ldh); rows past `rows` become 0.  With G, the valid rows go
-// to G (M, N) for pass 2.
-__device__ void act_bwd(float* g, int N, const float* h, int ldh, int act, int rows,
-                        float* __restrict__ G, int row0) {
-  for (int e = threadIdx.x; e < BM * N; e += THREADS) {
-    const int r = e / N, c = e % N;
-    float v = g[e];
-    if (r >= rows) {
-      v = 0.0f;
-    } else if (act == 1) {
-      v = h[r * ldh + c] > 0.0f ? v : 0.0f;
-    } else if (act == 2) {
-      const float hv = h[r * ldh + c];
-      v = __fmul_rn(v, __fsub_rn(1.0f, __fmul_rn(hv, hv)));
-    }
-    g[e] = v;
-    if (G != nullptr && r < rows) G[(size_t)(row0 + r) * N + c] = v;
-  }
-  __syncthreads();
-}
-
-// out (BM, k1 − k0) = g (BM, N) · W[k0:k1, :]ᵀ (W (K, N) row-major), one
-// warp per input column k; then the straight-through mask of `site` on the
-// layer's pre-projection input x_in (BM rows at stride ldx, column k).
-__device__ void grad_input(const float* g, int N, const float* __restrict__ W, int k0, int k1,
-                           float* out, const float* x_in, int ldx, int quant, const Sites& st,
-                           int site, int rows) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const bool mask = st.qat && site >= 0;
-  const float delta = mask ? st.deltas[site] : 1.0f;
-  const float z = mask ? st.zs[site] : 0.0f;
-  const float lo = -z * delta;
-  const float hi = (st.q_max - z) * delta;
-  const int width = k1 - k0;
-  for (int k = k0 + warp; k < k1; k += WARPS) {
-    float acc[BM];
-#pragma unroll
-    for (int r = 0; r < BM; ++r) acc[r] = 0.0f;
-    for (int n = lane; n < N; n += 32) {
-      const float wv = __ldg(W + (size_t)k * N + n);
-#pragma unroll
-      for (int r = 0; r < BM; ++r) acc[r] = fmaf(g[r * N + n], wv, acc[r]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-#pragma unroll
-      for (int r = 0; r < BM; ++r) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-    }
-    float v = 0.0f;  // every lane holds all BM sums; lane r keeps row r's
-#pragma unroll
-    for (int r = 0; r < BM; ++r) v = lane == r ? acc[r] : v;
-    if (lane < BM) {
-      if (lane >= rows || (mask && !ste_pass(x_in[lane * ldx + k], quant, lo, hi, st.fxp32_phase1)))
-        v = 0.0f;
-      out[lane * width + (k - k0)] = v;
-    }
-  }
-  __syncthreads();
-}
-
-// Load the block's rows of src (M, K) into dst (BM, K at stride ldd);
-// rows past the batch are 0.
-__device__ void load_rows(const float* __restrict__ src, int K, float* dst, int ldd, int row0, int rows) {
-  for (int e = threadIdx.x; e < BM * K; e += THREADS) {
-    const int r = e / K, c = e % K;
-    dst[r * ldd + c] = r < rows ? src[(size_t)(row0 + r) * K + c] : 0.0f;
-  }
-}
-
-// Pass 1 of kernel 4 (the module comment).  Shared memory: tc (target
-// critic input), xc (online critic input), the online critic's layer
-// outputs, two ping-pong buffers and the two limbs.
-__global__ void __launch_bounds__(THREADS)
-critic_chain_kernel(const CriticArgs a, const Sites st, const float* __restrict__ hyper,
-                    const int* __restrict__ phase) {
-  extern __shared__ float smem[];
-  __shared__ float red[2 * WARPS];
-  __shared__ float y_s[BM], d_s[BM], w_s[BM];
-  const int L = a.n_layers, O = a.obs_dim, A = a.act_dim, C = O + A, MW = a.maxw;
-  const int quant = __ldg(phase) > 0;
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BM;
-  const int rows = min(BM, a.M - row0);
-  const Net& at = a.actor_t;
-  const Net& ct = a.critic_t;
-  const Net& cn = a.critic;
-
-  float* tc = smem;
-  float* xc = tc + BM * C;
-  float* hc[MAX_LAYERS];
-  float* p = xc + BM * C;
-  for (int l = 0; l < L; ++l) {
-    hc[l] = p;
-    p += BM * cn.dims[l + 1];
-  }
-  float* pp[2] = {p, p + BM * MW};
-  float* hi_s = pp[1] + BM * MW;
-  float* lo_s = hi_s + BM * MW;
-
-  load_rows(a.next_obs, O, tc, C, row0, rows);
-  load_rows(a.obs, O, xc, C, row0, rows);
-  load_rows(a.action, A, xc + O, C, row0, rows);
-  if (tid < BM) w_s[tid] = tid < rows ? a.w[row0 + tid] : 0.0f;
-  __syncthreads();
-
-  // ---- target actor on next_obs, its action into tc[:, O:] ---------------
-  const float* x = tc;
-  int ldx = C;
-  for (int l = 0; l < L; ++l) {
-    const bool last = l == L - 1;
-    float* out = last ? tc + O : pp[l % 2];
-    const int ldo = last ? C : at.dims[l + 1];
-    dense(x, ldx, at.dims[l], at.w[l], at.b[l], at.dims[l + 1], at.acts[l], out, ldo, hi_s, lo_s,
-          quant, st, l, nullptr, row0, rows);
-    x = out;
-    ldx = ldo;
-  }
-  // ---- target critic on (next_obs, next_a) --------------------------------
-  x = tc;
-  ldx = C;
-  for (int l = 0; l < L; ++l) {
-    float* out = pp[l % 2];
-    dense(x, ldx, ct.dims[l], ct.w[l], ct.b[l], ct.dims[l + 1], ct.acts[l], out, ct.dims[l + 1],
-          hi_s, lo_s, quant, st, L + l, nullptr, row0, rows);
-    x = out;
-    ldx = ct.dims[l + 1];
-  }
-  // ---- TD target ------------------------------------------------------------
-  if (tid < rows) {
-    const float gamma = hyper[H_GAMMA];
-    const float not_done = __fsub_rn(1.0f, a.done[row0 + tid]);
-    y_s[tid] = __fadd_rn(a.reward[row0 + tid], __fmul_rn(__fmul_rn(gamma, not_done), x[tid * ldx]));
-  }
-  // ---- online critic: monitors and the product inputs -----------------------
-  x = xc;
-  ldx = C;
-  for (int l = 0; l < L; ++l) {
-    monitor(x, ldx, cn.dims[l], rows, a.mins + (size_t)blockIdx.x * L + l,
-            a.maxs + (size_t)blockIdx.x * L + l, red);
-    dense(x, ldx, cn.dims[l], cn.w[l], cn.b[l], cn.dims[l + 1], cn.acts[l], hc[l],
-          cn.dims[l + 1], hi_s, lo_s, quant, st, L + l, a.q[l], row0, rows);
-    x = hc[l];
-    ldx = cn.dims[l + 1];
-  }
-  // ---- loss partials, then the weighted-MSE cotangent of q ----------------
-  const int NL = cn.dims[L];
-  if (tid < rows) d_s[tid] = __fsub_rn(hc[L - 1][tid * NL], y_s[tid]);
-  __syncthreads();
-  if (tid == 0) {
-    float s_loss = 0.0f, s_y = 0.0f;
-    for (int r = 0; r < rows; ++r) {
-      s_loss = __fadd_rn(s_loss, __fmul_rn(w_s[r], __fmul_rn(d_s[r], d_s[r])));
-      s_y = __fadd_rn(s_y, __fmul_rn(w_s[r], y_s[r]));
-    }
-    a.part[(size_t)blockIdx.x * 2] = s_loss;
-    a.part[(size_t)blockIdx.x * 2 + 1] = s_y;
-  }
-  float* g_s = pp[0];
-  float* n_s = pp[1];
-  const float inv_w = hyper[H_INVW];
-  for (int e = tid; e < BM * NL; e += THREADS) {
-    const int r = e / NL, c = e % NL;
-    g_s[e] = (c == 0 && r < rows) ? __fmul_rn(__fmul_rn(inv_w, w_s[r]), __fmul_rn(2.0f, d_s[r])) : 0.0f;
-  }
-  __syncthreads();
-  // ---- the chain: G_l for pass 2, g Wᵀ and the STE mask below ----------------
-  for (int l = L - 1; l >= 0; --l) {
-    const int N = cn.dims[l + 1];
-    act_bwd(g_s, N, hc[l], N, cn.acts[l], rows, a.g[l], row0);
-    if (l > 0) {
-      grad_input(g_s, N, cn.w[l], 0, cn.dims[l], n_s, hc[l - 1], cn.dims[l], quant, st, L + l, rows);
-      float* t = g_s;
-      g_s = n_s;
-      n_s = t;
-    }
-  }
-}
-
-// Pass 1 of kernel 5.  Shared memory: xa = (obs, a), the actor's hidden
-// outputs, the critic's layer outputs, and the two limbs (which hold the
-// cotangents once the forwards are done).
-__global__ void __launch_bounds__(THREADS)
-actor_chain_kernel(const ActorArgs a, const Sites st, const float* __restrict__ hyper,
-                   const int* __restrict__ phase) {
-  extern __shared__ float smem[];
-  __shared__ float red[2 * WARPS];
-  __shared__ float w_s[BM];
-  const int L = a.n_layers, O = a.obs_dim, A = a.act_dim, C = O + A, MW = a.maxw;
-  const int quant = __ldg(phase) > 0;
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BM;
-  const int rows = min(BM, a.M - row0);
-  const Net& an = a.actor;
-  const Net& cn = a.critic;
-  float* mins = a.mins + (size_t)blockIdx.x * 2 * L;
-  float* maxs = a.maxs + (size_t)blockIdx.x * 2 * L;
-
-  float* xa = smem;
-  float* ha[MAX_LAYERS];  // the actor's outputs; the last is xa[:, O:]
-  float* hc[MAX_LAYERS];
-  float* p = xa + BM * C;
-  for (int l = 0; l < L - 1; ++l) {
-    ha[l] = p;
-    p += BM * an.dims[l + 1];
-  }
-  ha[L - 1] = xa + O;
-  for (int l = 0; l < L; ++l) {
-    hc[l] = p;
-    p += BM * cn.dims[l + 1];
-  }
-  float* hi_s = p;
-  float* lo_s = hi_s + BM * MW;
-
-  load_rows(a.obs, O, xa, C, row0, rows);
-  if (tid < BM) w_s[tid] = tid < rows ? a.w[row0 + tid] : 0.0f;
-  __syncthreads();
-
-  // ---- actor forward: monitors and the product inputs ----------------------
-  const float* x = xa;
-  int ldx = C;
-  for (int l = 0; l < L; ++l) {
-    const int ldo = l == L - 1 ? C : an.dims[l + 1];
-    monitor(x, ldx, an.dims[l], rows, mins + l, maxs + l, red);
-    dense(x, ldx, an.dims[l], an.w[l], an.b[l], an.dims[l + 1], an.acts[l], ha[l], ldo, hi_s, lo_s,
-          quant, st, l, a.q[l], row0, rows);
-    x = ha[l];
-    ldx = ldo;
-  }
-  // ---- updated critic on (obs, a): layer 0's monitor sees both segments ---
-  x = xa;
-  ldx = C;
-  for (int l = 0; l < L; ++l) {
-    monitor(x, ldx, cn.dims[l], rows, mins + L + l, maxs + L + l, red);
-    dense(x, ldx, cn.dims[l], cn.w[l], cn.b[l], cn.dims[l + 1], cn.acts[l], hc[l], cn.dims[l + 1],
-          hi_s, lo_s, quant, st, L + l, nullptr, row0, rows);
-    x = hc[l];
-    ldx = cn.dims[l + 1];
-  }
-  const int NL = cn.dims[L];
-  if (tid == 0) {
-    float s_q = 0.0f;
-    for (int r = 0; r < rows; ++r) s_q = __fadd_rn(s_q, __fmul_rn(w_s[r], hc[L - 1][r * NL]));
-    a.part[blockIdx.x] = s_q;
-  }
-  // ---- policy-gradient cotangent, dx only through the critic -------------
-  float* g_s = hi_s;
-  float* n_s = lo_s;
-  const float neg_inv_w = -hyper[H_INVW];
-  for (int e = tid; e < BM * NL; e += THREADS) {
-    const int r = e / NL, c = e % NL;
-    g_s[e] = (c == 0 && r < rows) ? __fmul_rn(neg_inv_w, w_s[r]) : 0.0f;
-  }
-  __syncthreads();
-  for (int l = L - 1; l >= 0; --l) {
-    const int N = cn.dims[l + 1];
-    act_bwd(g_s, N, hc[l], N, cn.acts[l], rows, nullptr, row0);
-    if (l > 0) {
-      grad_input(g_s, N, cn.w[l], 0, cn.dims[l], n_s, hc[l - 1], cn.dims[l], quant, st, L + l, rows);
-    } else {  // the action columns of the concat: da, masked at the critic's l0 site
-      grad_input(g_s, N, cn.w[0], O, C, n_s, xa, C, quant, st, L, rows);
-    }
-    float* t = g_s;
-    g_s = n_s;
-    n_s = t;
-  }
-  // ---- the actor's chain: G_l for pass 2 --------------------------------------
-  for (int l = L - 1; l >= 0; --l) {
-    const int N = an.dims[l + 1];
-    act_bwd(g_s, N, ha[l], l == L - 1 ? C : N, an.acts[l], rows, a.g[l], row0);
-    if (l > 0) {
-      grad_input(g_s, N, an.w[l], 0, an.dims[l], n_s, ha[l - 1], an.dims[l], quant, st, l, rows);
-      float* t = g_s;
-      g_s = n_s;
-      n_s = t;
-    }
-  }
-}
 
 // `optim/fxp_adam.leaf_update` (or `adam.leaf_update`) and the Polyak
 // update for one parameter, each operation rounded on its own.
@@ -597,7 +993,51 @@ reduce_update_kernel(const UpdateArgs u, const float* __restrict__ hyper, int fx
 
 // ---- host side ---------------------------------------------------------------
 
-bool fill_net(Net& net, const void* const* wb, const int* dims, const int* acts, int L) {
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The tensor map of W (K, N) in boxes of sw(N) columns × tma_rows(K) rows,
+// encoded once per (W, K, N, C) and kept.  Returns 0 or an error code.
+int weight_map(CUtensorMap* out, const float* w, int K, int N, int C) {
+  struct Entry {
+    const float* w;
+    int K, N, C;
+    CUtensorMap map;
+  };
+  static Entry cache[64];
+  static int n_cache = 0, next = 0;
+  static EncodeTiled encode = nullptr;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_cache; ++i)
+    if (cache[i].w == w && cache[i].K == K && cache[i].N == N && cache[i].C == C) {
+      *out = cache[i].map;
+      return 0;
+    }
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
+    encode = (EncodeTiled)fn;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t strides[1] = {(cuuint64_t)N * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)slice_width(N, C), (cuuint32_t)tma_rows(K)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult rc = encode(out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(w), dims, strides, box,
+                             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (rc != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  const int slot = n_cache < 64 ? n_cache++ : (next++ % 64);
+  cache[slot] = {w, K, N, C, *out};
+  return 0;
+}
+
+bool fill_net(Net& net, const void* const* wb, const int* dims, const int* acts, int L, int site0) {
   for (int l = 0; l <= L; ++l) {
     if (dims[l] <= 0) return false;
     net.dims[l] = dims[l];
@@ -608,13 +1048,8 @@ bool fill_net(Net& net, const void* const* wb, const int* dims, const int* acts,
     net.b[l] = static_cast<const float*>(wb[2 * l + 1]);
     net.acts[l] = acts[l];
   }
+  net.site0 = site0;
   return true;
-}
-
-int max_width(const int* dims, int L) {
-  int w = 0;
-  for (int l = 0; l <= L; ++l) w = dims[l] > w ? dims[l] : w;
-  return w;
 }
 
 bool fill_update(UpdateArgs& u, void* const* qs, void* const* gs, const void* const* p,
@@ -646,20 +1081,119 @@ bool fill_update(UpdateArgs& u, void* const* qs, void* const* gs, const void* co
   return true;
 }
 
-// A kernel's dynamic shared-memory limit is raised only when a launch
-// needs more than it was granted before, so a launch inside a CUDA-graph
-// capture, after an eager one at the same shapes, makes no attribute call.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& granted) {
-  if (bytes <= granted) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) granted = bytes;
-  return err;
+// A plan as `kernel._c_step_plan` writes it: bm, cluster, n_clusters,
+// resident, nbuf, kmax, smax, pmax, rmax, gmax, full_off, part_off, g_off[2],
+// smem, n_nets, then per net (per layer ksplit, bulk, w_off; per layer and
+// the last output x_off; per layer hf_off).
+struct Launch {
+  int bm, C, n_clusters, resident;
+  size_t smem;
+};
+
+// Read a plan into `a` (whose nets are filled) and `maps`; check that every
+// region of the layout lies inside the block's shared memory, apart from
+// every other, 16-byte aligned (W slices 128-byte aligned), and wide enough
+// for the shapes.  Returns 0 or a CUDA error code.
+int read_plan(const int* plan, StepArgs& a, WeightMaps& maps, Launch& ln) {
+  if (plan == nullptr) return (int)cudaErrorInvalidValue;
+  const int L = a.n_layers;
+  ln.bm = plan[0];
+  ln.C = plan[1];
+  ln.n_clusters = plan[2];
+  ln.resident = plan[3];
+  a.nbuf = plan[4];
+  a.kmax = plan[5];
+  a.smax = plan[6];
+  a.pmax = plan[7];
+  a.rmax = plan[8];
+  a.gmax = plan[9];
+  a.full_off = plan[10];
+  a.part_off = plan[11];
+  a.g_off[0] = plan[12];
+  a.g_off[1] = plan[13];
+  const int smem = plan[14];
+  const int C = ln.C, bm = ln.bm;
+  if ((bm != 8 && bm != 16) || C < 1 || C > 16 || ln.n_clusters < 1 || plan[15] != a.n_nets ||
+      (a.nbuf != 1 && a.nbuf != 2) || smem < 0 || smem > fxp::kMaxSmem - STATIC_SMEM)
+    return (int)cudaErrorInvalidValue;
+  ln.smem = (size_t)smem;
+  const int strides[5] = {a.kmax, a.smax, a.pmax, a.rmax, a.gmax};
+  for (int v : strides)
+    if (v < 0 || v % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (a.rmax < a.smax || a.rmax < a.pmax || a.gmax < a.smax || a.gmax < a.pmax) return (int)cudaErrorInvalidValue;
+  // regions: (offset, floats, alignment in floats)
+  int off[64], len[64], n_reg = 0;
+  auto region = [&](int o, int n, int align) {
+    if (o < 0 || n < 0 || o % align != 0 || n_reg == 64) return false;
+    off[n_reg] = o;
+    len[n_reg++] = n;
+    return true;
+  };
+  bool ok = region(a.full_off, a.nbuf * 2 * bm * a.kmax > 2 * C * bm * a.rmax ? a.nbuf * 2 * bm * a.kmax
+                                                                                   : 2 * C * bm * a.rmax, 4) &&
+            region(a.part_off, 2 * bm * a.pmax, 4) && region(a.g_off[0], bm * a.gmax, 4) &&
+            region(a.g_off[1], bm * a.gmax, 4);
+  const int* p = plan + 16;
+  for (int ni = 0; ni < a.n_nets && ok; ++ni) {
+    Net& nt = a.net[ni];
+    for (int l = 0; l < L; ++l) {
+      nt.ksplit[l] = p[l];
+      nt.bulk[l] = p[L + l];
+      nt.w_off[l] = p[2 * L + l];
+      nt.hf_off[l] = p[4 * L + 1 + l];
+    }
+    for (int l = 0; l <= L; ++l) nt.x_off[l] = p[3 * L + l];
+    p += 5 * L + 1;
+    for (int l = 0; l <= L && ok; ++l) {
+      const int d = nt.dims[l];
+      if (slice_width(d, C) > a.smax || (l < L && (d + 3) / 4 * 4 > a.kmax)) ok = false;
+      ok = ok && region(nt.x_off[l], bm * slice_width(d, C), 4);
+    }
+    for (int l = 0; l < L && ok; ++l) {
+      const int K = nt.dims[l], N = nt.dims[l + 1];
+      if (nt.ksplit[l] && (N > a.pmax || !region(nt.hf_off[l], bm * a.pmax, 4))) ok = false;
+      if (!ok) break;
+      if (ln.resident) {
+        const int extent = nt.ksplit[l] ? slice_width(K, C) * N : tma_boxes(K) * tma_rows(K) * slice_width(N, C);
+        ok = region(nt.w_off[l], extent, 32);
+        if (nt.bulk[l] && (N % 4 != 0 || ((size_t)nt.w[l] & 15) != 0 || (!nt.ksplit[l] && slice_width(N, C) > 256)))
+          ok = false;
+        if (ok && nt.bulk[l] && !nt.ksplit[l]) {
+          const int rc = weight_map(&maps.m[ni * MAX_LAYERS + l], nt.w[l], K, N, C);
+          if (rc != 0) return rc;
+        }
+      } else if (nt.bulk[l]) {
+        ok = false;
+      }
+    }
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_reg; ++i) {
+    if (4 * (off[i] + len[i]) > smem) return (int)cudaErrorInvalidValue;
+    for (int j = 0; j < i; ++j)
+      if (len[i] > 0 && len[j] > 0 && off[i] < off[j] + len[j] && off[j] < off[i] + len[i])
+        return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
-size_t critic_smem_granted = 48 * 1024;
-size_t actor_smem_granted = 48 * 1024;
+// The chain kernels by rows per block and resident W, launched as clusters.
+template <int MODE>
+int launch_chain(const StepArgs& a, const WeightMaps& maps, const Launch& ln, const float* deltas, const float* zs,
+                 const float* hyper, const int* phase, int qat, int fxp32_phase1, float q_max, cudaStream_t s) {
+  const dim3 grid(ln.n_clusters * ln.C), block(THREADS), cluster(ln.C, 1, 1);
+#define FXP_STEP_LAUNCH(KERNEL, BM, RES)                                                                        \
+  fxp::launch_cluster(KERNEL<BM, RES>, grid, block, ln.smem, cluster, s, a, maps, deltas, zs, hyper, phase, qat, \
+                      fxp32_phase1, q_max)
+#define FXP_STEP_PICK(KERNEL)                                                                               \
+  (ln.bm == 16 ? (ln.resident ? FXP_STEP_LAUNCH(KERNEL, 16, true) : FXP_STEP_LAUNCH(KERNEL, 16, false)) \
+               : (ln.resident ? FXP_STEP_LAUNCH(KERNEL, 8, true) : FXP_STEP_LAUNCH(KERNEL, 8, false)))
+  if (MODE == TARGET) return FXP_STEP_PICK(ddpg_target_kernel);
+  if (MODE == CRITIC) return FXP_STEP_PICK(ddpg_critic_kernel);
+  return FXP_STEP_PICK(ddpg_actor_kernel);
+#undef FXP_STEP_PICK
+#undef FXP_STEP_LAUNCH
+}
 
 }  // namespace
 
@@ -669,11 +1203,14 @@ size_t actor_smem_granted = 48 * 1024;
 // and L ints.  deltas/zs (2L,) (actor sites, then critic sites) or null
 // when qat == 0; hyper (12,) float32 and phase (1,) int32 on the device.
 // qs[l] (M, K_l) and gs[l] (M, N_l) are scratch for the trained net.
-// Every array float32, contiguous, on the current device.  Each launches
-// its two passes on `stream` and returns cudaGetLastError() (or
-// cudaErrorInvalidValue for arguments the kernels do not take).
+// Every array float32, contiguous, on the current device.  Plans as
+// `kernel.step_plan` computes them (`_c_step_plan`).  Each launches its
+// passes on `stream` and returns 0 or a CUDA error code
+// (cudaErrorInvalidValue for arguments the kernels do not take,
+// fxp::kErrClusterUnschedulable for a cluster shape the card cannot run).
 
-// Kernel 4: mins/maxs (ceil(M/8), L), part (ceil(M/8), 2).
+// Kernel 4: mins/maxs (n_clusters of plan_c, L), part (n_clusters, 2);
+// y (M,) scratch for the TD target.
 extern "C" int fxp_ddpg_step_critic_launch(
     const float* obs, const float* action, const float* reward, const float* done,
     const float* w, const float* next_obs, int M, int obs_dim, int act_dim,
@@ -682,58 +1219,60 @@ extern "C" int fxp_ddpg_step_critic_launch(
     void* const* out_m, void* const* out_v, void* const* out_t, const int* actor_dims,
     const int* actor_acts, const int* critic_dims, const int* critic_acts, int n_layers,
     const float* deltas, const float* zs, const float* hyper, const int* phase, void* const* qs,
-    void* const* gs, float* mins, float* maxs, float* part, int qat, int fxp32_phase1,
-    int fxp_weights, int n_bits, void* stream) {
+    void* const* gs, float* mins, float* maxs, float* part, float* y, const int* plan_t, const int* plan_c, int qat,
+    int fxp32_phase1, int fxp_weights, int n_bits, void* stream) {
   const int L = n_layers;
   if (L < 1 || L > MAX_LAYERS || M <= 0 || n_bits < 1 || n_bits > 24) return (int)cudaErrorInvalidValue;
-  if ((qat && (!deltas || !zs)) || !hyper || !phase) return (int)cudaErrorInvalidValue;
+  if ((qat && (!deltas || !zs)) || !hyper || !phase || !y) return (int)cudaErrorInvalidValue;
   if (actor_dims[0] != obs_dim || actor_dims[L] != act_dim || critic_dims[0] != obs_dim + act_dim)
     return (int)cudaErrorInvalidValue;
-  CriticArgs a = {};
-  if (!fill_net(a.actor_t, actor_t, actor_dims, actor_acts, L) ||
-      !fill_net(a.critic_t, critic_t, critic_dims, critic_acts, L) ||
-      !fill_net(a.critic, critic, critic_dims, critic_acts, L))
-    return (int)cudaErrorInvalidValue;
-  a.obs = obs;
-  a.action = action;
-  a.reward = reward;
-  a.done = done;
-  a.w = w;
-  a.next_obs = next_obs;
-  for (int l = 0; l < L; ++l) {
-    a.q[l] = static_cast<float*>(qs[l]);
-    a.g[l] = static_cast<float*>(gs[l]);
+  StepArgs at = {}, ac = {};
+  StepArgs* both[2] = {&at, &ac};
+  for (StepArgs* s : both) {
+    s->n_layers = L;
+    s->obs = obs;
+    s->action = action;
+    s->reward = reward;
+    s->done = done;
+    s->roww = w;
+    s->next_obs = next_obs;
+    s->y = y;
+    s->mins = mins;
+    s->maxs = maxs;
+    s->part = part;
+    s->obs_dim = obs_dim;
+    s->act_dim = act_dim;
+    s->M = M;
   }
-  a.mins = mins;
-  a.maxs = maxs;
-  a.part = part;
-  a.n_layers = L;
-  a.obs_dim = obs_dim;
-  a.act_dim = act_dim;
-  a.M = M;
-  const int aw = max_width(actor_dims, L), cw = max_width(critic_dims, L);
-  a.maxw = aw > cw ? aw : cw;
-  int floats = 2 * (obs_dim + act_dim) + 4 * a.maxw;
-  for (int l = 1; l <= L; ++l) floats += critic_dims[l];
-  const size_t smem = (size_t)BM * floats * sizeof(float);
-  UpdateArgs u = {};
-  if (!fill_update(u, qs, gs, critic, critic_m, critic_v, critic_t, out_p, out_m, out_v, out_t,
-                   critic_dims, L))
+  at.n_nets = 2;
+  ac.n_nets = 1;
+  if (!fill_net(at.net[0], actor_t, actor_dims, actor_acts, L, 0) ||
+      !fill_net(at.net[1], critic_t, critic_dims, critic_acts, L, L) ||
+      !fill_net(ac.net[0], critic, critic_dims, critic_acts, L, L))
     return (int)cudaErrorInvalidValue;
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(critic_chain_kernel, smem, critic_smem_granted);
-  if (err != cudaSuccess) return (int)err;
-  const Sites st = {deltas, zs, qat, fxp32_phase1, (float)((1 << n_bits) - 1)};
+  for (int l = 0; l < L; ++l) {
+    ac.q[l] = static_cast<float*>(qs[l]);
+    ac.g[l] = static_cast<float*>(gs[l]);
+  }
+  WeightMaps mt = {}, mc = {};
+  Launch lt, lc;
+  int rc = read_plan(plan_t, at, mt, lt);
+  if (rc == 0) rc = read_plan(plan_c, ac, mc, lc);
+  if (rc != 0) return rc;
+  UpdateArgs u = {};
+  if (!fill_update(u, qs, gs, critic, critic_m, critic_v, critic_t, out_p, out_m, out_v, out_t, critic_dims, L))
+    return (int)cudaErrorInvalidValue;
+  const float q_max = (float)((1 << n_bits) - 1);
   const cudaStream_t s = (cudaStream_t)stream;
-  critic_chain_kernel<<<(M + BM - 1) / BM, THREADS, smem, s>>>(a, st, hyper, phase);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  rc = launch_chain<TARGET>(at, mt, lt, deltas, zs, hyper, phase, qat, fxp32_phase1, q_max, s);
+  if (rc == 0) rc = launch_chain<CRITIC>(ac, mc, lc, deltas, zs, hyper, phase, qat, fxp32_phase1, q_max, s);
+  if (rc != 0) return rc;
   reduce_update_kernel<<<u.tile0[L], THREADS, 0, s>>>(u, hyper, fxp_weights, M);
   return (int)cudaGetLastError();
 }
 
-// Kernel 5: critic is the updated critic; mins/maxs (ceil(M/8), 2L),
-// part (ceil(M/8), 1).
+// Kernel 5: critic is the updated critic; mins/maxs (n_clusters, 2L),
+// part (n_clusters, 1).
 extern "C" int fxp_ddpg_step_actor_launch(
     const float* obs, const float* w, int M, int obs_dim, int act_dim, const void* const* actor,
     const void* const* actor_m, const void* const* actor_v, const void* const* actor_t,
@@ -741,19 +1280,21 @@ extern "C" int fxp_ddpg_step_actor_launch(
     const void* const* critic, const int* actor_dims, const int* actor_acts,
     const int* critic_dims, const int* critic_acts, int n_layers, const float* deltas,
     const float* zs, const float* hyper, const int* phase, void* const* qs, void* const* gs,
-    float* mins, float* maxs, float* part, int qat, int fxp32_phase1, int fxp_weights, int n_bits,
+    float* mins, float* maxs, float* part, const int* plan, int qat, int fxp32_phase1, int fxp_weights, int n_bits,
     void* stream) {
   const int L = n_layers;
   if (L < 1 || L > MAX_LAYERS || M <= 0 || n_bits < 1 || n_bits > 24) return (int)cudaErrorInvalidValue;
   if ((qat && (!deltas || !zs)) || !hyper || !phase) return (int)cudaErrorInvalidValue;
   if (actor_dims[0] != obs_dim || actor_dims[L] != act_dim || critic_dims[0] != obs_dim + act_dim)
     return (int)cudaErrorInvalidValue;
-  ActorArgs a = {};
-  if (!fill_net(a.actor, actor, actor_dims, actor_acts, L) ||
-      !fill_net(a.critic, critic, critic_dims, critic_acts, L))
+  StepArgs a = {};
+  a.n_nets = 2;
+  a.n_layers = L;
+  if (!fill_net(a.net[0], actor, actor_dims, actor_acts, L, 0) ||
+      !fill_net(a.net[1], critic, critic_dims, critic_acts, L, L))
     return (int)cudaErrorInvalidValue;
   a.obs = obs;
-  a.w = w;
+  a.roww = w;
   for (int l = 0; l < L; ++l) {
     a.q[l] = static_cast<float*>(qs[l]);
     a.g[l] = static_cast<float*>(gs[l]);
@@ -761,32 +1302,62 @@ extern "C" int fxp_ddpg_step_actor_launch(
   a.mins = mins;
   a.maxs = maxs;
   a.part = part;
-  a.n_layers = L;
   a.obs_dim = obs_dim;
   a.act_dim = act_dim;
   a.M = M;
-  const int aw = max_width(actor_dims, L), cw = max_width(critic_dims, L);
-  a.maxw = aw > cw ? aw : cw;
-  int floats = (obs_dim + act_dim) + 2 * a.maxw;
-  for (int l = 1; l < L; ++l) floats += actor_dims[l];
-  for (int l = 1; l <= L; ++l) floats += critic_dims[l];
-  const size_t smem = (size_t)BM * floats * sizeof(float);
+  WeightMaps maps = {};
+  Launch ln;
+  int rc = read_plan(plan, a, maps, ln);
+  if (rc != 0) return rc;
   UpdateArgs u = {};
-  if (!fill_update(u, qs, gs, actor, actor_m, actor_v, actor_t, out_p, out_m, out_v, out_t,
-                   actor_dims, L))
+  if (!fill_update(u, qs, gs, actor, actor_m, actor_v, actor_t, out_p, out_m, out_v, out_t, actor_dims, L))
     return (int)cudaErrorInvalidValue;
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(actor_chain_kernel, smem, actor_smem_granted);
-  if (err != cudaSuccess) return (int)err;
-  const Sites st = {deltas, zs, qat, fxp32_phase1, (float)((1 << n_bits) - 1)};
   const cudaStream_t s = (cudaStream_t)stream;
-  actor_chain_kernel<<<(M + BM - 1) / BM, THREADS, smem, s>>>(a, st, hyper, phase);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  rc = launch_chain<ACTOR>(a, maps, ln, deltas, zs, hyper, phase, qat, fxp32_phase1, (float)((1 << n_bits) - 1), s);
+  if (rc != 0) return rc;
   reduce_update_kernel<<<u.tile0[L], THREADS, 0, s>>>(u, hyper, fxp_weights, M);
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* fxp_ddpg_step_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+// How many clusters of `cluster` blocks with `smem` bytes of dynamic shared
+// memory the card can hold at once (cudaOccupancyMaxActiveClusters) for the
+// chain kernel of `mode` (0 target, 1 critic, 2 actor) with bm rows and
+// resident weights or not; negative: a CUDA error code.  A diagnostic for
+// the launch plan.
+extern "C" int fxp_ddpg_step_max_clusters(int mode, int bm, int cluster, int smem, int resident) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  auto query = [&](auto kernel) -> int {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 fxp::kMaxSmem - (int)fa.sharedSizeBytes);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    int n = 0;
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return -(int)err;
+    }
+    return n;
+  };
+#define FXP_STEP_QUERY(KERNEL)                                                                                  \
+  (bm == 16 ? (resident ? query(KERNEL<16, true>) : query(KERNEL<16, false>))                                   \
+            : (resident ? query(KERNEL<8, true>) : query(KERNEL<8, false>)))
+  if (mode == TARGET) return FXP_STEP_QUERY(ddpg_target_kernel);
+  if (mode == CRITIC) return FXP_STEP_QUERY(ddpg_critic_kernel);
+  return FXP_STEP_QUERY(ddpg_actor_kernel);
+#undef FXP_STEP_QUERY
 }
+
+extern "C" const char* fxp_ddpg_step_error_string(int code) { return fxp::error_string(code); }

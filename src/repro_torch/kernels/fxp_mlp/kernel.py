@@ -15,14 +15,20 @@
   whole DDPG update (`csrc/fxp_ddpg_step.cu`; replace
   `ddpg_critic_step_pallas` → `_ddpg_critic_step_kernel` and
   `ddpg_actor_step_pallas` → `_ddpg_actor_step_kernel`): forwards,
-  cotangent chain, dW/db, Adam and the Polyak update, two CUDA launches
-  each (the chain over row blocks, then the reduction and optimizer over
-  parameter tiles), deterministic.  Bound ≈ 4.0 / 3.5 µs (f32 operations,
-  monitor phase, B = 128); design in the source's header.
+  cotangent chain, dW/db, Adam and the Polyak update, deterministic.  The
+  chain runs on thread-block clusters with the nets' weight slices
+  resident, as kernel B's forward, and carries the backward on the same
+  slices; `step_plan` is its launch plan (pure Python), one row of
+  monitors and loss partials per cluster (`step_monitor_rows`).  Kernel 4
+  is three CUDA launches (its target pass, its critic pass, then the
+  reduction and optimizer over parameter tiles), kernel 5 two.  Bound
+  ≈ 4.0 / 3.5 µs (f32 operations, monitor phase, B = 128); design in the
+  source's header.
 
 All take unpadded CUDA tensors, launch on PyTorch's current stream without
 synchronising, and count their calls in `<wrapper>.launches` (one per
-call; the backward's and the steps' calls are two CUDA launches each).
+call; the backward's calls are two CUDA launches, the steps' three and
+two).
 They never fall back: a tensor a kernel does not take, or a refused
 launch, raises.
 """
@@ -30,6 +36,7 @@ launch, raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -54,7 +61,7 @@ BWD_ROWS = 8  # csrc/fxp_mlp_bwd.cu BM: rows per block of the chain pass
 # (cudaOccupancyMaxActiveClusters on an H100 80GB HBM3: its GPCs hold 15
 # clusters of 8, not 132 // 8 = 16; `chip_smoke.py` reports the query).
 CLUSTER_SLOTS = {4: 30, 8: 15, 16: 7}
-STATIC_SMEM = 1024  # csrc/fxp_mlp_fwd.cu STATIC_SMEM: kept back for static shared memory
+STATIC_SMEM = 1024  # csrc/fxp_{mlp_fwd,ddpg_step}.cu STATIC_SMEM: kept back for static shared memory
 KSPLIT_MAX_N = 8  # a layer this narrow sums K slices across the cluster
 
 
@@ -156,6 +163,165 @@ def monitor_rows(m: int, dims: Sequence[int]) -> int:
     """Rows of kernel B's mins/maxs outputs for m rows through `dims`: one
     per cluster of the grid."""
     return mlp_plan(m, dims).n_clusters
+
+
+class StepPlan(NamedTuple):
+    """The launch plan of one chain pass of kernels 4 and 5
+    (csrc/fxp_ddpg_step.cu's header): rows per block, blocks per cluster,
+    clusters in the grid, whether the weights are resident in shared
+    memory, the copies of the limb buffers, the row strides (kmax the whole
+    layer input, smax a slice, pmax a K-split layer's outputs, rmax a
+    reduction's rows, gmax a cotangent share), per net and layer whether it
+    splits K, and the shared-memory layout in floats: the W slices, the
+    limb buffers (which the backward's reductions reuse), the K-split
+    partials, two cotangent buffers, each layer input's own slice (and the
+    last output's, x_off[L]) and each K-split layer's whole output
+    (hf_off, -1 where none); smem in bytes."""
+
+    bm: int
+    cluster: int
+    n_clusters: int
+    resident: bool
+    nbuf: int
+    kmax: int
+    smax: int
+    pmax: int
+    rmax: int
+    gmax: int
+    ksplit: tuple
+    w_off: tuple
+    x_off: tuple
+    hf_off: tuple
+    full_off: int
+    part_off: int
+    g_off: tuple
+    smem: int
+
+
+# The nets each chain pass keeps resident, in order: kernel 4's target pass
+# (target actor, target critic) and its critic pass, kernel 5's pass.
+STEP_NETS = {"target": ("actor", "critic"), "critic": ("critic",), "actor": ("actor", "critic")}
+STEP_ROWS = (8, 16)  # rows per block the kernel is built for
+
+
+def _step_layout(bm: int, c: int, nets: Sequence[Sequence[int]], resident: bool, nbuf: int) -> StepPlan:
+    ksplit = tuple(tuple(n <= KSPLIT_MAX_N for n in dims[1:]) for dims in nets)
+    all_dims = [d for dims in nets for d in dims]
+    kmax = round_up(max(d for dims in nets for d in dims[:-1]), 4)
+    smax = max(slice_width(d, c) for d in all_dims)
+    pmax = round_up(max([n for dims, ks in zip(nets, ksplit) for n, k in zip(dims[1:], ks) if k], default=0), 4)
+    rmax = gmax = max(smax, pmax)
+    end, w_off = 0, []
+    for dims, ks in zip(nets, ksplit):
+        offs = []
+        for (k, n), split in zip(zip(dims[:-1], dims[1:]), ks):
+            offs.append(end)
+            if resident:
+                end += _w_extent(k, n, c, split)
+        w_off.append(tuple(offs))
+    full_off = end
+    end += max(nbuf * 2 * bm * kmax, 2 * c * bm * rmax)
+    part_off = end
+    end += 2 * bm * pmax
+    g_off = (end, end + bm * gmax)
+    end += 2 * bm * gmax
+    x_off, hf_off = [], []
+    for dims, ks in zip(nets, ksplit):
+        xs, hs = [], []
+        for d in dims:
+            xs.append(end)
+            end += bm * slice_width(d, c)
+        for split in ks:
+            hs.append(end if split else -1)
+            end += bm * pmax if split else 0
+        x_off.append(tuple(xs))
+        hf_off.append(tuple(hs))
+    return StepPlan(bm, c, 0, resident, nbuf, kmax, smax, pmax, rmax, gmax, ksplit, tuple(w_off), tuple(x_off),
+                    tuple(hf_off), full_off, part_off, g_off, 4 * end)
+
+
+def _step_refused(actor_dims: Sequence[int], critic_dims: Sequence[int], which: str) -> int:
+    """Shared-memory bytes the chain pass kernels 4 and 5 had before
+    clusters (8 rows a block, W from L2) asked for; they refused a shape past
+    MAX_SMEM.  Kernel 4 (passes "target" and "critic") and kernel 5."""
+    maxw = max(*actor_dims, *critic_dims)
+    c0 = critic_dims[0]
+    if which == "actor":
+        floats = c0 + 2 * maxw + sum(actor_dims[1:-1]) + sum(critic_dims[1:])
+    else:
+        floats = 2 * c0 + 4 * maxw + sum(critic_dims[1:])
+    return 8 * floats * 4  # 8 rows a block
+
+
+def step_plan(m: int, actor_dims: Sequence[int], critic_dims: Sequence[int], which: str) -> StepPlan:
+    """The launch plan of one chain pass of kernels 4 and 5 (`_step_plan`),
+    kept per shape: the wrappers ask for it at every update."""
+    return _step_plan(int(m), tuple(map(int, actor_dims)), tuple(map(int, critic_dims)), which)
+
+
+@functools.lru_cache(maxsize=256)
+def _step_plan(m: int, actor_dims: tuple, critic_dims: tuple, which: str) -> StepPlan:
+    """The launch plan of one chain pass of kernels 4 and 5 for a batch of m
+    rows (`which`: "target" or "critic", kernel 4's two passes; "actor",
+    kernel 5's).  Each row block runs on a thread-block cluster whose
+    blocks split every layer's columns (N > 8) or K (N ≤ 8), the pass's
+    nets resident in shared memory.  Prefers the plan that runs every row
+    block in one wave of clusters (`CLUSTER_SLOTS`) with the fewest rows
+    and blocks: 8 rows on clusters of 8, of 4, then 16 rows on clusters of
+    8, of 4, then clusters of 16; else the fewest waves of persistent
+    clusters.  Where no resident layout fits, the streamed-W instance of
+    the same kernel (W read from L2) on clusters of 8.  Raises ValueError
+    for the shapes the kernel takes no more than before: a batch of 0, an
+    empty layer, more than STEP_MAX_LAYERS layers, a critic input that is
+    not (obs, action), or widths whose row-block buffers the kernels
+    without clusters could not hold (`_step_refused`)."""
+    if which not in STEP_NETS:
+        raise ValueError(f"unknown chain pass {which!r}; expected one of {list(STEP_NETS)}")
+    a, cr = list(actor_dims), list(critic_dims)
+    if (m < 1 or len(a) != len(cr) or not 2 <= len(a) <= STEP_MAX_LAYERS + 1 or min(a + cr) < 1
+            or cr[0] != a[0] + a[-1]):
+        raise ValueError(f"no plan for {m} rows through actor {a} and critic {cr}")
+    need = _step_refused(a, cr, "actor" if which == "actor" else "critic")
+    if need > MAX_SMEM:
+        raise ValueError(f"layer widths need {need} B of shared memory (> {MAX_SMEM})")
+    nets = [a if name == "actor" else cr for name in STEP_NETS[which]]
+    limit = MAX_SMEM - STATIC_SMEM
+    order = [(8, 8), (8, 4), (16, 8), (16, 4), (8, 16), (16, 16)]
+    fits = []
+    for bm, c in order:
+        layout = next((p for p in (_step_layout(bm, c, nets, True, nbuf) for nbuf in (2, 1)) if p.smem <= limit),
+                      None)
+        if layout is not None:
+            fits.append(layout._replace(n_clusters=min(-(-m // bm), CLUSTER_SLOTS[c])))
+    if fits:
+        def waves(p: StepPlan) -> int:  # row blocks a cluster walks
+            return -(-(-(-m // p.bm)) // p.n_clusters)
+
+        return min(fits, key=waves)  # the first of the fewest waves
+    plan = next((p for p in (_step_layout(8, 8, nets, False, nbuf) for nbuf in (2, 1)) if p.smem <= limit), None)
+    if plan is None:
+        raise AssertionError(f"no kernel 4/5 layout fits for actor {a}, critic {cr}")
+    return plan._replace(n_clusters=min(-(-m // 8), CLUSTER_SLOTS[8]))
+
+
+def step_monitor_rows(m: int, actor_dims: Sequence[int], critic_dims: Sequence[int], which: str) -> int:
+    """Rows of a chain pass's mins/maxs and loss partials: one per cluster
+    (kernel 4's come from its "critic" pass, kernel 5's from "actor")."""
+    return step_plan(m, actor_dims, critic_dims, which).n_clusters
+
+
+def _c_step_plan(plan: StepPlan, trees) -> ctypes.Array:
+    """A plan as the ints the launch function reads, with each layer's bulk
+    flag (its resident slice loads with bulk copies: W's width a multiple
+    of 4, W 16-byte aligned, a tensor box at most 256 columns wide)."""
+    head = [plan.bm, plan.cluster, plan.n_clusters, int(plan.resident), plan.nbuf, plan.kmax, plan.smax, plan.pmax,
+            plan.rmax, plan.gmax, plan.full_off, plan.part_off, *plan.g_off, plan.smem, len(plan.ksplit)]
+    body = []
+    for ws, ks, wo, xo, ho in zip(trees, plan.ksplit, plan.w_off, plan.x_off, plan.hf_off):
+        bulk = [int(plan.resident and w.shape[1] % 4 == 0 and w.data_ptr() % 16 == 0
+                    and (k or slice_width(int(w.shape[1]), plan.cluster) <= 256)) for w, k in zip(ws, ks)]
+        body += [*map(int, ks), *bulk, *wo, *xo, *ho]
+    return (ctypes.c_int * (len(head) + len(body)))(*head, *body)
 
 
 def _launcher():
@@ -409,14 +575,13 @@ def fxp_mlp_bwd_cuda(
 fxp_mlp_bwd_cuda.launches = 0
 
 
-def _step_launcher(name: str, n_ptrs_head: int, n_trees: int):
+def _step_launcher(name: str, n_ptrs_head: int, n_trees: int, n_plans: int):
     lib = _build.load(LIB_STEP)
     fn = getattr(lib, f"fxp_ddpg_step_{name}_launch")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = (
-            [p] * n_ptrs_head + [i] * 3 + [p] * n_trees + [p] * 4 + [i] + [p] * 9 + [i] * 4 + [p]
-        )
+        fn.argtypes = ([p] * n_ptrs_head + [i] * 3 + [p] * n_trees + [p] * 4 + [i] + [p] * 9 + [p] * n_plans
+                       + [i] * 4 + [p])
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -501,8 +666,9 @@ def ddpg_critic_step_cuda(
     sites, then critic sites; read only when qat); hyper (12,) the step's
     scalars (`ref.HYPER_LEN` layout); phase (1,) int32.  All contiguous
     float32 (phase int32) on the current CUDA device.  Returns (critic,
-    critic_m, critic_v, critic_t) as new trees, then mins/maxs
-    (n_blocks, L) and partials (n_blocks, 2) = per block [Σ w(q−y)², Σ w·y].
+    critic_m, critic_v, critic_t) as new trees, then mins/maxs (R, L) and
+    partials (R, 2) = per cluster [Σ w(q−y)², Σ w·y], R =
+    `step_monitor_rows(B, actor_dims, critic_dims, "critic")`.
     """
     dev = obs.device
     m = int(obs.shape[0])
@@ -518,15 +684,17 @@ def ddpg_critic_step_cuda(
     for name, tree in (("critic", critic), ("critic_t", critic_t), ("critic_m", critic_m), ("critic_v", critic_v)):
         _check_tree(tree, c_dims, name, dev)
     _check_step_common(deltas, zs, hyper, phase, n_layers, qat, n_bits, dev)
+    plan_t = step_plan(m, a_dims, c_dims, "target")
+    plan_c = step_plan(m, a_dims, c_dims, "critic")
     outs = _new_trees(critic)
-    n_blocks = -(-m // BWD_ROWS)
-    mins = torch.empty((n_blocks, n_layers), dtype=torch.float32, device=dev)
+    mins = torch.empty((plan_c.n_clusters, n_layers), dtype=torch.float32, device=dev)
     maxs = torch.empty_like(mins)
-    part = torch.empty((n_blocks, 2), dtype=torch.float32, device=dev)
+    part = torch.empty((plan_c.n_clusters, 2), dtype=torch.float32, device=dev)
+    y = torch.empty((m,), dtype=torch.float32, device=dev)  # the TD target, from the target pass to the critic pass
     qs = [torch.empty((m, k), dtype=torch.float32, device=dev) for k in c_dims[:-1]]
     gs = [torch.empty((m, n), dtype=torch.float32, device=dev) for n in c_dims[1:]]
     codes = lambda acts: (ctypes.c_int * n_layers)(*[ACTIVATION_CODES[a] for a in acts])  # noqa: E731
-    lib, fn = _step_launcher("critic", 6, 9)
+    lib, fn = _step_launcher("critic", 6, 9, 3)
     rc = fn(
         obs.data_ptr(), action.data_ptr(), reward.data_ptr(), done.data_ptr(), w.data_ptr(), next_obs.data_ptr(),
         m, obs_dim, act_dim,
@@ -535,15 +703,22 @@ def ddpg_critic_step_cuda(
         (ctypes.c_int * (n_layers + 1))(*c_dims), codes(critic_acts), n_layers,
         deltas.data_ptr() if qat else None, zs.data_ptr() if qat else None, hyper.data_ptr(), phase.data_ptr(),
         _ptrs(qs), _ptrs(gs), mins.data_ptr(), maxs.data_ptr(), part.data_ptr(),
+        y.data_ptr(), _c_step_plan(plan_t, [actor_t[0], critic_t[0]]), _c_step_plan(plan_c, [critic[0]]),
         int(bool(qat)), int(bool(fxp32_phase1)), int(bool(fxp_weights)), n_bits,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch(lib, LIB_STEP, rc)
     ddpg_critic_step_cuda.launches += 1
+    if ddpg_critic_step_cuda.keep_scratch:
+        ddpg_critic_step_cuda.scratch = (qs, gs)
     return (*outs, mins, maxs, part)
 
 
 ddpg_critic_step_cuda.launches = 0
+# with keep_scratch, each call leaves its product inputs and cotangents (qs,
+# gs: what pass 2 reduced) in .scratch, for a check to read
+ddpg_critic_step_cuda.keep_scratch = False
+ddpg_critic_step_cuda.scratch = None
 
 
 def ddpg_actor_step_cuda(
@@ -570,8 +745,9 @@ def ddpg_actor_step_cuda(
     updated `critic`.  obs (B, O), w (B,); trees (ws, bs): the actor, its
     Adam moments, its target, and the critic; the rest as for
     `ddpg_critic_step_cuda`.  Returns (actor, actor_m, actor_v, actor_t) as
-    new trees, then mins/maxs (n_blocks, 2L) (actor sites, then the critic
-    sites of this pass) and partials (n_blocks, 1) = per block Σ w·q."""
+    new trees, then mins/maxs (R, 2L) (actor sites, then the critic sites of
+    this pass) and partials (R, 1) = per cluster Σ w·q, R =
+    `step_monitor_rows(B, actor_dims, critic_dims, "actor")`."""
     dev = obs.device
     m = int(obs.shape[0])
     obs_dim = int(obs.shape[1])
@@ -586,15 +762,15 @@ def ddpg_actor_step_cuda(
         _check_tree(tree, a_dims, name, dev)
     _check_tree(critic, c_dims, "critic", dev)
     _check_step_common(deltas, zs, hyper, phase, n_layers, qat, n_bits, dev)
+    plan = step_plan(m, a_dims, c_dims, "actor")
     outs = _new_trees(actor)
-    n_blocks = -(-m // BWD_ROWS)
-    mins = torch.empty((n_blocks, 2 * n_layers), dtype=torch.float32, device=dev)
+    mins = torch.empty((plan.n_clusters, 2 * n_layers), dtype=torch.float32, device=dev)
     maxs = torch.empty_like(mins)
-    part = torch.empty((n_blocks, 1), dtype=torch.float32, device=dev)
+    part = torch.empty((plan.n_clusters, 1), dtype=torch.float32, device=dev)
     qs = [torch.empty((m, k), dtype=torch.float32, device=dev) for k in a_dims[:-1]]
     gs = [torch.empty((m, n), dtype=torch.float32, device=dev) for n in a_dims[1:]]
     codes = lambda acts: (ctypes.c_int * n_layers)(*[ACTIVATION_CODES[a] for a in acts])  # noqa: E731
-    lib, fn = _step_launcher("actor", 2, 9)
+    lib, fn = _step_launcher("actor", 2, 9, 1)
     rc = fn(
         obs.data_ptr(), w.data_ptr(), m, obs_dim, act_dim,
         *(_ptrs(_flat(t)) for t in (actor, actor_m, actor_v, actor_t, *outs, critic)),
@@ -602,15 +778,20 @@ def ddpg_actor_step_cuda(
         (ctypes.c_int * (n_layers + 1))(*c_dims), codes(critic_acts), n_layers,
         deltas.data_ptr() if qat else None, zs.data_ptr() if qat else None, hyper.data_ptr(), phase.data_ptr(),
         _ptrs(qs), _ptrs(gs), mins.data_ptr(), maxs.data_ptr(), part.data_ptr(),
+        _c_step_plan(plan, [actor[0], critic[0]]),
         int(bool(qat)), int(bool(fxp32_phase1)), int(bool(fxp_weights)), n_bits,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch(lib, LIB_STEP, rc)
     ddpg_actor_step_cuda.launches += 1
+    if ddpg_actor_step_cuda.keep_scratch:
+        ddpg_actor_step_cuda.scratch = (qs, gs)
     return (*outs, mins, maxs, part)
 
 
 ddpg_actor_step_cuda.launches = 0
+ddpg_actor_step_cuda.keep_scratch = False  # as ddpg_critic_step_cuda's
+ddpg_actor_step_cuda.scratch = None
 
 
 __all__ = [
@@ -621,6 +802,9 @@ __all__ = [
     "row_block",
     "mlp_plan",
     "monitor_rows",
+    "step_plan",
+    "step_monitor_rows",
+    "StepPlan",
     "slice_width",
     "MlpPlan",
     "MAX_LAYERS",

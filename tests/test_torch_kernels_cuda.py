@@ -214,10 +214,27 @@ def test_fxp_mlp_train_on_the_card_launches_both_kernels(dev):
 
 STEP_ACTS = (("relu", "relu", "tanh"), ("relu", "relu", "none"))
 # (atol, rtol) of params, mu, nu, targets in both phases: the monitor-phase
-# contract of tests/test_torch_ddpg_step.py.  One step at Adam lr 1e-4 moves
-# a param by a few quanta and a target by about τ·(p − t), so a looser bound
-# could not tell a step from none.
+# contract of tests/test_torch_ddpg_step.py, mu and nu widened leaf by leaf
+# by the flip slack (chip_smoke.py `_step_slack`, `_step_atol`).  One step
+# at Adam lr 1e-4 moves a param by a few quanta and a target by about
+# τ·(p − t), so a looser bound could not tell a step from none.
 STEP_TOL = [(2.0**-16, 0.0), (2e-6, 1e-4), (1e-7, 1e-4), (1e-6, 0.0)]
+# the chain passes' plan edges (chip_smoke.py STEP_PLAN_BATCHES), a fifth
+# of the rows masked
+STEP_EDGES = [(b, b // 5) for b in (1, 8, 9, 16, 17, 120, 121, 241, 511)]
+
+
+def _smoke():
+    """chip_smoke.py, the card check, for its fused-step case builder and
+    the flip slack."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _step_operands(dev, batch, masked, dims=(17, 6, (400, 300))):
@@ -249,22 +266,38 @@ def _step_operands(dev, batch, masked, dims=(17, 6, (400, 300))):
         "actor": tree(a_dims), "actor_t": tree(a_dims), "actor_m": am, "actor_v": vtree(am),
         "critic": tree(c_dims), "critic_t": tree(c_dims), "critic_m": cm, "critic_v": vtree(cm),
     }
-    d, z = affine_params(-(torch.rand(6, generator=gen) * 3 + 1), torch.rand(6, generator=gen) * 3 + 1, 16)
+    n_sites = 2 * (len(hid) + 1)
+    d, z = affine_params(-(torch.rand(n_sites, generator=gen) * 3 + 1), torch.rand(n_sites, generator=gen) * 3 + 1, 16)
     case["deltas"], case["zs"] = d.to(dev), z.to(torch.float32).to(dev)
     c = adam.step_constants(adam.AdamConfig(), torch.tensor(5, dtype=torch.int32, device=dev))
     case["hyper"] = _hyper(1.0 / torch.clamp(case["w"].sum(), min=1.0), 0.99, 0.005, c)
     return case
 
 
-def _assert_step_close(got, want, inputs, phase, sum_w):
+def _assert_step_close(got, want, c, name, phase, critic=None, scratch=None):
+    """A kernel-4/5 result against its twin's: the trees at STEP_TOL (mu and
+    nu widened by how far the kernel's pass-2 operands, `scratch`, lie from
+    the twin's), extrema, loss partials; as many monitor rows as the plan
+    says."""
+    from repro_torch.kernels.fxp_mlp.kernel import step_monitor_rows
+
+    smoke = _smoke()
+    slack, grads, _, rows = smoke._step_slack(c, name, phase == "quant", critic, scratch)
+    inputs = [c[k] for k in (name, f"{name}_m", f"{name}_v", f"{name}_t")]
+    a_dims = [int(c["obs"].shape[1])] + [int(w.shape[1]) for w in c["actor"][0]]
+    c_dims = [int(c["critic"][0][0].shape[0])] + [int(w.shape[1]) for w in c["critic"][0]]
+    n_rows = step_monitor_rows(int(c["obs"].shape[0]), a_dims, c_dims, name)
+    assert got[4].shape[0] == got[5].shape[0] == got[6].shape[0] == n_rows
     # loss partials over Σw, the update's metrics: the reference's metric
     # contracts per phase (a sum of rows of both signs can cancel, so its
     # own relative error says little)
     p_rtol, p_atol = (1e-5, 1e-6) if phase == "monitor" else (1e-3, 1e-5)
-    for k, (atol, rtol) in enumerate(STEP_TOL):
+    for k, (tree, (atol, rtol)) in enumerate(zip(smoke.STEP_TOL, STEP_TOL)):
         moved = 0.0
-        for g, w, x in zip([*got[k][0], *got[k][1]], [*want[k][0], *want[k][1]], [*inputs[k][0], *inputs[k][1]]):
-            torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+        for g, w, x, a in zip([*got[k][0], *got[k][1]], [*want[k][0], *want[k][1]], [*inputs[k][0], *inputs[k][1]],
+                              smoke._step_atol(c, slack, grads, tree)):
+            err = (g.double() - w.double()).abs()
+            assert bool((err <= a + rtol * w.double().abs()).all()), (tree, float(err.max()))
             moved = max(moved, float((w - x).abs().max()))
         # the twin's step moves params, mu and targets past their bound, so a
         # tree left as it was fails; nu's one-step move, (1 − b2)·(g² − v),
@@ -272,29 +305,40 @@ def _assert_step_close(got, want, inputs, phase, sum_w):
         assert k == 2 or moved > atol, (k, moved)
     torch.testing.assert_close(got[4].amin(0), want[4][0], rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(got[5].amax(0), want[5][0], rtol=2e-5, atol=2e-5)
-    torch.testing.assert_close(got[6].sum(0) / sum_w, want[6][0] / sum_w, rtol=p_rtol, atol=p_atol)
+    sum_w = torch.clamp(c["w"].sum(), min=1.0).double()
+    one_row = smoke._one_row(c, rows, smoke.STEP_FLIP_EPS[phase]) / sum_w  # a row's flipped code, beside the contract
+    got_p, want_p = got[6].sum(0).double() / sum_w, want[6][0].double() / sum_w
+    assert bool(((got_p - want_p).abs() <= p_atol + one_row + p_rtol * want_p.abs()).all()), (got_p, want_p)
 
 
-@pytest.mark.parametrize("phase", ["monitor", "quant"])
-@pytest.mark.parametrize("batch,masked", [(7, 0), (128, 0), (200, 30)])
-def test_ddpg_step_kernels_match_twins_and_repeat_bitwise(dev, batch, masked, phase):
+def _step_kernels_hold(c, phase):
+    """Kernels 4 and 5 on case c: two calls bitwise equal, each against its
+    twin (kernel 5 through the twin's updated critic), one launch count a
+    call."""
     from repro_torch.kernels.fxp_mlp.kernel import ddpg_actor_step_cuda, ddpg_critic_step_cuda
     from repro_torch.kernels.fxp_mlp.ref import ref_ddpg_actor_step, ref_ddpg_critic_step
 
-    c = _step_operands(dev, batch, masked)
+    dev = c["obs"].device
     quant = phase == "quant"
     phase_t = torch.tensor([int(quant)], dtype=torch.int32, device=dev)
-    kw = dict(actor_acts=STEP_ACTS[0], critic_acts=STEP_ACTS[1], n_bits=16, qat=True, fxp32_phase1=True,
-              fxp_weights=True)
+    kw = c["kw"]
     c_args = (c["obs"], c["action"], c["reward"], c["done"], c["next_obs"], c["w"], c["actor_t"], c["critic"],
               c["critic_t"], c["critic_m"], c["critic_v"], c["deltas"], c["zs"], c["hyper"])
     before = (ddpg_critic_step_cuda.launches, ddpg_actor_step_cuda.launches)
-    got_c = ddpg_critic_step_cuda(*c_args, phase_t, **kw)
+
+    def first(kernel, args):  # a call that leaves its pass-2 operands behind
+        kernel.keep_scratch = True
+        try:
+            return kernel(*args, phase_t, **kw), kernel.scratch
+        finally:
+            kernel.keep_scratch, kernel.scratch = False, None
+
+    (got_c, scratch_c) = first(ddpg_critic_step_cuda, c_args)
     again_c = ddpg_critic_step_cuda(*c_args, phase_t, **kw)
     want_c = ref_ddpg_critic_step(*c_args, quant, **kw)
     a_args = (c["obs"], c["w"], c["actor"], c["actor_m"], c["actor_v"], c["actor_t"], want_c[0], c["deltas"],
               c["zs"], c["hyper"])
-    got_a = ddpg_actor_step_cuda(*a_args, phase_t, **kw)
+    (got_a, scratch_a) = first(ddpg_actor_step_cuda, a_args)
     again_a = ddpg_actor_step_cuda(*a_args, phase_t, **kw)
     want_a = ref_ddpg_actor_step(*a_args, quant, **kw)
     torch.cuda.synchronize()
@@ -302,9 +346,89 @@ def test_ddpg_step_kernels_match_twins_and_repeat_bitwise(dev, batch, masked, ph
     for got, again in ((got_c, again_c), (got_a, again_a)):
         flat = lambda out: [t for tr in out[:4] for half in tr for t in half] + list(out[4:])  # noqa: E731
         assert all(torch.equal(x, y) for x, y in zip(flat(got), flat(again)))
-    sum_w = torch.clamp(c["w"].sum(), min=1.0)
-    _assert_step_close(got_c, want_c, [c[k] for k in ("critic", "critic_m", "critic_v", "critic_t")], phase, sum_w)
-    _assert_step_close(got_a, want_a, [c[k] for k in ("actor", "actor_m", "actor_v", "actor_t")], phase, sum_w)
+    _assert_step_close(got_c, want_c, c, "critic", phase, scratch=scratch_c)
+    _assert_step_close(got_a, want_a, c, "actor", phase, want_c[0], scratch_a)
+
+
+STEP_KW = dict(actor_acts=STEP_ACTS[0], critic_acts=STEP_ACTS[1], n_bits=16, qat=True, fxp32_phase1=True,
+               fxp_weights=True)
+
+
+@pytest.mark.parametrize("phase", ["monitor", "quant"])
+@pytest.mark.parametrize("batch,masked", [(7, 0), (128, 0), (200, 30)] + STEP_EDGES)
+def test_ddpg_step_kernels_match_twins_and_repeat_bitwise(dev, batch, masked, phase):
+    """Kernels 4 and 5 at the training batch, a ragged multi-block batch
+    and their plans' edges (row blocks of 8 and 16, clusters of 8 and 4,
+    persistent clusters)."""
+    c = _step_operands(dev, batch, masked)
+    c["kw"] = STEP_KW
+    _step_kernels_hold(c, phase)
+
+
+# nets whose layers take the kernels' other paths: hidden layers that split
+# K (N ≤ 8), an action wide enough to split columns, one and four layers
+STEP_NET_SHAPES = {"cpu": (5, 2, (24, 16)), "narrow": (5, 2, (4, 3)), "wide_action": (11, 12, (64,)),
+                   "one_layer": (17, 6, ()), "four_layers": (17, 6, (64, 64, 64))}
+
+
+@pytest.mark.parametrize("phase", ["monitor", "quant"])
+@pytest.mark.parametrize("shape", STEP_NET_SHAPES)
+def test_ddpg_step_kernels_take_other_nets(dev, shape, phase):
+    """Kernels 4 and 5 on nets off the paper's shape, at a ragged
+    multi-block batch with masked rows."""
+    dims = STEP_NET_SHAPES[shape]
+    n_layers = len(dims[2]) + 1
+    c = _step_operands(dev, 17, 3, dims)
+    c["kw"] = dict(STEP_KW, actor_acts=("relu",) * (n_layers - 1) + ("tanh",),
+                   critic_acts=("relu",) * (n_layers - 1) + ("none",))
+    _step_kernels_hold(c, phase)
+
+
+@pytest.mark.parametrize("phase", ["monitor", "quant"])
+def test_ddpg_step_kernels_hold_the_relu_flip_case(dev, phase):
+    """The standing case of chip_smoke.py (`STEP_FLIP_STATE`): the inputs on
+    which kernel 5's first moments once landed two quanta from its twin's,
+    a ReLU decision at a pre-activation of −5.3e-7 going the other way."""
+    import numpy as np
+
+    smoke = _smoke()
+    gen = torch.Generator()
+    gen.set_state(torch.from_numpy(np.fromfile(smoke.STEP_FLIP_STATE, dtype=np.uint8)))
+    _step_kernels_hold(smoke._step_case(gen, dev, 200, 30), phase)
+
+
+def test_ddpg_step_kernels_graph_replays_across_a_phase_flip(dev):
+    """Kernels 4 and 5 (five CUDA launches, three of them clusters) captured
+    in one CUDA graph and replayed with the QAT phase flipped between
+    replays: each replay bitwise the eager calls of that phase."""
+    from repro_torch.kernels.fxp_mlp.kernel import ddpg_actor_step_cuda, ddpg_critic_step_cuda
+
+    c = _step_operands(dev, 128, 0)
+    phase = torch.zeros((1,), dtype=torch.int32, device=dev)
+    c_args = (c["obs"], c["action"], c["reward"], c["done"], c["next_obs"], c["w"], c["actor_t"], c["critic"],
+              c["critic_t"], c["critic_m"], c["critic_v"], c["deltas"], c["zs"], c["hyper"])
+
+    def step():
+        out_c = ddpg_critic_step_cuda(*c_args, phase, **STEP_KW)
+        out_a = ddpg_actor_step_cuda(c["obs"], c["w"], c["actor"], c["actor_m"], c["actor_v"], c["actor_t"],
+                                     out_c[0], c["deltas"], c["zs"], c["hyper"], phase, **STEP_KW)
+        return [t for out in (out_c, out_a) for tr in out[:4] for half in tr for t in half] + [
+            t for out in (out_c, out_a) for t in out[4:]]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the eager launches before the capture set the kernels' attributes
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for p in (0, 1, 0, 1):
+        phase.fill_(p)
+        graph.replay()
+        want = step()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), p
 
 
 @pytest.mark.parametrize("quant", [False, True])

@@ -178,3 +178,162 @@ def test_mlp_plan_picks_the_larger_cluster_then_streaming_weights():
     assert kb.mlp_plan(8, NETS["wide16"]).cluster == 16
     stream = kb.mlp_plan(8, NETS["stream"])
     assert not stream.resident and stream.w_off == (0, 0)
+
+
+# --------------------------------------------------------------------------
+# kernels 4 and 5: the chain passes' plans (`step_plan`)
+# --------------------------------------------------------------------------
+
+STEP_NETS = {
+    "paper": (ACTOR, CRITIC), "cpu": ((5, 24, 16, 2), (7, 24, 16, 1)), "one_layer": ((17, 6), (23, 1)),
+    "narrow": ((5, 4, 3, 2), (7, 3, 5, 1)), "wide_action": ((11, 64, 12), (23, 64, 1)),
+    "deep": ((17, 64, 64, 64, 6), (23, 64, 64, 64, 1)), "stream": ((40, 1000, 1000, 6), (46, 1000, 1000, 1)),
+}
+STEP_PASSES = ("target", "critic", "actor")
+
+
+def _pass_nets(name, which):
+    actor, critic = STEP_NETS[name]
+    return [actor if n == "actor" else critic for n in kb.STEP_NETS[which]]
+
+
+@pytest.mark.parametrize("which", STEP_PASSES)
+@pytest.mark.parametrize("m", BATCHES)
+@pytest.mark.parametrize("name", STEP_NETS)
+def test_step_plan_owns_every_output_once_and_sums_every_k_once(name, m, which):
+    p = kb.step_plan(m, *STEP_NETS[name], which)
+    assert p.bm in kb.STEP_ROWS and 2 <= p.cluster <= 16
+    n_rb = -(-m // p.bm)
+    assert 1 <= p.n_clusters <= min(n_rb, kb.CLUSTER_SLOTS[p.cluster])
+    walked = sorted(rb for cid in range(p.n_clusters) for rb in range(cid, n_rb, p.n_clusters))
+    assert walked == list(range(n_rb))  # persistent clusters: every row block once
+    for dims, ksplit in zip(_pass_nets(name, which), p.ksplit):
+        for l, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
+            assert ksplit[l] == (n <= kb.KSPLIT_MAX_N)
+            outs, ks = np.zeros(n, np.int32), np.zeros(k, np.int32)
+            for q in range(p.cluster):
+                nlo, nq = _slice(n, p.cluster, q)
+                outs[nlo:nlo + nq] += 1  # G_l's columns: each stored by one block
+                klo, kn = _slice(k, p.cluster, q)
+                if ksplit[l]:
+                    ks[klo:klo + kn] += 1  # K-split: each block sums its own input slice
+                else:
+                    ks += 1 if q == 0 else 0  # column split: one block sums all of K per output
+            assert (outs == 1).all() and (ks == 1).all(), (l, k, n)
+            if ksplit[l]:
+                assert n <= p.pmax  # every block holds the whole output
+
+
+def _dx_targets(dims_list, which):
+    """(D, to_full) of every dx the chain delivers: a layer l > 0's input
+    (to every block where layer l − 1 splits K), and kernel 5's da."""
+    out = []
+    for dims in dims_list:
+        for l in range(1, len(dims) - 1):
+            out.append((dims[l], dims[l] <= kb.KSPLIT_MAX_N))
+    if which == "actor":
+        actor = dims_list[0]
+        out.append((actor[-1], actor[-1] <= kb.KSPLIT_MAX_N))
+    return out
+
+
+@pytest.mark.parametrize("which", ("critic", "actor"))
+@pytest.mark.parametrize("m", (1, 9, 128, 241, 512))
+@pytest.mark.parametrize("name", STEP_NETS)
+def test_step_plan_reduce_scatter_gives_each_input_column_to_one_block(name, m, which):
+    p = kb.step_plan(m, *STEP_NETS[name], which)
+    for d, to_full in _dx_targets(_pass_nets(name, which), which):
+        if to_full:
+            assert d <= p.pmax <= p.rmax  # every block receives all d columns, one row each sender
+            continue
+        owned = np.zeros(d, np.int32)
+        for q in range(p.cluster):
+            lo, n = _slice(d, p.cluster, q)
+            owned[lo:lo + n] += 1
+            assert kb.slice_width(d, p.cluster) <= p.rmax  # a sender's float4 row fits the receive row
+        assert (owned == 1).all()
+        # a sender's four-column groups never straddle two owners
+        sd = kb.slice_width(d, p.cluster)
+        assert sd % 4 == 0 and all((j0 // sd) == ((j0 + 3) // sd) for j0 in range(0, d, 4))
+
+
+def _step_regions(p, nets):
+    """(offset, floats) of every region of a plan's layout, as the kernel's
+    read_plan lists them."""
+    regions = [(p.full_off, max(p.nbuf * 2 * p.bm * p.kmax, 2 * p.cluster * p.bm * p.rmax)),
+               (p.part_off, 2 * p.bm * p.pmax), (p.g_off[0], p.bm * p.gmax), (p.g_off[1], p.bm * p.gmax)]
+    for dims, ks, wo, xo, ho in zip(nets, p.ksplit, p.w_off, p.x_off, p.hf_off):
+        regions += [(o, p.bm * kb.slice_width(d, p.cluster)) for o, d in zip(xo, dims)]
+        regions += [(o, p.bm * p.pmax) for o, k in zip(ho, ks) if k]
+        if p.resident:
+            for (k, n), split, o in zip(zip(dims[:-1], dims[1:]), ks, wo):
+                assert o % 32 == 0  # tensor boxes land 128-byte aligned
+                regions.append((o, kb.slice_width(k, p.cluster) * n if split
+                                else -(-k // 256) * kb.tma_rows(k) * kb.slice_width(n, p.cluster)))
+    return regions
+
+
+@pytest.mark.parametrize("which", STEP_PASSES)
+@pytest.mark.parametrize("m", (1, 8, 128, 241, 512))
+@pytest.mark.parametrize("name", STEP_NETS)
+def test_step_plan_layout_fits_and_its_regions_are_disjoint(name, m, which):
+    p = kb.step_plan(m, *STEP_NETS[name], which)
+    nets = _pass_nets(name, which)
+    assert p.smem + kb.STATIC_SMEM <= MAX_SMEM
+    regions = [(o, n) for o, n in _step_regions(p, nets) if n > 0]
+    for o, n in regions:
+        assert o % 4 == 0 and 4 * (o + n) <= p.smem  # float4-aligned, inside the layout
+    spans = sorted(regions)
+    assert all(a[0] + a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert p.kmax >= max(d for dims in nets for d in dims[:-1]) and p.kmax % 4 == 0
+    assert p.smax == max(kb.slice_width(d, p.cluster) for dims in nets for d in dims)
+    assert p.rmax >= max(p.smax, p.pmax) and p.gmax >= max(p.smax, p.pmax)
+
+
+@pytest.mark.parametrize("name", ["paper", "cpu", "one_layer"])
+def test_step_plan_adapts_the_cluster_to_the_batch(name):
+    nets = STEP_NETS[name]
+    wave = kb.CLUSTER_SLOTS[8] * 8
+    for which in STEP_PASSES:
+        for m in (1, 8, wave):
+            p = kb.step_plan(m, *nets, which)
+            assert (p.bm, p.cluster, p.n_clusters) == (8, 8, -(-m // 8))  # 8-row blocks, one wave of 8
+        assert kb.step_monitor_rows(wave, *nets, which) == kb.CLUSTER_SLOTS[8]
+    if name == "paper":
+        # past one wave of clusters of 8: the two-net passes take 16-row
+        # blocks (their slices do not fit clusters of 4), the critic pass
+        # clusters of 4
+        for which, shape in (("target", (16, 8)), ("actor", (16, 8)), ("critic", (8, 4))):
+            p = kb.step_plan(wave + 1, *nets, which)
+            assert (p.bm, p.cluster) == shape and p.resident
+            assert kb.step_monitor_rows(wave + 1, *nets, which) == p.n_clusters == -(-(wave + 1) // p.bm)
+        assert kb.step_plan(241, *nets, "critic")[:2] == (16, 4)
+    assert kb.step_plan(512, *nets, "critic").n_clusters <= kb.CLUSTER_SLOTS[kb.step_plan(512, *nets, "critic").cluster]
+
+
+def test_step_plan_streams_the_weights_where_no_slice_fits():
+    p = kb.step_plan(128, *STEP_NETS["stream"], "actor")
+    assert not p.resident and (p.bm, p.cluster) == (8, 8) and p.w_off == ((0, 0, 0), (0, 0, 0))
+
+
+@pytest.mark.parametrize("width,which,raises", [
+    (1810, "actor", False), (1811, "actor", True), (1443, "critic", False), (1444, "critic", True),
+    (1443, "target", False), (1444, "target", True)])
+def test_step_plan_raises_exactly_where_the_kernel_without_clusters_refused(width, which, raises):
+    # kernel 5 refused 8 · (23 + 2W + W + (W + 1)) floats past 232,448 bytes,
+    # kernel 4 (both passes) 8 · (2·23 + 4W + (W + 1))
+    nets = ((17, width, 6), (23, width, 1))
+    if raises:
+        with pytest.raises(ValueError, match="shared memory"):
+            kb.step_plan(128, *nets, which)
+    else:
+        p = kb.step_plan(128, *nets, which)
+        assert p.smem + kb.STATIC_SMEM <= MAX_SMEM
+
+
+@pytest.mark.parametrize("m,actor,critic,which", [
+    (0, ACTOR, CRITIC, "actor"), (8, (17, 8, 8, 8, 8, 6), (23, 8, 8, 8, 8, 1), "actor"),
+    (8, ACTOR, (22, 400, 300, 1), "critic"), (8, ACTOR, (23, 400, 1), "target"), (8, ACTOR, CRITIC, "learner")])
+def test_step_plan_rejects_what_the_kernels_do_not_take(m, actor, critic, which):
+    with pytest.raises(ValueError):
+        kb.step_plan(m, actor, critic, which)
