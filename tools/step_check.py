@@ -9,10 +9,12 @@ The script imports TREE's `src/` and the current `chip_smoke.py`, builds
 TREE's kernels, runs the phases that draw from the shared generator before
 `kernel_step` (so the cases get `kernel_step`'s own inputs), then checks
 kernel 4 and kernel 5 against their twins with `chip_smoke._check_step` on
-every `kernel_step` case and on N more seeded cases (B = 200 with 30 masked
-rows and B = 128, both phases; seeds 1000..).  The kernels' pass-2
-operands (product inputs and cotangents) come from the wrappers'
-`keep_scratch`, or for a tree without it from the wrappers' allocations.
+every `kernel_step` case, on `kernel_step`'s two base cases drawn from a
+fresh generator of seed 0 instead (other inputs of the same shapes), and
+on N more seeded cases (B = 200 with 30 masked rows and B = 128, both
+phases; seeds 1000..).  The kernels' pass-2 operands (product inputs and
+cotangents) come from the wrappers' `keep_scratch`, or for a tree without
+it from the wrappers' allocations.
 Prints one JSON line: the label, the failures and every case's worst
 error of each tree over its tolerance.
 """
@@ -109,6 +111,11 @@ def main(argv=None) -> int:
     for label, _, _, c in cs._step_cases(gen, dev):
         for phase in cs.STEP_PHASES:
             cases[f"{label} {phase}"] = check(c, phase, label)
+    fresh = torch.Generator().manual_seed(0)
+    for batch, masked in cs.STEP_CASES:
+        c = cs._step_case(fresh, dev, batch, masked)
+        for phase in cs.STEP_PHASES:
+            cases[f"fresh seed 0 B={batch} masked={masked} {phase}"] = check(c, phase, f"fresh B={batch}")
     for seed in range(args.seeds):
         g = torch.Generator().manual_seed(1000 + seed)
         for batch, masked in ((200, 30), (128, 0)):
