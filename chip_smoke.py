@@ -140,26 +140,26 @@ atol 2e-5 with QAT off or in the monitor phase, 5e-3 / 2e-2 in the quant
 phase (the reference's gradient contract, `tests/kernels/
 test_fxp_mlp_grad.py:91`).  One update, card against CPU: losses rtol 1e-4
 / atol 1e-5, nets rtol 1e-4 / atol 2e-5 (`test_fxp_mlp_grad.py:187-190`).
-Kernels 4 and 5 against their twins on the same inputs (STEP_TOL, in both
-phases): params within 2⁻¹⁶, targets 1e-6, mu 2e-6 and nu 1e-7 (rtol
-1e-4: a gradient can land one Q15.16 quantum apart), the monitor-phase
-contract of `tests/test_torch_ddpg_step.py`; one step at Adam lr 1e-4 moves
-a param by a few quanta and a target by about τ·(p − t), so a looser bound
-could not tell a step from none.  mu and nu are widened, leaf by leaf, by
-how far the kernel's pass-2 operands lie from the twin's: the two sides may
-take a decision apart where the twin's operand lies within kernel B's
-forward contract (2e-5; 1e-3 in the quant phase) of its edge — a ReLU at a
-pre-activation near 0, a product input's rounding — and a flip moves a
-gradient by a row's cotangent or a rounding step, past the one quantum.
-Each of the kernel's product inputs must be a rounding of a value within
-that window, each of its cotangents within the twin's plus the bound such
-flips give (`_flip_bound`); the gradients may then differ by |q_k|ᵀ|ΔG| +
-|Δq|ᵀ|G|, and m by (1 − b1) times that (`_pass2_slack`, `_step_atol`).
-Extrema as kernel B's; loss partials over Σw (the update's metrics) rtol
-1e-5 / atol 1e-6 (monitor) and 1e-3 / 1e-5 (quant), the reference's
-metric contracts at its training batches, beside what one row's output,
-held within the forward contract, can move them by: at B = 9 one flipped
-bf16 limb moves the mean of eight rows past 1e-5.  Kernel 6 and the raw
+Kernels 4 and 5 against their twins on the same inputs
+(`kernels.fxp_mlp.replay.check_step`, in both phases): params within 2⁻¹⁶,
+targets 1e-6, mu 2e-6 and nu 1e-7 (rtol 1e-4: a gradient can land one
+Q15.16 quantum apart), the monitor-phase contract of
+`tests/test_torch_ddpg_step.py`; each leaf of params, mu and targets must
+be moved by the twin's step past its tolerance, so a tree left as it was
+fails.  A ReLU, straight-through or rounding decision whose exact operand
+lies within float32 rounding of its edge can go either way and move a
+gradient by a row's cotangent or a rounding step, past the one quantum: so
+the kernel's pass-2 operands (product inputs and cotangents) are held to a
+float64 replay from their own previous layer, within the probabilistic
+rounding bound of a float32 chain (λ·u·√Σ s_k², λ = 10), and mu and nu are
+widened leaf by leaf by how far those operands lie from the twin's
+(|q_k|ᵀ|ΔG| + |Δq|ᵀ|G|).  Extrema as kernel B's, layer 0's exactly; loss
+partials over Σw (the update's metrics) rtol 1e-5 / atol 1e-6 (monitor) and
+1e-3 / 1e-5 (quant), the reference's metric contracts, which it holds at
+batches of 8 (monitor) and 32 (quant): a plan-edge case with fewer live
+rows adds what one row's output, within kernel B's forward contract, can
+move them by (at B = 9 one flipped bf16 limb moves the mean of eight rows
+past 1e-5).  Kernel 6 and the raw
 fixed-point API: bitwise, the contract for elementwise fixed-point ops
 (min and max are order-free; a NaN matches a NaN).
 """
@@ -567,10 +567,10 @@ def phase_kernel_bwd(gen: torch.Generator, dev) -> float:
     return max(worst.values())
 
 
-# kernels 4 and 5 against their twins: (atol, rtol) of the four trees in
-# both phases, the monitor-phase contract of tests/test_torch_ddpg_step.py
-# (module docstring); mu and nu widened leaf by leaf (`_step_atol`, below)
-STEP_TOL = {"params": (2.0**-16, 0.0), "mu": (2e-6, 1e-4), "nu": (1e-7, 1e-4), "targets": (1e-6, 0.0)}
+# kernels 4 and 5 against their twins: `kernels.fxp_mlp.replay.check_step`
+# (the trees at the monitor-phase contract of tests/test_torch_ddpg_step.py,
+# mu and nu widened leaf by leaf by how far the kernel's pass-2 operands,
+# held to a float64 replay of their own, lie from the twin's)
 STEP_PHASES = ("monitor", "quant")
 STEP_CASES = ((128, 0), (200, 30))  # (B, rows masked by w = 0): the training batch, and multi-block ragged
 # the chain passes' plan edges: one row, the first row blocks of 8 and 16, the
@@ -586,185 +586,6 @@ STEP_CUDA_LAUNCHES = {"ddpg_critic_step": 3, "ddpg_actor_step": 2}
 # decision at a pre-activation of -5.3e-7 went the other way).  The CPU
 # generator's state at that case, restored into a generator of its own.
 STEP_FLIP_STATE = REPO / "tests" / "data" / "kernel_step_relu_flip.gen"
-# The two sides may take a decision apart where the twin's operand lies
-# within STEP_FLIP_EPS of the decision's edge: kernel B's forward contract
-# (2e-5; 1e-3 in the quant phase, where one flipped 16-bit code moves a layer
-# by a quantization step), which holds the kernel's layer values that close
-# to the twin's.  Two kinds: a ReLU at a pre-activation near 0, and a
-# product input's rounding (the Q15.16 lattice; the 16-bit code and its
-# bf16 hi limb).  A flip adds or removes one row's cotangent from a unit's
-# gradient, or moves one product by a rounding step — steps the
-# one-quantum reasoning does not cover.
-STEP_FLIP_EPS = {"monitor": TOL, "quant": TOL_QUANT}
-# loss partials over Σw — the update's metrics — (rtol, atol): the
-# reference's metric contracts per phase (tests/kernels/
-# test_fxp_mlp_step.py:95, :110); in the quant phase one flipped 16-bit code
-# moves q by a quantization step.  (A sum of rows of both signs can cancel,
-# so the partial's own relative error says little.)
-PART_TOL = {"monitor": (1e-5, 1e-6), "quant": (1e-3, 1e-5)}
-
-
-def _twin_net(x0, ws, bs, acts, deltas, zs, quant: bool) -> dict:
-    """The twin's forward through one net (`ref_mlp_forward` with
-    residuals), with each layer's pre-activation recomputed as the twin
-    computes it (hi·W, + lo·W before the quant phase, + b)."""
-    from repro_torch.kernels.fxp_matmul.ref import limb_split
-    from repro_torch.kernels.fxp_mlp.ref import ref_mlp_forward
-
-    _, _, _, qs, hs = ref_mlp_forward(x0, ws, bs, deltas, zs, activations=acts, quant=quant, n_bits=16, qat=True,
-                                      fxp32_phase1=True, save_residuals=True)
-    pre = []
-    for q, w, b in zip(qs, ws, bs):
-        hi, lo = limb_split(q, with_lo=not quant)
-        acc = hi @ w
-        pre.append((acc if quant else acc + lo @ w) + b)
-    return {"x0": x0, "ws": ws, "acts": acts, "deltas": deltas, "zs": zs, "qs": qs, "hs": hs, "pre": pre}
-
-
-def _product_input(x, quant: bool, delta, z):
-    """What a layer's products consume of its input x: the site projection,
-    then (the quant phase) its bf16 hi limb — non-decreasing in x."""
-    from repro_torch.kernels.fxp_matmul.ref import limb_split
-    from repro_torch.kernels.fxp_mlp.ref import site_project
-
-    v = site_project(x, quant, delta, z, n_bits=16, fxp32_phase1=True)
-    return limb_split(v, with_lo=False)[0] if quant else v
-
-
-def _flip_bound(net: dict, g: torch.Tensor, quant: bool, eps: float, pin=None) -> tuple:
-    """`ref_mlp_backward` of the cotangent g through `net` (a `_twin_net`),
-    keeping per layer the twin's masked cotangent G and a bound P on how far
-    the kernel's may lie from it where a decision within eps of its edge
-    goes the other way: a ReLU at a pre-activation |z| ≤ eps adds or
-    removes its row's cotangent; a straight-through mask within eps of a
-    clip bound passes or stops its row's dx; changes from above pass where
-    either side passes.  `pin` bounds the change of g itself.  Returns
-    ([G_l], [P_l], the input cotangent, its bound)."""
-    from repro_torch.kernels.fxp_mlp.ref import ste_pass_mask
-
-    n = len(net["ws"])
-    gs, ps = [None] * n, [None] * n
-    p = torch.zeros_like(g, dtype=torch.float64) if pin is None else pin
-    site = dict(n_bits=16, fxp32_phase1=True)
-    for li in reversed(range(n)):
-        h, z, act = net["hs"][li], net["pre"][li], net["acts"][li]
-        if act == "relu":
-            flip = z.abs() <= eps
-            p = g.double().abs() * flip + p * ((h > 0.0) | flip)
-            g = torch.where(h > 0.0, g, torch.zeros_like(g))
-        elif act == "tanh":
-            g = g * (1.0 - h * h)
-            p = p * (1.0 - h.double() ** 2).abs()
-        gs[li], ps[li] = g, p
-        x_in = net["x0"] if li == 0 else net["hs"][li - 1]
-        dx = g @ net["ws"][li].t()
-        p = p @ net["ws"][li].double().abs().t()
-        mask = ste_pass_mask(x_in, quant, net["deltas"][li], net["zs"][li], **site)
-        if mask is not None:
-            lo = ste_pass_mask(x_in - eps, quant, net["deltas"][li], net["zs"][li], **site)
-            hi = ste_pass_mask(x_in + eps, quant, net["deltas"][li], net["zs"][li], **site)
-            flip = (lo != mask) | (hi != mask)
-            p = p * (mask | flip) + dx.double().abs() * flip
-            dx = torch.where(mask, dx, torch.zeros_like(dx))
-        g = dx
-    return gs, ps, g, p
-
-
-def _pass2_slack(net: dict, gs: list, ps: list, quant: bool, eps: float, kernel) -> tuple:
-    """What pass 2 reduces — q_l and G_l per layer of the trained net — on
-    the kernel's side against the twin's, and the most that moves each
-    gradient.  Each product input of the kernel's must be a rounding of a
-    value within eps of the twin's pre-projection input (the Q15.16
-    lattice; the 16-bit code and its bf16 hi limb), each cotangent within
-    the twin's plus its flip bound P and 1e-4 of its size (sum order).
-    Then |ΔdW| ≤ |q_k|ᵀ|ΔG| + |Δq|ᵀ|G|, |Δdb| ≤ Σ|ΔG|.  Without the
-    kernel's (kernel None), the bound alone: |ΔdW| ≤ |q|ᵀP.  Returns
-    (slack [dW_l], [db_l], twin's [dW_l], [db_l]), float64."""
-    n = len(net["ws"])
-    sw, sb, gw, gb = [None] * n, [None] * n, [None] * n, [None] * n
-    for li in range(n):
-        q, g, p = net["qs"][li].double(), gs[li].double(), ps[li]
-        gw[li], gb[li] = q.t() @ g, g.sum(0)
-        if kernel is None:
-            sw[li], sb[li] = q.abs().t() @ p, p.sum(0)
-            continue
-        kq, kg = kernel[0][li].double(), kernel[1][li].double()
-        x_in = net["x0"] if li == 0 else net["hs"][li - 1]
-        reach = eps * (1.0 + x_in.abs())
-        lo = _product_input(x_in - reach, quant, net["deltas"][li], net["zs"][li]).double()
-        hi = _product_input(x_in + reach, quant, net["deltas"][li], net["zs"][li]).double()
-        require(bool(((kq >= lo) & (kq <= hi)).all()), f"layer {li}: a product input outside its rounding window")
-        dg = (kg - g).abs()
-        limit = p + 1e-4 * (g.abs() + g.abs().max())
-        require(bool((dg <= limit).all()), f"layer {li}: a cotangent {float((dg - limit).max())} past its flip bound")
-        sw[li] = kq.abs().t() @ dg + (kq - q).abs().t() @ g.abs()
-        sb[li] = dg.sum(0)
-    return sw, sb, gw, gb
-
-
-def _step_twin(c: dict, name: str, quant: bool, critic=None) -> tuple:
-    """The twin's side of kernel 4 (name "critic") or 5 ("actor", through
-    `critic`): the trained net (a `_twin_net`), its masked cotangents G_l
-    and their flip bounds P_l (`_flip_bound`), every net it ran, and the
-    per-row q (the critic's output) and y (kernel 4's TD target, else
-    None)."""
-    from repro_torch.kernels.fxp_mlp.ref import H_GAMMA, H_INVW
-
-    kw, hyper, w = c["kw"], c["hyper"], c["w"]
-    n = len(kw["actor_acts"])
-    da_, za, dc, zc = c["deltas"][:n], c["zs"][:n], c["deltas"][n:], c["zs"][n:]
-    eps = STEP_FLIP_EPS["quant" if quant else "monitor"]
-    if name == "critic":
-        next_a = _twin_net(c["next_obs"], *c["actor_t"], kw["actor_acts"], da_, za, quant)["hs"][-1]
-        q_next = _twin_net(torch.cat([c["next_obs"], next_a], dim=-1), *c["critic_t"], kw["critic_acts"], dc, zc,
-                           quant)["hs"][-1]
-        y = c["reward"] + (hyper[H_GAMMA] * (1.0 - c["done"])) * q_next[:, 0]
-        net = _twin_net(torch.cat([c["obs"], c["action"]], dim=-1), *c["critic"], kw["critic_acts"], dc, zc, quant)
-        q = net["hs"][-1][:, 0]
-        g = torch.zeros_like(net["hs"][-1])
-        g[:, 0] = (hyper[H_INVW] * w) * (2.0 * (q - y))
-        # q and y are each held within the forward contract of the twin's
-        pin = torch.zeros_like(g, dtype=torch.float64)
-        pin[:, 0] = 2.0 * (hyper[H_INVW] * w).double().abs() * eps * (2.0 + q.double().abs() + y.double().abs())
-        gs, ps, _, _ = _flip_bound(net, g, quant, eps, pin)
-        return net, gs, ps, [net], {"q": q, "y": y}
-    net = _twin_net(c["obs"], *c["actor"], kw["actor_acts"], da_, za, quant)
-    xa = torch.cat([c["obs"], net["hs"][-1]], dim=-1)
-    crit = _twin_net(xa, *critic, kw["critic_acts"], dc, zc, quant)
-    g = torch.zeros_like(crit["hs"][-1])
-    g[:, 0] = (-hyper[H_INVW]) * w
-    _, _, dxa, pin = _flip_bound(crit, g, quant, eps)
-    o = c["obs"].shape[1]
-    gs, ps, _, _ = _flip_bound(net, dxa[:, o:].contiguous(), quant, eps, pin[:, o:])
-    return net, gs, ps, [crit, net], {"q": crit["hs"][-1][:, 0], "y": None}
-
-
-def _step_slack(c: dict, name: str, quant: bool, critic=None, kernel=None) -> tuple:
-    """For kernel 4 (name "critic") or 5 ("actor", through `critic`): per
-    leaf of the trained net ([w0, w1, ..., b0, b1, ...]), the slack of its
-    gradient and the twin's gradient, float64 (`_pass2_slack`; `kernel` the
-    kernel's own (qs, gs) of the trained net, or None), the number of ReLU
-    decisions within the window, and the twin's per-row q and y
-    (`_step_twin`)."""
-    eps = STEP_FLIP_EPS["quant" if quant else "monitor"]
-    net, gs, ps, nets, rows = _step_twin(c, name, quant, critic)
-    sw, sb, gw, gb = _pass2_slack(net, gs, ps, quant, eps, kernel)
-    window = sum(int((z.abs() <= eps).sum()) for nt in nets for z, a in zip(nt["pre"], nt["acts"]) if a == "relu")
-    return sw + sb, gw + gb, window, rows
-
-
-def _step_atol(c: dict, slack, grads, tree: str) -> list:
-    """Per-leaf absolute tolerance of one tree (STEP_TOL's atol; mu and nu
-    widened by the flip slack S of each gradient: m moves by (1 − b1)·Δg,
-    v by (1 − b2)·|Δ(g²)| ≤ (1 − b2)·S·(2|g| + S + 2⁻¹⁶))."""
-    from repro_torch.kernels.fxp_mlp.ref import H_OMB1, H_OMB2
-
-    atol = STEP_TOL[tree][0]
-    if tree == "mu":
-        return [atol + float(c["hyper"][H_OMB1]) * s for s in slack]
-    if tree == "nu":
-        return [atol + float(c["hyper"][H_OMB2]) * s * (2.0 * g.abs() + s + 2.0**-16) for s, g in zip(slack, grads)]
-    return [atol] * len(slack)
 
 
 def _step_cases(gen: torch.Generator, dev):
@@ -854,59 +675,23 @@ def _actor_args(c: dict, critic) -> tuple:
             c["hyper"])
 
 
-def _one_row(c: dict, rows: dict, eps: float) -> torch.Tensor:
-    """What one row whose outputs moved within the forward contract (a
-    flipped decision: the quant phase's 16-bit code or bf16 limb) can move
-    each loss partial by: w·ε(1+|q|) for Σ w·q; for kernel 4,
-    w(2|d|·Δd + Δd²), Δd = ε(2 + |q| + |y|), for Σ w(q−y)² and w·ε(1+|y|)
-    for Σ w·y — the largest row's, beside PART_TOL (the reference's metric
-    contract at its training batches, where a row is a 32nd or less of the
-    mean)."""
-    w, q = c["w"].double().abs(), rows["q"].double()
-    if rows["y"] is None:
-        return (w * eps * (1.0 + q.abs())).max().reshape(1)
-    y = rows["y"].double()
-    dd = eps * (2.0 + q.abs() + y.abs())
-    return torch.stack([(w * (2.0 * (q - y).abs() * dd + dd * dd)).max(), (w * eps * (1.0 + y.abs())).max()])
+def _step_tolerance() -> dict:
+    from repro_torch.kernels.fxp_mlp.replay import STEP_TOL
+
+    return {k: {"atol": a, "rtol": r} for k, (a, r) in STEP_TOL.items()}
 
 
-def _check_step(got, want, c: dict, name: str, phase: str, tag: str, critic=None,
-                kernel=None) -> tuple[dict, dict, dict]:
-    """One kernel-4/5 result against its twin's: the four trees at STEP_TOL
-    (mu and nu each leaf widened by how far the kernel's pass-2 operands,
-    `kernel`, lie from the twin's, `_step_atol`), the site extrema (layer 0
-    exactly, the rest at kernel B's 2e-5), the loss partials at PART_TOL
-    (over Σw) beside one row's forward contract (`_one_row`).  The twin's step must move params, mu
-    and targets further than STEP_TOL (else the comparison could not tell a
-    kernel that left a tree as it was); nu's move, (1 − b2)·(g² − v), is of
-    the order of its own tolerance in one step, and is reported.  Returns
-    the worst errors, the twin's least moves and the flip slack used."""
-    quant = phase == "quant"
-    slack, grads, window, rows = _step_slack(c, name, quant, critic, kernel)
-    errs, moved = {}, {}
-    inputs = [c[name], c[f"{name}_m"], c[f"{name}_v"], c[f"{name}_t"]]
-    for k, tree in enumerate(STEP_TOL):
-        rtol = STEP_TOL[tree][1]
-        step = 0.0
-        for g, w, x, atol in zip([*got[k][0], *got[k][1]], [*want[k][0], *want[k][1]], [*inputs[k][0], *inputs[k][1]],
-                                 _step_atol(c, slack, grads, tree)):
-            e = compare(g, w, rtol, f"{tag} {tree}", atol=atol)["max_abs"]
-            errs[tree] = max(errs.get(tree, 0.0), e)
-            step = max(step, float((w - x).abs().max()))
-        require(tree == "nu" or step > STEP_TOL[tree][0], f"{tag}: the twin moved {tree} by {step}, within "
-                f"{STEP_TOL[tree][0]}")
-        moved[tree] = step
-    mins, maxs = got[4].amin(0), got[5].amax(0)
-    require(float(mins[0]) == float(want[4][0, 0]) and float(maxs[0]) == float(want[5][0, 0]),
-            f"{tag}: layer-0 extrema differ")
-    for what, g, w in (("mins", mins, want[4][0]), ("maxs", maxs, want[5][0])):
-        errs["extrema"] = max(errs.get("extrema", 0.0), compare(g, w, TOL, f"{tag} {what}")["max_abs"])
-    rtol, atol = PART_TOL[phase]
-    sum_w = torch.clamp(c["w"].sum(), min=1.0).double()
-    errs["partials"] = compare(got[6].sum(0) / sum_w, want[6][0] / sum_w, rtol, f"{tag} partials / Σw",
-                               atol=atol + _one_row(c, rows, STEP_FLIP_EPS[phase]) / sum_w)["max_abs"]
-    flips = {"decisions_in_window": window, "max_slack_quanta": max(float(s.max()) for s in slack) / 2.0**-16}
-    return errs, moved, flips
+def _check_step(got, want, c: dict, name: str, phase: str, tag: str, critic=None, kernel=None,
+                edge: bool = False) -> dict:
+    """One kernel-4/5 result against its twin's (`replay.check_step`, with
+    the kernel's pass-2 operands `kernel` = (qs, gs)); fails on any of its
+    failures.  Returns its errors, the twin's least moves, the worst first
+    moment and the replay's counts."""
+    from repro_torch.kernels.fxp_mlp.replay import check_step
+
+    res = check_step(got, want, c, name, phase == "quant", *kernel, critic=critic, edge=edge)
+    require(not res["failures"], f"{tag}: {'; '.join(res['failures'][:4])}")
+    return res
 
 
 def phase_kernel_step(gen: torch.Generator, dev) -> dict:
@@ -914,12 +699,13 @@ def phase_kernel_step(gen: torch.Generator, dev) -> dict:
     (`_step_cases`) in both phases (`_check_step`); two calls on the same
     inputs bitwise equal.  Kernel 5 runs through the twin's updated critic
     on both sides."""
-    from repro_torch.kernels.fxp_mlp.kernel import ddpg_actor_step_cuda, ddpg_critic_step_cuda, step_monitor_rows
+    from repro_torch.kernels.fxp_mlp import replay
+    from repro_torch.kernels.fxp_mlp.kernel import _ddpg_actor_step, _ddpg_critic_step, step_monitor_rows
     from repro_torch.kernels.fxp_mlp.ref import ref_ddpg_actor_step, ref_ddpg_critic_step
 
     worst = {name: {phase: {} for phase in STEP_PHASES} for name in ("critic", "actor")}
     moved = {name: {phase: {} for phase in STEP_PHASES} for name in ("critic", "actor")}
-    flips = {}
+    replays = {}
     labels = []
     for label, batch, masked, c in _step_cases(gen, dev):
         labels.append(label)
@@ -927,17 +713,12 @@ def phase_kernel_step(gen: torch.Generator, dev) -> dict:
             quant = phase == "quant"
             phase_t = torch.full((1,), int(quant), dtype=torch.int32, device=dev)
             want_c = ref_ddpg_critic_step(*_critic_args(c), quant, **c["kw"])
-            for name, kernel, twin_out, args in (
-                ("critic", ddpg_critic_step_cuda, want_c, _critic_args(c)),
-                ("actor", ddpg_actor_step_cuda, None, _actor_args(c, want_c[0])),
+            for name, launch, twin_out, args in (
+                ("critic", _ddpg_critic_step, want_c, _critic_args(c)),
+                ("actor", _ddpg_actor_step, None, _actor_args(c, want_c[0])),
             ):
-                kernel.keep_scratch = True
-                try:
-                    got = kernel(*args, phase_t, **c["kw"])
-                    scratch = kernel.scratch
-                finally:
-                    kernel.keep_scratch, kernel.scratch = False, None
-                again = kernel(*args, phase_t, **c["kw"])
+                got, scratch = launch(*args, phase_t, **c["kw"])
+                again, _ = launch(*args, phase_t, **c["kw"])
                 want = twin_out if twin_out is not None else ref_ddpg_actor_step(*args, quant, **c["kw"])
                 torch.cuda.synchronize()
                 tag = f"kernel {4 if name == 'critic' else 5} {label} {phase}"
@@ -948,22 +729,24 @@ def phase_kernel_step(gen: torch.Generator, dev) -> dict:
                 rows = step_monitor_rows(batch, ACTOR_DIMS, CRITIC_DIMS, name)
                 require(got[4].shape == (rows, n_sites) and got[6].shape[0] == rows,
                         f"{tag}: mins shape {tuple(got[4].shape)}, partials {tuple(got[6].shape)}")
-                errs, mv, fl = _check_step(got, want, c, name, phase, tag, want_c[0] if name == "actor" else None,
-                                           scratch)
-                for k, v in errs.items():
+                res = _check_step(got, want, c, name, phase, tag, want_c[0] if name == "actor" else None, scratch,
+                                  edge=label.startswith("plan"))
+                for k, v in res["max_abs"].items():
                     worst[name][phase][k] = max(worst[name][phase].get(k, 0.0), v)
-                for k, v in mv.items():
+                for k, v in res["moved"].items():
                     moved[name][phase][k] = min(moved[name][phase].get(k, math.inf), v)
-                flips[tag] = fl
+                replays[tag] = res["replay"]
     emit("kernel_step", cases=labels,
-         tolerance={**{k: {"atol": a, "rtol": r} for k, (a, r) in STEP_TOL.items()},
-                    "mu_nu_flip_slack": {"window": STEP_FLIP_EPS, "note": "each leaf's atol widened by how far the "
-                                         "kernel's pass-2 operands (held to the decision windows) lie from the "
-                                         "twin's (_pass2_slack, _step_atol)"},
-                    "extrema": {"layer0": "exact", "rtol": TOL, "atol": TOL},
-                    "partials": {p: {"rtol": r, "atol": a} for p, (r, a) in PART_TOL.items()}},
-         max_abs=worst, twin_moved_least=moved, flips=flips, bitwise_repeat=True,
-         cuda_launches_per_call=STEP_CUDA_LAUNCHES, plans=_step_plans((*{b for b, _ in STEP_CASES}, *STEP_PLAN_BATCHES)))
+         tolerance={**_step_tolerance(),
+                    "mu_nu_slack": "each leaf's atol widened by how far the kernel's pass-2 operands, held to a "
+                                   "float64 replay of their own, lie from the twin's (replay.check_step)",
+                    "replay_lambda": replay.LAMBDA,
+                    "extrema": {"layer0": "exact", "rtol": replay.EXTREMA_TOL, "atol": replay.EXTREMA_TOL},
+                    "partials": {p: {"rtol": r, "atol": a} for p, (r, a) in replay.PART_TOL.items()},
+                    "partials_one_row_below": replay.PART_ROWS},
+         max_abs=worst, twin_moved_least=moved, replay=replays, bitwise_repeat=True,
+         cuda_launches_per_call=STEP_CUDA_LAUNCHES,
+         plans=_step_plans((*{b for b, _ in STEP_CASES}, *STEP_PLAN_BATCHES)))
     return {name: max(v for ph in w.values() for v in ph.values()) for name, w in worst.items()}
 
 
@@ -2087,10 +1870,10 @@ def main(argv=None) -> int:
          {"rtol": GRAD_TOL["quant"][0], "atol": GRAD_TOL["quant"][1]}),
         ("ddpg_critic_step", "src/repro_torch/csrc/fxp_ddpg_step.cu", "src/repro/kernels/fxp_mlp/kernel.py:481",
          ("ddpg_critic_step", "actor 17-400-300-6, critic 23-400-300-1", _paper_ddpg(0).batch_size, "monitor"),
-         err_step["critic"], {k: {"atol": a, "rtol": r} for k, (a, r) in STEP_TOL.items()}),
+         err_step["critic"], _step_tolerance()),
         ("ddpg_actor_step", "src/repro_torch/csrc/fxp_ddpg_step.cu", "src/repro/kernels/fxp_mlp/kernel.py:632",
          ("ddpg_actor_step", "actor 17-400-300-6, critic 23-400-300-1", _paper_ddpg(0).batch_size, "monitor"),
-         err_step["actor"], {k: {"atol": a, "rtol": r} for k, (a, r) in STEP_TOL.items()}),
+         err_step["actor"], _step_tolerance()),
         ("fxp_monitor_quant", "src/repro_torch/csrc/fxp_monitor_quant.cu", "src/repro/kernels/quantize/kernel.py:30",
          ("fxp_monitor_quant", "512x400", 512, "monitor"), err_mq, "bitwise"),
     ):

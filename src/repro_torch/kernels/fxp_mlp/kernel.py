@@ -634,7 +634,7 @@ def _new_trees(tree, n: int = 4) -> list:
     return [([torch.empty_like(w) for w in ws], [torch.empty_like(b) for b in bs]) for _ in range(n)]
 
 
-def ddpg_critic_step_cuda(
+def _ddpg_critic_step(
     obs: Tensor,
     action: Tensor,
     reward: Tensor,
@@ -658,18 +658,9 @@ def ddpg_critic_step_cuda(
     fxp32_phase1: bool,
     fxp_weights: bool,
 ):
-    """The critic half of one DDPG update through kernel 4.
-
-    obs (B, O), action (B, A), next_obs (B, O); reward, done (0/1) and the
-    row weights w (B,); trees (ws, bs): the target actor, and the critic,
-    its Adam moments and its target; deltas/zs (2L,) site operands (actor
-    sites, then critic sites; read only when qat); hyper (12,) the step's
-    scalars (`ref.HYPER_LEN` layout); phase (1,) int32.  All contiguous
-    float32 (phase int32) on the current CUDA device.  Returns (critic,
-    critic_m, critic_v, critic_t) as new trees, then mins/maxs (R, L) and
-    partials (R, 2) = per cluster [Σ w(q−y)², Σ w·y], R =
-    `step_monitor_rows(B, actor_dims, critic_dims, "critic")`.
-    """
+    """`ddpg_critic_step_cuda`, also returning what pass 2 reduced: (its
+    result, (qs, gs)), qs[l] (B, K_l) each layer's product input and gs[l]
+    (B, N_l) its cotangent after the activation backward."""
     dev = obs.device
     m = int(obs.shape[0])
     obs_dim, act_dim = int(obs.shape[1]), int(action.shape[1])
@@ -709,19 +700,31 @@ def ddpg_critic_step_cuda(
     )
     _build.check_launch(lib, LIB_STEP, rc)
     ddpg_critic_step_cuda.launches += 1
-    if ddpg_critic_step_cuda.keep_scratch:
-        ddpg_critic_step_cuda.scratch = (qs, gs)
-    return (*outs, mins, maxs, part)
+    return (*outs, mins, maxs, part), (qs, gs)
+
+
+@functools.wraps(_ddpg_critic_step, assigned=())
+def ddpg_critic_step_cuda(*args, **kw):
+    """The critic half of one DDPG update through kernel 4.
+
+    obs (B, O), action (B, A), next_obs (B, O); reward, done (0/1) and the
+    row weights w (B,); trees (ws, bs): the target actor, and the critic,
+    its Adam moments and its target; deltas/zs (2L,) site operands (actor
+    sites, then critic sites; read only when qat); hyper (12,) the step's
+    scalars (`ref.HYPER_LEN` layout); phase (1,) int32.  All contiguous
+    float32 (phase int32) on the current CUDA device.  Returns (critic,
+    critic_m, critic_v, critic_t) as new trees, then mins/maxs (R, L) and
+    partials (R, 2) = per cluster [Σ w(q−y)², Σ w·y], R =
+    `step_monitor_rows(B, actor_dims, critic_dims, "critic")`.
+    """
+    return _ddpg_critic_step(*args, **kw)[0]
+
 
 
 ddpg_critic_step_cuda.launches = 0
-# with keep_scratch, each call leaves its product inputs and cotangents (qs,
-# gs: what pass 2 reduced) in .scratch, for a check to read
-ddpg_critic_step_cuda.keep_scratch = False
-ddpg_critic_step_cuda.scratch = None
 
 
-def ddpg_actor_step_cuda(
+def _ddpg_actor_step(
     obs: Tensor,
     w: Tensor,
     actor,
@@ -741,13 +744,8 @@ def ddpg_actor_step_cuda(
     fxp32_phase1: bool,
     fxp_weights: bool,
 ):
-    """The actor half of one DDPG update through kernel 5, through the
-    updated `critic`.  obs (B, O), w (B,); trees (ws, bs): the actor, its
-    Adam moments, its target, and the critic; the rest as for
-    `ddpg_critic_step_cuda`.  Returns (actor, actor_m, actor_v, actor_t) as
-    new trees, then mins/maxs (R, 2L) (actor sites, then the critic sites of
-    this pass) and partials (R, 1) = per cluster Σ w·q, R =
-    `step_monitor_rows(B, actor_dims, critic_dims, "actor")`."""
+    """`ddpg_actor_step_cuda`, also returning (qs, gs) of the actor, as
+    `_ddpg_critic_step` does."""
     dev = obs.device
     m = int(obs.shape[0])
     obs_dim = int(obs.shape[1])
@@ -784,14 +782,23 @@ def ddpg_actor_step_cuda(
     )
     _build.check_launch(lib, LIB_STEP, rc)
     ddpg_actor_step_cuda.launches += 1
-    if ddpg_actor_step_cuda.keep_scratch:
-        ddpg_actor_step_cuda.scratch = (qs, gs)
-    return (*outs, mins, maxs, part)
+    return (*outs, mins, maxs, part), (qs, gs)
+
+
+@functools.wraps(_ddpg_actor_step, assigned=())
+def ddpg_actor_step_cuda(*args, **kw):
+    """The actor half of one DDPG update through kernel 5, through the
+    updated `critic`.  obs (B, O), w (B,); trees (ws, bs): the actor, its
+    Adam moments, its target, and the critic; the rest as for
+    `ddpg_critic_step_cuda`.  Returns (actor, actor_m, actor_v, actor_t) as
+    new trees, then mins/maxs (R, 2L) (actor sites, then the critic sites of
+    this pass) and partials (R, 1) = per cluster Σ w·q, R =
+    `step_monitor_rows(B, actor_dims, critic_dims, "actor")`."""
+    return _ddpg_actor_step(*args, **kw)[0]
+
 
 
 ddpg_actor_step_cuda.launches = 0
-ddpg_actor_step_cuda.keep_scratch = False  # as ddpg_critic_step_cuda's
-ddpg_actor_step_cuda.scratch = None
 
 
 __all__ = [

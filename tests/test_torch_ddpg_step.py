@@ -25,7 +25,8 @@ On the card a ReLU decision at a pre-activation within float32 summation
 error of 0 went the other way: on the inputs kept as chip_smoke.py's
 standing case (`tests/data/kernel_step_relu_flip.gen`: B = 200 with 30
 masked rows, monitor phase), row 117, unit 194 of the actor's second layer
-has an exact pre-activation of −5.3e-7 (Σ|terms| = 4.54).  The twin's
+has an exact pre-activation of −5.3e-7 from the twin's product inputs
+(Σ|terms| = 4.54).  The twin's
 float32 sum gave ≤ 0 (ReLU off), kernel 5's > 0 (on), so the kernel's
 cotangent there, −9.66e-6, entered dW₁[:, 194].  At k = 34 (input 2.631)
 it moved the gradient by 2.54e-5, 1.67 quanta (−23.62 against the twin's
@@ -34,15 +35,21 @@ moment moved two quanta of (1 − b1)·2⁻¹⁶: 3.05e-6 against the 2e-6 bound
 Both sides are right to float32 in their own sum order.  A product
 input's rounding is such a decision too: at B = 1, where the cotangent is
 not divided by 128, seven of the critic's last-layer inputs of one row
-rounded to the neighbouring Q15.16 point and moved dW₂ by 3.95 quanta.  So
-on the card (chip_smoke.py `kernel_step`, the card-only tests) each of the
-kernel's product inputs must be a rounding of a value within kernel B's
-forward contract (2e-5; 1e-3 in the quant phase) of the twin's, each
-cotangent within the twin's plus what ReLU decisions within that window
-can move it, and mu and nu are widened, leaf by leaf, by how far those
-operands of pass 2 lie apart (`_pass2_slack`); the parent kernels pass that
-bound too.  Params and targets keep the reference's contracts.  These CPU
-tests meet no such decision on their inputs and keep the bounds above.
+rounded to the neighbouring Q15.16 point and moved dW₂ by up to 4.0 quanta
+(`tools/step_check.py`).  So on the card (chip_smoke.py `kernel_step`, the
+card-only tests, through `kernels.fxp_mlp.replay.check_step`) the kernel's
+own pass-2 operands are replayed in float64 from their own previous layer:
+each product input must be the rounding of a value within float32's
+probabilistic rounding bound of its sum (λ·u·√Σ s_k² over the exact prefix sums, λ = 10; 1.39e-6 at row
+117, unit 194, where the pre-activation from the kernel's own inputs is
+9.3e-10), so at most one lattice step off and only across an edge that
+close; each cotangent the exact backward of the kernel's own next layer
+within the same bound; a ReLU or straight-through decision either way only
+within it.  Then mu and nu are widened, leaf by leaf, by how far those
+operands lie from the twin's (`replay.pass2_slack`); the parent kernels
+pass that check too.  Params and targets keep the reference's contracts.
+These CPU tests meet no such decision on their inputs and keep the bounds
+above.
 """
 
 import dataclasses

@@ -213,20 +213,14 @@ def test_fxp_mlp_train_on_the_card_launches_both_kernels(dev):
 # --------------------------------------------------------------------------
 
 STEP_ACTS = (("relu", "relu", "tanh"), ("relu", "relu", "none"))
-# (atol, rtol) of params, mu, nu, targets in both phases: the monitor-phase
-# contract of tests/test_torch_ddpg_step.py, mu and nu widened leaf by leaf
-# by the flip slack (chip_smoke.py `_step_slack`, `_step_atol`).  One step
-# at Adam lr 1e-4 moves a param by a few quanta and a target by about
-# τ·(p − t), so a looser bound could not tell a step from none.
-STEP_TOL = [(2.0**-16, 0.0), (2e-6, 1e-4), (1e-7, 1e-4), (1e-6, 0.0)]
 # the chain passes' plan edges (chip_smoke.py STEP_PLAN_BATCHES), a fifth
 # of the rows masked
 STEP_EDGES = [(b, b // 5) for b in (1, 8, 9, 16, 17, 120, 121, 241, 511)]
 
 
 def _smoke():
-    """chip_smoke.py, the card check, for its fused-step case builder and
-    the flip slack."""
+    """chip_smoke.py, the card check, for the case builder of its standing
+    fused-step case."""
     import importlib.util
     import pathlib
 
@@ -274,48 +268,29 @@ def _step_operands(dev, batch, masked, dims=(17, 6, (400, 300))):
     return case
 
 
-def _assert_step_close(got, want, c, name, phase, critic=None, scratch=None):
-    """A kernel-4/5 result against its twin's: the trees at STEP_TOL (mu and
-    nu widened by how far the kernel's pass-2 operands, `scratch`, lie from
-    the twin's), extrema, loss partials; as many monitor rows as the plan
-    says."""
+def _assert_step_close(got, want, c, name, phase, critic=None, scratch=None, edge=False):
+    """A kernel-4/5 result against its twin's (`replay.check_step`: the
+    trees at the monitor-phase contract of tests/test_torch_ddpg_step.py,
+    mu and nu widened by how far the kernel's pass-2 operands, `scratch`,
+    held to their float64 replay, lie from the twin's; extrema; loss
+    partials); as many monitor rows as the plan says."""
     from repro_torch.kernels.fxp_mlp.kernel import step_monitor_rows
+    from repro_torch.kernels.fxp_mlp.replay import check_step
 
-    smoke = _smoke()
-    slack, grads, _, rows = smoke._step_slack(c, name, phase == "quant", critic, scratch)
-    inputs = [c[k] for k in (name, f"{name}_m", f"{name}_v", f"{name}_t")]
     a_dims = [int(c["obs"].shape[1])] + [int(w.shape[1]) for w in c["actor"][0]]
     c_dims = [int(c["critic"][0][0].shape[0])] + [int(w.shape[1]) for w in c["critic"][0]]
     n_rows = step_monitor_rows(int(c["obs"].shape[0]), a_dims, c_dims, name)
     assert got[4].shape[0] == got[5].shape[0] == got[6].shape[0] == n_rows
-    # loss partials over Σw, the update's metrics: the reference's metric
-    # contracts per phase (a sum of rows of both signs can cancel, so its
-    # own relative error says little)
-    p_rtol, p_atol = (1e-5, 1e-6) if phase == "monitor" else (1e-3, 1e-5)
-    for k, (tree, (atol, rtol)) in enumerate(zip(smoke.STEP_TOL, STEP_TOL)):
-        moved = 0.0
-        for g, w, x, a in zip([*got[k][0], *got[k][1]], [*want[k][0], *want[k][1]], [*inputs[k][0], *inputs[k][1]],
-                              smoke._step_atol(c, slack, grads, tree)):
-            err = (g.double() - w.double()).abs()
-            assert bool((err <= a + rtol * w.double().abs()).all()), (tree, float(err.max()))
-            moved = max(moved, float((w - x).abs().max()))
-        # the twin's step moves params, mu and targets past their bound, so a
-        # tree left as it was fails; nu's one-step move, (1 − b2)·(g² − v),
-        # is of the order of its bound
-        assert k == 2 or moved > atol, (k, moved)
-    torch.testing.assert_close(got[4].amin(0), want[4][0], rtol=2e-5, atol=2e-5)
-    torch.testing.assert_close(got[5].amax(0), want[5][0], rtol=2e-5, atol=2e-5)
-    sum_w = torch.clamp(c["w"].sum(), min=1.0).double()
-    one_row = smoke._one_row(c, rows, smoke.STEP_FLIP_EPS[phase]) / sum_w  # a row's flipped code, beside the contract
-    got_p, want_p = got[6].sum(0).double() / sum_w, want[6][0].double() / sum_w
-    assert bool(((got_p - want_p).abs() <= p_atol + one_row + p_rtol * want_p.abs()).all()), (got_p, want_p)
+    res = check_step(got, want, c, name, phase == "quant", *scratch, critic=critic, edge=edge)
+    assert not res["failures"], res["failures"]
 
 
-def _step_kernels_hold(c, phase):
+def _step_kernels_hold(c, phase, edge=False):
     """Kernels 4 and 5 on case c: two calls bitwise equal, each against its
     twin (kernel 5 through the twin's updated critic), one launch count a
-    call."""
-    from repro_torch.kernels.fxp_mlp.kernel import ddpg_actor_step_cuda, ddpg_critic_step_cuda
+    call.  `edge`: a plan-edge case (`replay.check_step`)."""
+    from repro_torch.kernels.fxp_mlp.kernel import (_ddpg_actor_step, _ddpg_critic_step, ddpg_actor_step_cuda,
+                                                    ddpg_critic_step_cuda)
     from repro_torch.kernels.fxp_mlp.ref import ref_ddpg_actor_step, ref_ddpg_critic_step
 
     dev = c["obs"].device
@@ -325,20 +300,12 @@ def _step_kernels_hold(c, phase):
     c_args = (c["obs"], c["action"], c["reward"], c["done"], c["next_obs"], c["w"], c["actor_t"], c["critic"],
               c["critic_t"], c["critic_m"], c["critic_v"], c["deltas"], c["zs"], c["hyper"])
     before = (ddpg_critic_step_cuda.launches, ddpg_actor_step_cuda.launches)
-
-    def first(kernel, args):  # a call that leaves its pass-2 operands behind
-        kernel.keep_scratch = True
-        try:
-            return kernel(*args, phase_t, **kw), kernel.scratch
-        finally:
-            kernel.keep_scratch, kernel.scratch = False, None
-
-    (got_c, scratch_c) = first(ddpg_critic_step_cuda, c_args)
+    got_c, scratch_c = _ddpg_critic_step(*c_args, phase_t, **kw)  # with its pass-2 operands
     again_c = ddpg_critic_step_cuda(*c_args, phase_t, **kw)
     want_c = ref_ddpg_critic_step(*c_args, quant, **kw)
     a_args = (c["obs"], c["w"], c["actor"], c["actor_m"], c["actor_v"], c["actor_t"], want_c[0], c["deltas"],
               c["zs"], c["hyper"])
-    (got_a, scratch_a) = first(ddpg_actor_step_cuda, a_args)
+    got_a, scratch_a = _ddpg_actor_step(*a_args, phase_t, **kw)
     again_a = ddpg_actor_step_cuda(*a_args, phase_t, **kw)
     want_a = ref_ddpg_actor_step(*a_args, quant, **kw)
     torch.cuda.synchronize()
@@ -346,8 +313,8 @@ def _step_kernels_hold(c, phase):
     for got, again in ((got_c, again_c), (got_a, again_a)):
         flat = lambda out: [t for tr in out[:4] for half in tr for t in half] + list(out[4:])  # noqa: E731
         assert all(torch.equal(x, y) for x, y in zip(flat(got), flat(again)))
-    _assert_step_close(got_c, want_c, c, "critic", phase, scratch=scratch_c)
-    _assert_step_close(got_a, want_a, c, "actor", phase, want_c[0], scratch_a)
+    _assert_step_close(got_c, want_c, c, "critic", phase, scratch=scratch_c, edge=edge)
+    _assert_step_close(got_a, want_a, c, "actor", phase, want_c[0], scratch_a, edge=edge)
 
 
 STEP_KW = dict(actor_acts=STEP_ACTS[0], critic_acts=STEP_ACTS[1], n_bits=16, qat=True, fxp32_phase1=True,
@@ -362,7 +329,7 @@ def test_ddpg_step_kernels_match_twins_and_repeat_bitwise(dev, batch, masked, ph
     persistent clusters)."""
     c = _step_operands(dev, batch, masked)
     c["kw"] = STEP_KW
-    _step_kernels_hold(c, phase)
+    _step_kernels_hold(c, phase, edge=(batch, masked) in STEP_EDGES)
 
 
 # nets whose layers take the kernels' other paths: hidden layers that split
@@ -381,7 +348,7 @@ def test_ddpg_step_kernels_take_other_nets(dev, shape, phase):
     c = _step_operands(dev, 17, 3, dims)
     c["kw"] = dict(STEP_KW, actor_acts=("relu",) * (n_layers - 1) + ("tanh",),
                    critic_acts=("relu",) * (n_layers - 1) + ("none",))
-    _step_kernels_hold(c, phase)
+    _step_kernels_hold(c, phase, edge=True)
 
 
 @pytest.mark.parametrize("phase", ["monitor", "quant"])
