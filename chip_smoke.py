@@ -31,8 +31,11 @@ JSON line:
                 and 23-400-300-1, B in {1, 7, 128, 256}, QAT off / monitor /
                 quant; y bitwise the same as without residuals;
   6. kernel_bwd — kernel 3 (the fused backward) against its plain version on
-                the same residuals: dx, dW, db at the same shapes and
-                phases; two calls on the same inputs bitwise equal;
+                the same residuals: dx, dW, db at the same nets, B in
+                {1, 7, 128, 256} and the launch plan's edges {8, 9, 16, 17,
+                120, 121, 241, 511}, QAT off / monitor / quant; two calls on
+                the same inputs bitwise equal; the actor's tanh layer's
+                cotangent after the activation backward bitwise g·(1 − h·h);
   7. kernel_step — kernels 4 and 5 (the fused DDPG step) against their plain
                 twins at the paper's shapes, B = 128 and a multi-block
                 ragged B = 200 with 30 rows of weight 0, a standing case
@@ -50,7 +53,10 @@ JSON line:
                 300}), a 2^24-element sweep and a length that is not a
                 multiple of the block, both phases, incoming ranges
                 (−3, 3.5) and (+inf, −inf), y and both extrema bitwise; an
-                input holding a NaN; two calls bitwise equal; one call under
+                input holding a NaN; an unaligned view (x[1:] of a flat
+                tensor, the scalar path); two calls bitwise equal; one CUDA
+                launch a call (a profiler trace); a captured CUDA graph's
+                replays bitwise the eager call's; one call under
                 `torch.cuda.set_sync_debug_mode("error")`;
   9. serve    — serving main path: a seeded random actor, ranges captured by
                 monitor-phase fused forwards and frozen (Algorithm 1's
@@ -532,38 +538,60 @@ def phase_kernel_b_res(gen: torch.Generator, dev) -> tuple[float, float]:
     return max(worst.values()), max(worst_qs.values())
 
 
+# kernel 3's launch-plan edges (`bwd_plan`): one row, the first row blocks of
+# 8 and 16, the widest one-wave batch of clusters of 8 and the next, where
+# 16-row blocks take over (241), and persistent clusters (511)
+BWD_PLAN_BATCHES = (1, 7, 8, 9, 16, 17, 120, 121, 241, 511)
+
+
 def phase_kernel_bwd(gen: torch.Generator, dev) -> float:
-    """Kernel 3 against `ref_mlp_backward` on the kernel's own residuals."""
-    from repro_torch.kernels.fxp_mlp.kernel import fxp_mlp_bwd_cuda, fxp_mlp_fwd_cuda
+    """Kernel 3 against `ref_mlp_backward` on the kernel's own residuals:
+    dx, dW, db at the paper's nets, TRAIN_BATCHES (drawn from `gen`) and the
+    launch plan's edges BWD_PLAN_BATCHES (from a generator of their own, so
+    later phases keep their inputs), QAT off / monitor / quant; two calls on
+    the same inputs bitwise equal; for the net whose last layer is tanh,
+    that layer's cotangent after the activation backward (G, read through
+    the internal launch helper `_fxp_mlp_bwd`) bitwise the plain version's
+    g·(1 − h·h), each operation rounded on its own."""
+    from repro_torch.kernels.fxp_mlp.kernel import _fxp_mlp_bwd, bwd_plan, fxp_mlp_bwd_cuda, fxp_mlp_fwd_cuda
     from repro_torch.kernels.fxp_mlp.ref import ref_mlp_backward
 
     worst = {"off": 0.0, "monitor": 0.0, "quant": 0.0}
-    cases = 0
+    cases = tanh_cases = 0
+    edges = torch.Generator().manual_seed(gen.initial_seed() + 17)
     for net in NETS:
         dims, acts, ws, bs, deltas, zs = _net_operands(gen, dev, net)
-        for batch in TRAIN_BATCHES:
-            x = (torch.randn(batch, dims[0], generator=gen) * 2).to(dev)
-            g = torch.randn(batch, dims[-1], generator=gen).to(dev)
+        for batch, src in [(b, gen) for b in TRAIN_BATCHES] + [(b, edges) for b in BWD_PLAN_BATCHES]:
+            x = (torch.randn(batch, dims[0], generator=src) * 2).to(dev)
+            g = torch.randn(batch, dims[-1], generator=src).to(dev)
             for case in ("off", "monitor", "quant"):
                 kw = _case_kw(acts, case)
                 d, z = (deltas, zs) if kw["qat"] else (None, None)
                 rtol, atol = GRAD_TOL[case]
                 tag = f"kernel 3 {net} B={batch} {case}"
                 _, _, _, qs, hs = fxp_mlp_fwd_cuda(x, ws, bs, d, z, save_residuals=True, **kw)
-                dx, dws, dbs = fxp_mlp_bwd_cuda(g, x, ws, qs, hs, d, z, **kw)
+                (dx, dws, dbs), gs = _fxp_mlp_bwd(g, x, ws, qs, hs, d, z, **kw)
                 dx2, dws2, dbs2 = fxp_mlp_bwd_cuda(g, x, ws, qs, hs, d, z, **kw)
                 rdx, rdws, rdbs = ref_mlp_backward(g, x, ws, qs, hs, deltas, zs, **kw)
                 torch.cuda.synchronize()
                 for a, b2 in zip([dx, *dws, *dbs], [dx2, *dws2, *dbs2]):
                     require(torch.equal(a, b2), f"{tag}: two launches on the same inputs differ")
+                if acts[-1] == "tanh":
+                    require(_bitwise(gs[-1], g * (1.0 - hs[-1] * hs[-1])),
+                            f"{tag}: the tanh layer's cotangent is not bitwise g·(1 − h·h)")
+                    tanh_cases += 1
                 err = 0.0
                 names = ["dx"] + [f"dW{i}" for i in range(len(ws))] + [f"db{i}" for i in range(len(ws))]
                 for got, want, what in zip([dx, *dws, *dbs], [rdx, *rdws, *rdbs], names):
                     err = max(err, compare(got, want, rtol, f"{tag} {what}", atol=atol)["max_abs"])
                 worst[case] = max(worst[case], err)
                 cases += 1
-    emit("kernel_bwd", cases=cases, tolerance={c: {"rtol": r, "atol": a} for c, (r, a) in GRAD_TOL.items()},
-         max_abs=worst, bitwise_repeat=True, cuda_launches_per_call=2)
+    plans = {f"{net} B={b}": dict(zip(("bm", "cluster", "n_clusters", "resident"), bwd_plan(b, NETS[net][0])[:4]),
+                                  smem=bwd_plan(b, NETS[net][0]).smem)
+             for net in NETS for b in sorted({*TRAIN_BATCHES, *BWD_PLAN_BATCHES})}
+    emit("kernel_bwd", cases=cases, batches=sorted({*TRAIN_BATCHES, *BWD_PLAN_BATCHES}),
+         tolerance={c: {"rtol": r, "atol": a} for c, (r, a) in GRAD_TOL.items()}, max_abs=worst,
+         bitwise_repeat=True, tanh_cotangent_bitwise_cases=tanh_cases, cuda_launches_per_call=2, plans=plans)
     return max(worst.values())
 
 
@@ -812,6 +840,24 @@ def phase_kernel_mq(gen: torch.Generator, dev) -> float:
         require(bool(got[1].isnan()) != quant and bool(got[2].isnan()) != quant,
                 f"kernel 6 NaN input {quant=}: extrema {float(got[1])}, {float(got[2])}")
         cases += 1
+    # an unaligned view: the scalar path, NaN included (this case and the
+    # graph's draw from a generator of their own, so later phases keep their
+    # inputs)
+    own = torch.Generator().manual_seed(gen.initial_seed() + 18)
+    xv = (torch.randn(70002, generator=own) * 4).to(dev)[1:]
+    xv[777] = math.nan
+    require(xv.data_ptr() % 16 != 0, "kernel 6: the view is aligned")
+    for quant in (False, True):
+        got = monitor_quant(xv, -3.0, 3.5, quant)
+        want = ref_monitor_quant(xv, -3.0, 3.5, quant)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("y", "new_min", "new_max")):
+            worst = max(worst, _max_abs(g, w))
+            require(_bitwise(g, w), f"kernel 6 unaligned view {quant=} {what}: not bitwise the plain version's")
+        cases += 1
+    launches_per_call = _mq_cuda_launches(dev)
+    require(launches_per_call == 1, f"kernel 6: {launches_per_call} CUDA launches a call, expected 1")
+    replays = _mq_graph_replays(own, dev)
     a_min, a_max = torch.full((), -3.0, device=dev), torch.full((), 3.5, device=dev)
     phase = torch.ones((), dtype=torch.bool, device=dev)
     torch.cuda.synchronize()
@@ -825,9 +871,67 @@ def phase_kernel_mq(gen: torch.Generator, dev) -> float:
     for g, w in zip(got, got_py):
         require(_bitwise(g, w), "kernel 6: device-tensor and Python phase/ranges differ")
     emit("kernel_mq", cases=cases, shapes=[list(s) for s in MQ_SHAPES], ranges=list(MQ_RANGES),
-         tolerance="bitwise (y, new_min, new_max)", max_abs=worst, nan_case=True, bitwise_repeat=True,
+         tolerance="bitwise (y, new_min, new_max)", max_abs=worst, nan_case=True, unaligned_view_case=True,
+         bitwise_repeat=True, cuda_launches_per_call=launches_per_call, graph_replays_bitwise=replays,
          sync_debug_error=True)
     return worst
+
+
+def _mq_cuda_launches(dev, calls: int = 20) -> int:
+    """CUDA kernels a `monitor_quant_cuda` call runs, by a profiler trace of
+    `calls` calls at 512 × 400: the kernels named like kernel 6's, per call,
+    rounded (a trace can lose a kernel launched as it starts; a sleep kernel
+    first, not counted, takes that place)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.quantize.kernel import monitor_quant_cuda
+
+    x = torch.randn(512 * 400, device=dev)
+    a_min, a_max = torch.full((1,), -3.0, device=dev), torch.full((1,), 3.5, device=dev)
+    phase = torch.zeros((1,), dtype=torch.int32, device=dev)
+    monitor_quant_cuda(x, a_min, a_max, phase)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10_000_000)
+        for _ in range(calls):
+            monitor_quant_cuda(x, a_min, a_max, phase)
+        torch.cuda._sleep(50_000_000)  # keeps the last calls' kernels inside the trace (`_kernels_ran`)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    ran = sum(e.count for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and "mq_" in e.key)
+    return round(ran / calls)
+
+
+def _mq_graph_replays(gen: torch.Generator, dev) -> int:
+    """Kernel 6 captured in a CUDA graph (after an eager call on the capture
+    stream), replayed on new inputs written in place, across a phase flip:
+    each replay bitwise the eager call's on the same inputs."""
+    from repro_torch.kernels.quantize.kernel import monitor_quant_cuda
+
+    x = torch.empty(512 * 400, device=dev)
+    a_min, a_max = torch.full((1,), -3.0, device=dev), torch.full((1,), 3.5, device=dev)
+    phase = torch.zeros((1,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        x.copy_(torch.randn(x.numel(), generator=gen).to(dev))
+        monitor_quant_cuda(x, a_min, a_max, phase)  # the stream's workspace, made eagerly
+        with torch.cuda.graph(graph, stream=stream):
+            out = monitor_quant_cuda(x, a_min, a_max, phase)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    replays = 0
+    for quant in (0, 1, 1, 0):
+        x.copy_((torch.randn(x.numel(), generator=gen) * 4).to(dev))
+        phase.fill_(quant)
+        graph.replay()
+        want = monitor_quant_cuda(x, a_min, a_max, phase)
+        torch.cuda.synchronize()
+        for g, w, what in zip(out, want, ("y", "new_min", "new_max")):
+            require(_bitwise(g, w), f"kernel 6 graph replay {replays} (phase {quant}) {what}: not the eager call's")
+        replays += 1
+    return replays
 
 
 def phase_layer_monitor(gen: torch.Generator, dev) -> dict:
@@ -905,7 +1009,7 @@ def phase_layer_monitor(gen: torch.Generator, dev) -> dict:
     report = {"nets": {net: "-".join(map(str, NETS[net][0])) for net in NETS}, "batches": list(LAYER_BATCHES),
               "sites_per_walk": {net: len(NETS[net][0]) - 1 for net in NETS}, "walks": 2 * len(cases),
               "launches": launches, "launches_expected": want, "cuda_launches": {
-                  "fxp_monitor_quant": 2 * launches["fxp_monitor_quant"], "fxp_dense": launches["fxp_dense"]},
+                  "fxp_monitor_quant": launches["fxp_monitor_quant"], "fxp_dense": launches["fxp_dense"]},
               "wall_s": wall, "extrema_vs_kernel_b_max_abs": extrema_err, "extrema_tolerance": TOL,
               "captured_ranges": ranges}
     emit("layer_monitor", **report)
@@ -1550,9 +1654,9 @@ def _bound_ms(bytes_moved: float, flops: float, dev_info: dict) -> tuple[float, 
 
 
 def _pass_us(fn, calls: int = 50) -> dict:
-    """Device µs per call of each pass of kernels 4 and 5 that `fn` launches
-    (the chain passes and pass 2), by kernel name in a torch.profiler trace
-    of `calls` back-to-back calls."""
+    """Device µs per call of each pass of kernels 3, 4 and 5 that `fn`
+    launches (the chain passes and pass 2), by kernel name in a
+    torch.profiler trace of `calls` back-to-back calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1568,7 +1672,7 @@ def _pass_us(fn, calls: int = 50) -> dict:
         us = float(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0))
         # (critic_chain_kernel, actor_chain_kernel: the chain passes before PR 16, timed by tools/ab_times.py)
         for name in ("ddpg_target_kernel", "ddpg_critic_kernel", "ddpg_actor_kernel", "reduce_update_kernel",
-                     "critic_chain_kernel", "actor_chain_kernel"):
+                     "critic_chain_kernel", "actor_chain_kernel", "bwd_chain_kernel", "bwd_dw_kernel"):
             if name in e.key:
                 out[name] = out.get(name, 0.0) + us / calls
     return out
@@ -1686,10 +1790,13 @@ def phase_times(gen: torch.Generator, dev, dev_info: dict) -> dict:
             k_bound, k_by = _bound_ms(k_bytes, 4 * macs, dev_info)
             rows.append({
                 "kernel": "fxp_mlp_bwd", "shape": f"{net} {'-'.join(map(str, dims))}", "batch": batch, "phase": case,
-                "ms": device_time_ms(lambda: fxp_mlp_bwd_cuda(g, x, nws, qs, hs, nd, nz, **kw), 100),
+                # a long sleep: the host may take longer to enqueue a call than the card to run it
+                "ms": device_time_ms(lambda: fxp_mlp_bwd_cuda(g, x, nws, qs, hs, nd, nz, **kw), 100,
+                                     sleep_cycles=400_000_000),
                 "plain_ms": device_time_ms(lambda: ref_mlp_backward(g, x, nws, qs, hs, nd, nz, **kw), 20),
                 "library_ms": None, "bound_ms": k_bound, "bound_by": k_by, "launches_per_call": 1,
                 "cuda_launches_per_call": 2,
+                "pass_us": _pass_us(lambda: fxp_mlp_bwd_cuda(g, x, nws, qs, hs, nd, nz, **kw)),
             })
     # kernels 4 and 5 at the training batch: bytes each input read once and
     # each output written once; operations the forwards (2 passes in the
@@ -1759,7 +1866,7 @@ def phase_times(gen: torch.Generator, dev, dev_info: dict) -> dict:
                 "ms": device_time_ms(lambda: monitor_quant_cuda(x, a_min, a_max, phase_t), 100),
                 "plain_ms": device_time_ms(lambda: ref_monitor_quant(x, a_min, a_max, phase_b), 20),
                 "library_ms": None, "library_note_aminmax_ms": device_time_ms(lambda: torch.aminmax(x), 100),
-                "bound_ms": bound, "bound_by": by, "launches_per_call": 1, "cuda_launches_per_call": 2,
+                "bound_ms": bound, "bound_by": by, "launches_per_call": 1, "cuda_launches_per_call": 1,
             })
     emit("times", card=dev_info["nvidia_smi"], rows=rows,
          note="device time of back-to-back calls, operands warm in L2; library_ms for fxp_dense is "
@@ -1891,13 +1998,14 @@ def main(argv=None) -> int:
             entry["qs_tolerance"] = {"rtol": QS_RTOL_QUANT, "atol": TOL_QUANT}
         if name == "fxp_mlp_bwd":
             entry["cuda_launches_per_call"] = 2
+            entry["pass_us"] = row["pass_us"]
             entry["library_note"] = "no single PyTorch call computes the masked backward chain"
         if name.startswith("ddpg_"):
             entry["cuda_launches_per_call"] = STEP_CUDA_LAUNCHES[name]
             entry["pass_us"] = row["pass_us"]
             entry["library_note"] = "no single PyTorch call computes a whole DDPG half-update"
         if name == "fxp_monitor_quant":
-            entry["cuda_launches_per_call"] = 2
+            entry["cuda_launches_per_call"] = 1
             entry["library_note"] = (f"no single PyTorch call computes it; torch.aminmax, the reduction alone: "
                                      f"{row['library_note_aminmax_ms']} ms")
         kernels.append(entry)

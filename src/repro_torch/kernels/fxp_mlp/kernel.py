@@ -9,8 +9,10 @@
   (`monitor_rows(m, dims)`, L), which `ops.fxp_mlp_forward` reduces.
 * `fxp_mlp_bwd_cuda` — kernel 3, the backward (`csrc/fxp_mlp_bwd.cu`;
   replaces `fxp_mlp_bwd_pallas` → `_mlp_bwd_kernel`): dx, dW and db from
-  the forward's residuals, in two CUDA launches (the chain over row
-  blocks, then the dW/db reduction over rows), both deterministic.
+  the forward's residuals, in two CUDA launches, both deterministic: the
+  chain on the same weight-split clusters as kernels 4 + 5, whose backward
+  code it shares (`csrc/fxp_bwd_slices.cuh`; `bwd_plan` is its launch
+  plan, pure Python), then the dW/db reduction over rows.
 * `ddpg_critic_step_cuda` / `ddpg_actor_step_cuda` — kernels 4 and 5, the
   whole DDPG update (`csrc/fxp_ddpg_step.cu`; replace
   `ddpg_critic_step_pallas` → `_ddpg_critic_step_kernel` and
@@ -54,7 +56,6 @@ LIB_STEP = "fxp_ddpg_step"
 STEP_MAX_LAYERS = 4  # csrc/fxp_ddpg_step.cu MAX_LAYERS
 MAX_LAYERS = 8  # csrc/fxp_mlp_{fwd,bwd}.cu MAX_LAYERS
 MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
-BWD_ROWS = 8  # csrc/fxp_mlp_bwd.cu BM: rows per block of the chain pass
 
 
 # Clusters of C blocks an H100 runs at once with kernel B's shared memory
@@ -310,6 +311,117 @@ def step_monitor_rows(m: int, actor_dims: Sequence[int], critic_dims: Sequence[i
     return step_plan(m, actor_dims, critic_dims, which).n_clusters
 
 
+class BwdPlan(NamedTuple):
+    """Kernel 3's launch plan (csrc/fxp_mlp_bwd.cu's header): rows per
+    block, blocks per cluster, clusters in the grid, whether the weights are
+    resident in shared memory, the row strides (smax a slice, pmax a K-split
+    layer's outputs, rmax a reduction's rows, gmax a cotangent buffer's),
+    per layer whether it splits K, and the shared-memory layout in floats:
+    the W slices, the receive rows (two sets of C·bm rows, by reduction
+    parity), two cotangent buffers, each layer input's own slice (and the
+    last output's, x_off[L]) and each K-split layer's whole output (hf_off,
+    -1 where none); smem in bytes."""
+
+    bm: int
+    cluster: int
+    n_clusters: int
+    resident: bool
+    smax: int
+    pmax: int
+    rmax: int
+    gmax: int
+    ksplit: tuple
+    w_off: tuple
+    x_off: tuple
+    hf_off: tuple
+    full_off: int
+    g_off: tuple
+    smem: int
+
+
+BWD_ROWS = {True: (8, 16), False: (8, 4)}  # rows per block the chain kernel is built for, resident W or not
+
+
+def _bwd_layout(bm: int, c: int, dims: Sequence[int], resident: bool) -> BwdPlan:
+    layers = list(zip(dims[:-1], dims[1:]))
+    ksplit = tuple(n <= KSPLIT_MAX_N for _, n in layers)
+    smax = max(slice_width(d, c) for d in dims)
+    pmax = round_up(max([n for (_, n), k in zip(layers, ksplit) if k], default=0), 4)
+    rmax = gmax = max(smax, pmax)
+    end, w_off = 0, []
+    for (k, n), split in zip(layers, ksplit):
+        w_off.append(end)
+        if resident:
+            end += _w_extent(k, n, c, split)
+    full_off = end
+    end += 2 * c * bm * rmax
+    g_off = (end, end + bm * gmax)
+    end += 2 * bm * gmax
+    x_off = []
+    for d in dims:
+        x_off.append(end)
+        end += bm * slice_width(d, c)
+    hf_off = []
+    for split in ksplit:
+        hf_off.append(end if split else -1)
+        end += bm * pmax if split else 0
+    return BwdPlan(bm, c, 0, resident, smax, pmax, rmax, gmax, ksplit, tuple(w_off), tuple(x_off), tuple(hf_off),
+                   full_off, g_off, 4 * end)
+
+
+def bwd_plan(m: int, dims: Sequence[int]) -> BwdPlan:
+    """The launch plan of kernel 3 for m rows through an MLP of widths
+    `dims` (`_bwd_plan`), kept per shape: the wrapper asks for it at every
+    backward."""
+    return _bwd_plan(int(m), tuple(map(int, dims)))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(m: int, dims: tuple) -> BwdPlan:
+    """The launch plan of kernel 3's chain pass: each row block on a
+    thread-block cluster whose blocks split every layer's columns (N > 8)
+    or K (N ≤ 8), the net's W slices resident in shared memory.  As
+    `step_plan`: prefers the plan that runs every row block in one wave of
+    clusters (`CLUSTER_SLOTS`) with the fewest rows and blocks — 8 rows on
+    clusters of 8, of 4, then 16 rows on clusters of 8, of 4, then clusters
+    of 16 — else the fewest waves of persistent clusters.  Where no
+    resident layout fits, the streamed-W instance of the same kernel (W
+    read from L2) on clusters of 8, with 8 rows or, for the widest nets, 4.
+    Raises ValueError for the shapes the kernel takes no more than before:
+    a batch of 0, an empty layer, more than MAX_LAYERS layers, or a width
+    whose two 8-row buffers (2 · 8 · max(dims) floats) exceed a block's
+    shared memory."""
+    if m < 1 or not 2 <= len(dims) <= MAX_LAYERS + 1 or min(dims) < 1:
+        raise ValueError(f"no plan for {m} rows through {list(dims)}")
+    need = 2 * 8 * max(dims) * 4
+    if need > MAX_SMEM:
+        raise ValueError(f"layer width {max(dims)} needs {need} B of shared memory (> {MAX_SMEM})")
+    limit = MAX_SMEM - STATIC_SMEM
+    order = [(8, 8), (8, 4), (16, 8), (16, 4), (8, 16), (16, 16)]
+    fits = [p._replace(n_clusters=min(-(-m // p.bm), CLUSTER_SLOTS[p.cluster]))
+            for p in (_bwd_layout(bm, c, dims, True) for bm, c in order) if p.smem <= limit]
+    if fits:
+        def waves(p: BwdPlan) -> int:  # row blocks a cluster walks
+            return -(-(-(-m // p.bm)) // p.n_clusters)
+
+        return min(fits, key=waves)  # the first of the fewest waves
+    plan = next((p for p in (_bwd_layout(bm, 8, dims, False) for bm in BWD_ROWS[False]) if p.smem <= limit), None)
+    if plan is None:
+        raise AssertionError(f"no kernel 3 layout fits for {list(dims)}")
+    return plan._replace(n_clusters=min(-(-m // plan.bm), CLUSTER_SLOTS[8]))
+
+
+def _c_bwd_plan(plan: BwdPlan, weights) -> ctypes.Array:
+    """A plan as the ints the launch function reads, with each layer's bulk
+    flag (as `_c_step_plan`)."""
+    bulk = [int(plan.resident and w.shape[1] % 4 == 0 and w.data_ptr() % 16 == 0
+                and (k or slice_width(int(w.shape[1]), plan.cluster) <= 256)) for w, k in zip(weights, plan.ksplit)]
+    ints = [plan.bm, plan.cluster, plan.n_clusters, int(plan.resident), plan.smax, plan.pmax, plan.rmax, plan.gmax,
+            plan.full_off, *plan.g_off, plan.smem, *map(int, plan.ksplit), *bulk, *plan.w_off, *plan.x_off,
+            *plan.hf_off]
+    return (ctypes.c_int * len(ints))(*ints)
+
+
 def _c_step_plan(plan: StepPlan, trees) -> ctypes.Array:
     """A plan as the ints the launch function reads, with each layer's bulk
     flag (its resident slice loads with bulk copies: W's width a multiple
@@ -349,7 +461,9 @@ def _bwd_launcher():
             [ctypes.c_void_p] * 10
             + [ctypes.c_int]
             + [ctypes.c_void_p] * 3
-            + [ctypes.c_int] * 5
+            + [ctypes.c_int]
+            + [ctypes.c_void_p]
+            + [ctypes.c_int] * 4
             + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -498,7 +612,7 @@ fxp_mlp_fwd_cuda.launches = 0
 fxp_mlp_fwd_cuda.residual_launches = 0  # the calls among them that saved residuals
 
 
-def fxp_mlp_bwd_cuda(
+def _fxp_mlp_bwd(
     g: Tensor,
     x0: Tensor,
     weights: Sequence[Tensor],
@@ -512,15 +626,10 @@ def fxp_mlp_bwd_cuda(
     qat: bool,
     n_bits: int,
     fxp32_phase1: bool,
-) -> tuple[Tensor, list, list]:
-    """The whole backward through kernel 3.
-
-    g: (M, N_L) cotangent of y; x0: (M, K0) the forward's input; weights,
-    deltas/zs as for the forward; qs[l] (M, K_l) and hs[l] (M, N_l) the
-    forward's residuals, hs[L-1] = y.  All contiguous float32 on the
-    current CUDA device.  Returns (dx (M, K0), [dW_l (K_l, N_l)],
-    [db_l (N_l,)]).
-    """
+):
+    """`fxp_mlp_bwd_cuda`, also returning what pass 2 reduced: (its result,
+    gs), gs[l] (M, N_l) the cotangent of layer l's output after the
+    activation backward."""
     dims = _check_net(x0, weights, deltas, zs, activations, qat, n_bits, "kernel 3")
     n_layers = len(weights)
     m = int(x0.shape[0])
@@ -534,14 +643,12 @@ def fxp_mlp_bwd_cuda(
         _build.check_operand(t, name, 2)
         if tuple(t.shape) != shape or t.device != x0.device:
             raise ValueError(f"{name}: shape {tuple(t.shape)} on {t.device}, expected {shape} on {x0.device}")
-    smem = 2 * BWD_ROWS * max(dims) * 4
-    if smem > MAX_SMEM:
-        raise ValueError(f"layer width {max(dims)} needs {smem} B of shared memory (> {MAX_SMEM})")
+    plan = bwd_plan(m, dims)
     dev = x0.device
     dx = torch.empty((m, dims[0]), dtype=torch.float32, device=dev)
     dws = [torch.empty((k, n), dtype=torch.float32, device=dev) for k, n in zip(dims[:-1], dims[1:])]
     dbs = [torch.empty((n,), dtype=torch.float32, device=dev) for n in dims[1:]]
-    scratch = [torch.empty((m, n), dtype=torch.float32, device=dev) for n in dims[1:]]
+    gs = [torch.empty((m, n), dtype=torch.float32, device=dev) for n in dims[1:]]
     c_dims = (ctypes.c_int * (n_layers + 1))(*dims)
     c_acts = (ctypes.c_int * n_layers)(*[ACTIVATION_CODES[a] for a in activations])
     lib, fn = _bwd_launcher()
@@ -551,7 +658,7 @@ def fxp_mlp_bwd_cuda(
         _ptrs(weights),
         _ptrs(qs),
         _ptrs(hs),
-        _ptrs(scratch),
+        _ptrs(gs),
         _ptrs(dws),
         _ptrs(dbs),
         c_dims,
@@ -561,6 +668,7 @@ def fxp_mlp_bwd_cuda(
         zs.data_ptr() if qat else None,
         dx.data_ptr(),
         m,
+        _c_bwd_plan(plan, weights),
         int(bool(quant)),
         int(bool(qat)),
         int(bool(fxp32_phase1)),
@@ -569,7 +677,21 @@ def fxp_mlp_bwd_cuda(
     )
     _build.check_launch(lib, LIB_BWD, rc)
     fxp_mlp_bwd_cuda.launches += 1
-    return dx, dws, dbs
+    return (dx, dws, dbs), gs
+
+
+@functools.wraps(_fxp_mlp_bwd, assigned=())
+def fxp_mlp_bwd_cuda(*args, **kw) -> tuple[Tensor, list, list]:
+    """The whole backward through kernel 3.
+
+    g: (M, N_L) cotangent of y; x0: (M, K0) the forward's input; weights,
+    deltas/zs as for the forward; qs[l] (M, K_l) and hs[l] (M, N_l) the
+    forward's residuals, hs[L-1] = y.  All contiguous float32 on the
+    current CUDA device.  Returns (dx (M, K0), [dW_l (K_l, N_l)],
+    [db_l (N_l,)]).  Two CUDA launches: the chain on thread-block clusters
+    (`bwd_plan`), then the dW/db reduction over rows.
+    """
+    return _fxp_mlp_bwd(*args, **kw)[0]
 
 
 fxp_mlp_bwd_cuda.launches = 0
@@ -812,6 +934,8 @@ __all__ = [
     "step_plan",
     "step_monitor_rows",
     "StepPlan",
+    "bwd_plan",
+    "BwdPlan",
     "slice_width",
     "MlpPlan",
     "MAX_LAYERS",

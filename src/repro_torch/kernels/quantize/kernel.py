@@ -6,10 +6,14 @@ monitor_quant_pallas` → `_mq_kernel`).
 (R, 128) reshape, padding and valid-count mask are not carried over: the
 kernel bounds its grid-stride loop by N.  The ranges and the phase are
 device scalars the kernel reads, so a call needs no host read and a CUDA
-graph can capture it.  Each call is two CUDA launches (the sweep, then the
-one-block fold of the per-block extrema into the incoming range), both
-deterministic; `monitor_quant_cuda.launches` counts calls.  Bound: 8 bytes
-an element (x read, y written) over device-memory bandwidth.  It never falls
+graph can capture it.  Each call is one CUDA launch: the sweep (float4
+where x and y are 16-byte aligned), then the last block to finish folds
+the per-block extrema, in block order, into the incoming range;
+deterministic.  The per-block extrema and the arrival ticket live in a
+workspace kept per device and stream (`_workspace`), made by the first,
+eager call on that stream: a call under CUDA-graph capture never
+allocates.  `monitor_quant_cuda.launches` counts calls.  Bound: 8 bytes an
+element (x read, y written) over device-memory bandwidth.  It never falls
 back: an operand the kernel does not take, or a refused launch, raises.
 """
 
@@ -30,13 +34,31 @@ def _lib():
     lib = _build.load(LIB)
     fn = lib.fxp_monitor_quant_launch
     if fn.argtypes is None:
-        # x, y, n, a_min, a_max, phase, partials, new_min, new_max, n_bits, stream
+        # x, y, n, a_min, a_max, phase, workspace, new_min, new_max, n_bits, stream
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int]
         fn.argtypes += [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.fxp_monitor_quant_blocks.argtypes = [ctypes.c_longlong]
-        lib.fxp_monitor_quant_blocks.restype = ctypes.c_int
+        lib.fxp_monitor_quant_workspace.argtypes = []
+        lib.fxp_monitor_quant_workspace.restype = ctypes.c_longlong
     return lib, fn
+
+
+_workspaces: dict = {}
+
+
+def _workspace(lib, device: torch.device, stream: int) -> Tensor:
+    """The kernel's workspace for calls on `stream` of `device`: the
+    per-block extrema, then the ticket (zero bits, the last block resets it
+    after each call).  Made once, by an eager call; raises under capture
+    before one, since an allocation there would belong to the graph."""
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("monitor_quant_cuda: call it once eagerly on this stream before capturing it")
+        ws = torch.zeros(lib.fxp_monitor_quant_workspace(), dtype=torch.float32, device=device)
+        _workspaces[key] = ws
+    return ws
 
 
 def _check_scalar(t, name: str, dtype, device) -> None:
@@ -63,8 +85,9 @@ def monitor_quant_cuda(
     if n == 0:
         raise ValueError("empty tensor: no range to monitor")
     lib, fn = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = _workspace(lib, x.device, stream)
     y = torch.empty_like(x)
-    partials = torch.empty(2 * lib.fxp_monitor_quant_blocks(n), dtype=torch.float32, device=x.device)
     out = torch.empty(2, dtype=torch.float32, device=x.device)
     rc = fn(
         x.data_ptr(),
@@ -73,11 +96,11 @@ def monitor_quant_cuda(
         a_min.data_ptr(),
         a_max.data_ptr(),
         phase.data_ptr(),
-        partials.data_ptr(),
+        ws.data_ptr(),
         out.data_ptr(),
         out.data_ptr() + out.element_size(),
         n_bits,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        stream,
     )
     _build.check_launch(lib, LIB, rc)
     monitor_quant_cuda.launches += 1

@@ -181,6 +181,53 @@ def test_fxp_mlp_bwd_kernel_matches_plain(dev, net, batch, case):
         torch.testing.assert_close(a, b, **tol)
 
 
+BWD_NETS = dict(zip(("tiny", "actor", "critic"), NETS), streamed=((23, 800, 800, 1), ("relu", "relu", "none")),
+                deep=((17,) + (64,) * 7 + (6,), ("relu",) * 7 + ("tanh",)),
+                narrow_inside=((33, 300, 5, 129, 1), ("relu",) * 3 + ("none",)))
+BWD_EDGES = (1, 7, 8, 9, 16, 17, 120, 121, 241, 511)
+# the widest net kernel 3 takes, W streamed with 4-row blocks, at three batches
+# (its residuals from the plain forward: kernel B takes widths up to 2421)
+BWD_CASES = ([pytest.param(net, b, True, id=f"{name}-{b}") for name, net in BWD_NETS.items() for b in BWD_EDGES]
+             + [pytest.param(((5, 3632, 3632, 3), ("relu", "tanh", "tanh")), b, False, id=f"streamed_4_rows-{b}")
+                for b in (1, 9, 121)])
+
+
+@pytest.mark.parametrize("case", ["off", "monitor", "quant"])
+@pytest.mark.parametrize("net,batch,kernel_b", BWD_CASES)
+def test_fxp_mlp_bwd_kernel_plan_edges_repeat_bitwise(dev, net, batch, kernel_b, case):
+    """Kernel 3 on its launch plan's edges (`bwd_plan`: cluster widths, 8-
+    and 16-row blocks, persistent clusters, the streamed-W instances with 8
+    and 4 rows, eight layers, a K-split layer inside the net) against
+    `ref_mlp_backward` at the gradient contract; two launches bitwise equal;
+    a tanh layer's cotangent after the activation backward bitwise the
+    plain version's g·(1 − h·h) (through the internal launch helper)."""
+    from repro_torch.kernels.fxp_mlp.kernel import _fxp_mlp_bwd, bwd_plan, fxp_mlp_bwd_cuda, fxp_mlp_fwd_cuda
+    from repro_torch.kernels.fxp_mlp.ref import ref_mlp_backward, ref_mlp_forward
+
+    dims, acts = net
+    forward = fxp_mlp_fwd_cuda if kernel_b else ref_mlp_forward
+    gen = torch.Generator().manual_seed(5 * batch + len(dims))
+    ws, bs = _net(gen, dev, dims)
+    x = _rand(gen, batch, dims[0], scale=3).to(dev)
+    deltas, zs = _site_operands(dev, len(ws))
+    qat, quant = case != "off", case == "quant"
+    kw = dict(activations=acts, quant=quant, qat=qat, n_bits=16, fxp32_phase1=True)
+    d, z = (deltas, zs) if qat else (None, None)
+    _, _, _, qs, hs = forward(x, ws, bs, d, z, save_residuals=True, **kw)
+    g = _rand(gen, batch, dims[-1]).to(dev)
+    got, gs = _fxp_mlp_bwd(g, x, ws, qs, hs, d, z, **kw)
+    again = fxp_mlp_bwd_cuda(g, x, ws, qs, hs, d, z, **kw)
+    want = ref_mlp_backward(g, x, ws, qs, hs, deltas, zs, **kw)
+    for a, b in zip([got[0], *got[1], *got[2]], [again[0], *again[1], *again[2]]):
+        assert torch.equal(a, b)
+    tol = dict(rtol=5e-3, atol=2e-2) if quant else dict(rtol=2e-4, atol=2e-5)
+    for a, b in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
+        torch.testing.assert_close(a, b, **tol)
+    if acts[-1] == "tanh":
+        assert _bitwise(gs[-1], g * (1.0 - hs[-1] * hs[-1]))
+    assert bwd_plan(batch, dims).resident == (max(dims) < 800)
+
+
 def test_fxp_mlp_train_on_the_card_launches_both_kernels(dev):
     """One forward and backward of `fxp_mlp_train` on CUDA tensors: one
     kernel-B call with residuals, one kernel-3 call, gradients as on the
@@ -458,6 +505,33 @@ def test_monitor_quant_kernel_propagates_nan(dev, phase):
     for g, w in zip(got, want):
         assert _bitwise(g, w)
     assert bool(got[1].isnan()) != phase and bool(got[2].isnan()) != phase
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("phase", [False, True])
+def test_monitor_quant_kernel_takes_an_unaligned_view_bitwise(dev, phase, offset):
+    """x[offset:] of a flat tensor (not 16-byte aligned: the scalar path),
+    a NaN inside: bitwise the plain version's."""
+    from repro_torch.kernels.quantize import monitor_quant, ref_monitor_quant
+
+    gen = torch.Generator().manual_seed(11 + offset)
+    x = (torch.randn(204801, generator=gen) * 4).to(dev)[offset:]
+    x[999] = float("nan")
+    assert x.data_ptr() % 16 != 0
+    got = monitor_quant(x, -3.0, 3.5, phase)
+    want = ref_monitor_quant(x, -3.0, 3.5, phase)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _bitwise(g, w)
+
+
+def test_monitor_quant_kernel_is_one_cuda_launch_and_replays_in_a_graph(dev):
+    """One CUDA launch a call (a profiler trace), and a captured call's
+    replays across new inputs and a phase flip bitwise the eager call's
+    (`chip_smoke._mq_cuda_launches`, `_mq_graph_replays`)."""
+    smoke = _smoke()
+    assert smoke._mq_cuda_launches(dev) == 1
+    assert smoke._mq_graph_replays(torch.Generator().manual_seed(7), dev) == 4
 
 
 # --------------------------------------------------------------------------

@@ -337,3 +337,134 @@ def test_step_plan_raises_exactly_where_the_kernel_without_clusters_refused(widt
 def test_step_plan_rejects_what_the_kernels_do_not_take(m, actor, critic, which):
     with pytest.raises(ValueError):
         kb.step_plan(m, actor, critic, which)
+
+
+# kernel 3 (`bwd_plan`): the paper's nets, the CPU tests' nets, eight layers,
+# a narrow layer inside the net, and widths on both sides of the switch to
+# the streamed-W instance (for two square hidden layers, past 768 columns)
+BWD_NETS = {
+    "actor": ACTOR, "critic": CRITIC, "cpu": (5, 16, 12, 3), "one_layer": (7, 4), "deep": (17,) + (64,) * 7 + (6,),
+    "narrow_inside": (33, 300, 5, 129, 1), "resident_edge": (23, 768, 768, 1), "stream": (23, 772, 772, 1),
+    "stream_deep": (3632,) * 9, "stream_mixed": (3632, 8, 3632, 5, 3632, 1, 3632, 3632, 3632),
+}
+BWD_BATCHES = (1, 7, 8, 9, 16, 17, 120, 121, 128, 241, 511)
+
+
+def _bwd_regions(p, dims):
+    """(offset, floats) of every region of a kernel-3 plan's layout, as the
+    kernel's read_plan lists them."""
+    regions = [(p.full_off, 2 * p.cluster * p.bm * p.rmax), (p.g_off[0], p.bm * p.gmax),
+               (p.g_off[1], p.bm * p.gmax)]
+    regions += [(o, p.bm * kb.slice_width(d, p.cluster)) for o, d in zip(p.x_off, dims)]
+    regions += [(o, p.bm * p.pmax) for o, k in zip(p.hf_off, p.ksplit) if k]
+    if p.resident:
+        for (k, n), split, o in zip(zip(dims[:-1], dims[1:]), p.ksplit, p.w_off):
+            assert o % 32 == 0  # tensor boxes land 128-byte aligned
+            regions.append((o, kb.slice_width(k, p.cluster) * n if split
+                            else -(-k // 256) * kb.tma_rows(k) * kb.slice_width(n, p.cluster)))
+    return regions
+
+
+@pytest.mark.parametrize("m", BWD_BATCHES)
+@pytest.mark.parametrize("name", BWD_NETS)
+def test_bwd_plan_layout_fits_and_its_regions_are_disjoint(name, m):
+    dims = BWD_NETS[name]
+    p = kb.bwd_plan(m, dims)
+    assert p.bm in kb.BWD_ROWS[p.resident] and 2 <= p.cluster <= 16
+    assert p.smem + kb.STATIC_SMEM <= MAX_SMEM
+    regions = [(o, n) for o, n in _bwd_regions(p, dims) if n > 0]
+    for o, n in regions:
+        assert o % 4 == 0 and 4 * (o + n) <= p.smem  # float4-aligned, inside the layout
+    spans = sorted(regions)
+    assert all(a[0] + a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert p.smax == max(kb.slice_width(d, p.cluster) for d in dims)
+    assert p.rmax >= max(p.smax, p.pmax) and p.gmax >= max(p.smax, p.pmax)
+    assert p.rmax % 4 == 0 and p.gmax % 4 == 0 and p.pmax % 4 == 0
+
+
+@pytest.mark.parametrize("m", BWD_BATCHES)
+@pytest.mark.parametrize("name", BWD_NETS)
+def test_bwd_plan_owns_every_output_and_input_column_once(name, m):
+    dims = BWD_NETS[name]
+    p = kb.bwd_plan(m, dims)
+    n_rb = -(-m // p.bm)
+    assert 1 <= p.n_clusters <= min(n_rb, kb.CLUSTER_SLOTS[p.cluster])
+    walked = sorted(rb for cid in range(p.n_clusters) for rb in range(cid, n_rb, p.n_clusters))
+    assert walked == list(range(n_rb))  # persistent clusters: every row block once
+    for l, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
+        assert p.ksplit[l] == (n <= kb.KSPLIT_MAX_N)
+        outs = np.zeros(n, np.int32)  # G_l's columns: each stored by one block
+        ins = np.zeros(k, np.int32)  # dx's columns (layer 0) or the layer input's: each owned by one block
+        for q in range(p.cluster):
+            nlo, nq = _slice(n, p.cluster, q)
+            outs[nlo:nlo + nq] += 1
+            klo, kn = _slice(k, p.cluster, q)
+            ins[klo:klo + kn] += 1
+        assert (outs == 1).all() and (ins == 1).all(), (l, k, n)
+        if p.ksplit[l]:
+            assert n <= p.pmax  # every block holds the whole output
+        # the reduce-scatter onto layer l's input: a sender's four-column
+        # groups never straddle two owners, and a row fits the receive rows
+        to_full = l > 0 and p.ksplit[l - 1]
+        if to_full:
+            assert k <= p.pmax <= p.rmax
+        else:
+            sd = kb.slice_width(k, p.cluster)
+            assert sd <= p.rmax and sd % 4 == 0 and all((j0 // sd) == ((j0 + 3) // sd) for j0 in range(0, k, 4))
+
+
+@pytest.mark.parametrize("name", ["actor", "critic"])
+def test_bwd_plan_adapts_the_cluster_to_the_batch(name):
+    dims = BWD_NETS[name]
+    wave = kb.CLUSTER_SLOTS[8] * 8
+    for m in (1, 7, 8, 9, 16, 17, 120):
+        p = kb.bwd_plan(m, dims)  # one wave of 8-row blocks on clusters of 8
+        assert (p.bm, p.cluster, p.n_clusters, p.resident) == (8, 8, -(-m // 8), True)
+    for m in (wave + 1, 128, 240):
+        p = kb.bwd_plan(m, dims)  # past one wave of clusters of 8: clusters of 4
+        assert (p.bm, p.cluster, p.n_clusters, p.resident) == (8, 4, -(-m // 8), True)
+    for m in (241, 480):
+        p = kb.bwd_plan(m, dims)  # past one wave of clusters of 4: 16-row blocks
+        assert (p.bm, p.cluster, p.n_clusters, p.resident) == (16, 4, -(-m // 16), True)
+    p = kb.bwd_plan(511, dims)  # persistent clusters
+    assert (p.bm, p.cluster, p.n_clusters) == (16, 4, kb.CLUSTER_SLOTS[4])
+
+
+@pytest.mark.parametrize("name,resident", [("resident_edge", True), ("stream", False), ("stream_deep", False),
+                                           ("stream_mixed", False)])
+def test_bwd_plan_streams_the_weights_exactly_where_no_slice_fits(name, resident):
+    dims = BWD_NETS[name]
+    p = kb.bwd_plan(128, dims)
+    assert p.resident == resident
+    if not resident:
+        assert p.cluster == 8 and set(p.w_off) == {0}
+        assert all(kb._bwd_layout(bm, c, dims, True).smem + kb.STATIC_SMEM > MAX_SMEM
+                   for bm in kb.BWD_ROWS[True] for c in (4, 8, 16))
+
+
+@pytest.mark.parametrize("layers", range(1, kb.MAX_LAYERS + 1))
+@pytest.mark.parametrize("width", (1, 8, 9, 400, 3632))
+def test_bwd_plan_takes_every_depth_and_width_the_replaced_kernel_took(layers, width):
+    # up to MAX_LAYERS layers of any width with 2 · 8 · max(dims) floats
+    # in a block's shared memory
+    for dims in ((width,) * (layers + 1), (17,) + (width,) * (layers - 1) + (1,)):
+        for m in (1, 128, 511):
+            p = kb.bwd_plan(m, dims)
+            assert p.smem + kb.STATIC_SMEM <= MAX_SMEM
+
+
+@pytest.mark.parametrize("width,raises", [(3632, False), (3633, True), (4096, True)])
+def test_bwd_plan_raises_exactly_where_the_replaced_kernel_raised(width, raises):
+    # the kernel without clusters refused 2 · 8 · max(dims) floats past 232,448 bytes
+    for dims in ((17, width, 6), (width, 3, 2), (4, 4, 4, 4, 4, 4, 4, 4, width)):
+        if raises:
+            with pytest.raises(ValueError, match="shared memory"):
+                kb.bwd_plan(128, dims)
+        else:
+            assert kb.bwd_plan(128, dims).smem + kb.STATIC_SMEM <= MAX_SMEM
+
+
+@pytest.mark.parametrize("m,dims", [(0, ACTOR), (8, (17,)), (8, (17,) + (8,) * 9), (8, (17, 0, 6)), (-1, CRITIC)])
+def test_bwd_plan_rejects_what_the_kernel_does_not_take(m, dims):
+    with pytest.raises(ValueError):
+        kb.bwd_plan(m, dims)
