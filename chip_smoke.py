@@ -4,12 +4,13 @@
     python3 chip_smoke.py [--seed N] [--out FILE]   (FILE: every phase's result as JSON)
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit.  It drives the port's four main paths: policy serving (slice
+toolkit.  It drives the port's five main paths: policy serving (slice
 1), DDPG training through backend "pallas" (slice 2), training through
 the fused whole-update step, eagerly and as a captured CUDA graph (slice
-3), and Algorithm 1 over the per-layer datapath with the standalone
-monitor + quantizer at each site (slice 4).  Phases, each printing one
-JSON line:
+3), Algorithm 1 over the per-layer datapath with the standalone
+monitor + quantizer at each site (slice 4), and the learner engine that
+coalesces update requests into bucket-padded batches (slice 8).  Phases,
+each printing one JSON line:
 
   1. device   — the card's name and power limit (nvidia-smi), CUDA version,
                 TF32 switched off for matmul and cuDNN;
@@ -32,8 +33,9 @@ JSON line:
                 quant; y bitwise the same as without residuals;
   6. kernel_bwd — kernel 3 (the fused backward) against its plain version on
                 the same residuals: dx, dW, db at the same nets, B in
-                {1, 7, 128, 256} and the launch plan's edges {8, 9, 16, 17,
-                120, 121, 241, 511}, QAT off / monitor / quant; two calls on
+                {1, 7, 128, 256}, the launch plan's edges {8, 9, 16, 17,
+                120, 121, 241, 511} and the learner's bucket 32, QAT off /
+                monitor / quant; two calls on
                 the same inputs bitwise equal; the actor's tanh layer's
                 cotangent after the activation backward bitwise g·(1 − h·h);
   7. kernel_step — kernels 4 and 5 (the fused DDPG step) against their plain
@@ -42,7 +44,8 @@ JSON line:
                 (the inputs of a ReLU decision that flipped, restored from
                 `tests/data/kernel_step_relu_flip.gen`) and the chain
                 passes' plan edges (B in {1, 7, 8, 9, 16, 17, 120, 121, 241,
-                511}), both phases: new params, moments, targets, site
+                511}) and the learner's bucket 32, both phases: new params,
+                moments, targets, site
                 extrema, loss partials; two calls bitwise equal; the twin's
                 step must move each tree further than its tolerance, so a
                 stale tree cannot pass; the plans and the card's cluster
@@ -107,12 +110,37 @@ JSON line:
                 same run made again with its graph window under
                 `torch.profiler` counts by name the kernels each replay
                 ran); both agents evaluated and served;
- 16. profile  — `torch.profiler` over 20 updates at B = 128, backend "pallas"
+ 16. learner  — the learner engine (`train.learner.LearnerEngine`) at the
+                paper's nets, buckets 8, 32, 128: (1) for the forced modes
+                "fused" (kernels B and 3) and "fused_step" (kernels 4 + 5),
+                requests of 8, 32 and 128 rows bitwise equal to direct
+                `ddpg.update` calls on the same state sequence, with the
+                wrapper launches of each update; (2) requests of 5, 27 and
+                100 rows (zero-weight pad rows) bitwise equal to direct
+                calls on the engine's padded batch, and within the update
+                contracts of the unpadded direct call (params 2^-16,
+                targets 1e-6; for "fused_step" the padded case through
+                kernel_step's check, moments included); a 300-row request
+                bitwise its three chunks' direct calls in order; (3) the
+                adaptive learner warmed on the main thread, then four
+                producer threads submitting 64 requests of 4-40 rows; (4)
+                `train_fused`'s `train_host` run again through a learner
+                forced to "fused_step", its agent bitwise that run's; (5)
+                `Observability(serve_http=0)`: /metrics with the learner's
+                counters, /healthz (200 while training), the default SLO
+                rules, a fleet aggregator over the registry's snapshot; (6)
+                a checkpoint of a learner's state restored on the card,
+                bitwise, and one more update from each, bitwise; (7)
+                updates/s and train IPS per forced mode at bucket 128 beside
+                direct calls, and 16 requests of 8 rows coalesced into one
+                update against 16 direct B = 8 updates.  Launch counts are
+                tallied around the learner's own calls only;
+ 17. profile  — `torch.profiler` over 20 updates at B = 128, backend "pallas"
                 and "pallas_fused_step", and over 20 replays of the captured
                 timestep: host wall and device busy time per step (so the
                 device's idle share), kernels and CUDA runtime calls per
                 step, the costliest kernels and host ops;
- 17. times    — each kernel at the main paths' shapes: kernel A as the
+ 18. times    — each kernel at the main paths' shapes: kernel A as the
                 three-layer chain and layer by layer, and kernel B, at the
                 serving shapes (B in {1, 8, 128, 512}, both precision
                 phases), kernel B's device-phase instance at B = 1 (the
@@ -122,7 +150,7 @@ JSON line:
                 at B × 400 for B = 512 and 128 and a 2^24-element sweep,
                 both phases: kernel, plain version, library yardstick and
                 the least time the card could take (`bound_ms`);
- 18. engine   — host wall time of synchronous `run_batch` calls per mode
+ 19. engine   — host wall time of synchronous `run_batch` calls per mode
                 and batch (the engine's own cost, without queueing).
 
 Then the `{"kernels": [...]}` line and, last, the status line
@@ -173,6 +201,7 @@ fixed-point API: bitwise, the contract for elementwise fixed-point ops
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -208,6 +237,14 @@ GRAD_TOL = {"off": (2e-4, 2e-5), "monitor": (2e-4, 2e-5), "quant": (5e-3, 2e-2)}
 # The train phase runs the paper's configuration, `configs/fixar_ddpg.CONFIG`,
 # cut in length only (listed in its report under "reduced").
 TRAIN_CUT = dict(total_steps=2000, warmup_steps=1000, eval_episodes=2, requests=64)
+# the learner phase: the engine's default buckets, requests that miss them
+# (padded with zero-weight rows) and one past the top bucket (three chunks)
+LEARNER_BUCKETS = (8, 32, 128)
+LEARNER_PADDED = (5, 27, 100)
+LEARNER_CHUNKED = 300
+LEARNER_THREADS, LEARNER_REQUESTS, LEARNER_ROWS = 4, 64, (4, 40)
+LEARNER_COALESCE = (16, 8)  # 16 requests of 8 rows: one bucket-128 update, or 16 direct B = 8 updates
+LEARNER_TIMED = dict(updates=30, rounds=8)
 REQUESTS_PER_MODE = 256
 CLIENT_THREADS = 8
 
@@ -540,8 +577,9 @@ def phase_kernel_b_res(gen: torch.Generator, dev) -> tuple[float, float]:
 
 # kernel 3's launch-plan edges (`bwd_plan`): one row, the first row blocks of
 # 8 and 16, the widest one-wave batch of clusters of 8 and the next, where
-# 16-row blocks take over (241), and persistent clusters (511)
-BWD_PLAN_BATCHES = (1, 7, 8, 9, 16, 17, 120, 121, 241, 511)
+# 16-row blocks take over (241), and persistent clusters (511); then the
+# learner's middle bucket (32), last so the edges before it keep their inputs
+BWD_PLAN_BATCHES = (1, 7, 8, 9, 16, 17, 120, 121, 241, 511, 32)
 
 
 def phase_kernel_bwd(gen: torch.Generator, dev) -> float:
@@ -604,8 +642,9 @@ STEP_CASES = ((128, 0), (200, 30))  # (B, rows masked by w = 0): the training ba
 # the chain passes' plan edges: one row, the first row blocks of 8 and 16, the
 # widest one-wave batch of clusters of 8 (15 row blocks) and the next (16-row
 # blocks, or clusters of 4 for the critic pass), where the critic pass moves
-# to 16-row blocks (241), and persistent clusters (511)
-STEP_PLAN_BATCHES = (1, 7, 8, 9, 16, 17, 120, 121, 241, 511)
+# to 16-row blocks (241), and persistent clusters (511); then the learner's
+# middle bucket (32), last so the edges before it keep their inputs
+STEP_PLAN_BATCHES = (1, 7, 8, 9, 16, 17, 120, 121, 241, 511, 32)
 # CUDA launches a wrapper call makes: kernel 4 its target pass, critic pass
 # and pass 2; kernel 5 its chain pass and pass 2
 STEP_CUDA_LAUNCHES = {"ddpg_critic_step": 3, "ddpg_actor_step": 2}
@@ -710,26 +749,57 @@ def _step_tolerance() -> dict:
 
 
 def _check_step(got, want, c: dict, name: str, phase: str, tag: str, critic=None, kernel=None,
-                edge: bool = False) -> dict:
+                edge: bool = False, moved: bool = True) -> dict:
     """One kernel-4/5 result against its twin's (`replay.check_step`, with
     the kernel's pass-2 operands `kernel` = (qs, gs)); fails on any of its
     failures.  Returns its errors, the twin's least moves, the worst first
     moment and the replay's counts."""
     from repro_torch.kernels.fxp_mlp.replay import check_step
 
-    res = check_step(got, want, c, name, phase == "quant", *kernel, critic=critic, edge=edge)
+    res = check_step(got, want, c, name, phase == "quant", *kernel, critic=critic, edge=edge, moved=moved)
     require(not res["failures"], f"{tag}: {'; '.join(res['failures'][:4])}")
     return res
 
 
-def phase_kernel_step(gen: torch.Generator, dev) -> dict:
-    """Kernels 4 and 5 against their plain twins on the same card inputs
-    (`_step_cases`) in both phases (`_check_step`); two calls on the same
-    inputs bitwise equal.  Kernel 5 runs through the twin's updated critic
-    on both sides."""
-    from repro_torch.kernels.fxp_mlp import replay
+def _step_pair(c: dict, batch: int, phase: str, label: str, edge: bool = False, moved: bool = True) -> dict:
+    """Kernels 4 and 5 on one case in one phase against their plain twins
+    (`_check_step`; `moved=False` for a case from a training state);
+    two calls on the same inputs bitwise equal.  Kernel 5 runs through
+    the twin's updated critic on both sides.  Returns {name: (tag,
+    check_step's result)}."""
     from repro_torch.kernels.fxp_mlp.kernel import _ddpg_actor_step, _ddpg_critic_step, step_monitor_rows
     from repro_torch.kernels.fxp_mlp.ref import ref_ddpg_actor_step, ref_ddpg_critic_step
+
+    quant = phase == "quant"
+    dev = c["obs"].device
+    phase_t = torch.full((1,), int(quant), dtype=torch.int32, device=dev)
+    want_c = ref_ddpg_critic_step(*_critic_args(c), quant, **c["kw"])
+    out = {}
+    for name, launch, twin_out, args in (
+        ("critic", _ddpg_critic_step, want_c, _critic_args(c)),
+        ("actor", _ddpg_actor_step, None, _actor_args(c, want_c[0])),
+    ):
+        got, scratch = launch(*args, phase_t, **c["kw"])
+        again, _ = launch(*args, phase_t, **c["kw"])
+        want = twin_out if twin_out is not None else ref_ddpg_actor_step(*args, quant, **c["kw"])
+        torch.cuda.synchronize()
+        tag = f"kernel {4 if name == 'critic' else 5} {label} {phase}"
+        flat = lambda out: [t for tr in out[:4] for half in tr for t in half] + list(out[4:])  # noqa: E731
+        require(all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))),
+                f"{tag}: two calls on the same inputs differ")
+        n_sites = 3 if name == "critic" else 6
+        rows = step_monitor_rows(batch, ACTOR_DIMS, CRITIC_DIMS, name)
+        require(got[4].shape == (rows, n_sites) and got[6].shape[0] == rows,
+                f"{tag}: mins shape {tuple(got[4].shape)}, partials {tuple(got[6].shape)}")
+        out[name] = (tag, _check_step(got, want, c, name, phase, tag, want_c[0] if name == "actor" else None, scratch,
+                                      edge=edge, moved=moved))
+    return out
+
+
+def phase_kernel_step(gen: torch.Generator, dev) -> dict:
+    """Kernels 4 and 5 against their plain twins on the same card inputs
+    (`_step_cases`) in both phases (`_step_pair`)."""
+    from repro_torch.kernels.fxp_mlp import replay
 
     worst = {name: {phase: {} for phase in STEP_PHASES} for name in ("critic", "actor")}
     moved = {name: {phase: {} for phase in STEP_PHASES} for name in ("critic", "actor")}
@@ -738,27 +808,7 @@ def phase_kernel_step(gen: torch.Generator, dev) -> dict:
     for label, batch, masked, c in _step_cases(gen, dev):
         labels.append(label)
         for phase in STEP_PHASES:
-            quant = phase == "quant"
-            phase_t = torch.full((1,), int(quant), dtype=torch.int32, device=dev)
-            want_c = ref_ddpg_critic_step(*_critic_args(c), quant, **c["kw"])
-            for name, launch, twin_out, args in (
-                ("critic", _ddpg_critic_step, want_c, _critic_args(c)),
-                ("actor", _ddpg_actor_step, None, _actor_args(c, want_c[0])),
-            ):
-                got, scratch = launch(*args, phase_t, **c["kw"])
-                again, _ = launch(*args, phase_t, **c["kw"])
-                want = twin_out if twin_out is not None else ref_ddpg_actor_step(*args, quant, **c["kw"])
-                torch.cuda.synchronize()
-                tag = f"kernel {4 if name == 'critic' else 5} {label} {phase}"
-                flat = lambda out: [t for tr in out[:4] for half in tr for t in half] + list(out[4:])  # noqa: E731
-                require(all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))),
-                        f"{tag}: two calls on the same inputs differ")
-                n_sites = 3 if name == "critic" else 6
-                rows = step_monitor_rows(batch, ACTOR_DIMS, CRITIC_DIMS, name)
-                require(got[4].shape == (rows, n_sites) and got[6].shape[0] == rows,
-                        f"{tag}: mins shape {tuple(got[4].shape)}, partials {tuple(got[6].shape)}")
-                res = _check_step(got, want, c, name, phase, tag, want_c[0] if name == "actor" else None, scratch,
-                                  edge=label.startswith("plan"))
+            for name, (tag, res) in _step_pair(c, batch, phase, label, edge=label.startswith("plan")).items():
                 for k, v in res["max_abs"].items():
                     worst[name][phase][k] = max(worst[name][phase].get(k, 0.0), v)
                 for k, v in res["moved"].items():
@@ -774,7 +824,7 @@ def phase_kernel_step(gen: torch.Generator, dev) -> dict:
                     "partials_one_row_below": replay.PART_ROWS},
          max_abs=worst, twin_moved_least=moved, replay=replays, bitwise_repeat=True,
          cuda_launches_per_call=STEP_CUDA_LAUNCHES,
-         plans=_step_plans((*{b for b, _ in STEP_CASES}, *STEP_PLAN_BATCHES)))
+         plans=_step_plans(sorted({*(b for b, _ in STEP_CASES), *STEP_PLAN_BATCHES, *LEARNER_BUCKETS})))
     return {name: max(v for ph in w.values() for v in ph.values()) for name, w in worst.items()}
 
 
@@ -1424,6 +1474,429 @@ def phase_train_fused(gen: torch.Generator, dev, seed: int, pallas: dict) -> dic
         "device_vs_host_max_param_diff": drift, "device_vs_host_rewards_bitwise": same_replay,
     }
     emit("train_fused", **report)
+    return report, ts_h.agent
+
+
+def _host_batch(rng: np.random.Generator, spec, n: int) -> dict:
+    """A host update request of `n` transitions (numpy, as producers send)."""
+    return {
+        "obs": (rng.normal(size=(n, spec.obs_dim)) * 2).astype(np.float32),
+        "action": rng.uniform(-1, 1, size=(n, spec.act_dim)).astype(np.float32),
+        "reward": rng.normal(size=(n,)).astype(np.float32),
+        "next_obs": (rng.normal(size=(n, spec.obs_dim)) * 2).astype(np.float32),
+        "done": rng.uniform(size=(n,)) < 0.05,
+    }
+
+
+def _on(batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def _tally(acc: dict):
+    """Add the wrapper launches made inside the block to `acc`."""
+    before = _counts()
+    try:
+        yield
+    finally:
+        for k, v in _counts().items():
+            acc[k] = acc.get(k, 0) + v - before[k]
+
+
+def _same_state(a, b) -> str:
+    """'' when two states are bitwise equal leaf by leaf (dtypes too), else
+    the first leaf that differs."""
+    from repro_torch import tree
+
+    pa, pb = tree.flatten_with_path(a), tree.flatten_with_path(b)
+    if [p for p, _ in pa] != [p for p, _ in pb]:
+        return "the trees differ"
+    for (path, x), (_, y) in zip(pa, pb):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            return path
+    return ""
+
+
+def _learner_case(state, batch: dict, cfg) -> dict:
+    """A kernel-4/5 case (as `_step_case` makes them) from a learner's state
+    and a padded host batch: what `ddpg.update(backend="pallas_fused_step")`
+    hands the two kernels."""
+    from repro_torch.core.qat import QATContext
+    from repro_torch.kernels.fxp_mlp.ops import _hyper
+    from repro_torch.optim import adam, fxp_adam
+    from repro_torch.rl import ddpg
+
+    dev = state.step.device
+    require(cfg.fxp_weights and cfg.actor_lr == cfg.critic_lr and int(state.actor_opt.step) == int(state.critic_opt.step),
+            "learner case: one set of step constants serves both kernels only with equal rates and steps")
+    b = _on(batch, dev)
+    wb = lambda p: ddpg._params_to_wb(p, len(ddpg.ACTOR_ACTS))  # noqa: E731
+    deltas, zs = QATContext(state.qat).site_quant_params(ddpg.ACTOR_SITES + ddpg.CRITIC_SITES)
+    w = b["mask"] if "mask" in b else torch.ones(b["obs"].shape[0], dtype=torch.float32, device=dev)
+    consts = adam.step_constants(fxp_adam.FxpAdamConfig(lr=cfg.critic_lr), state.critic_opt.step + 1)
+    return {
+        "obs": b["obs"], "action": b["action"], "reward": b["reward"], "done": b["done"].to(torch.float32),
+        "next_obs": b["next_obs"], "w": w,
+        "actor": wb(state.actor), "actor_t": wb(state.actor_target), "actor_m": wb(state.actor_opt.mu),
+        "actor_v": wb(state.actor_opt.nu), "critic": wb(state.critic), "critic_t": wb(state.critic_target),
+        "critic_m": wb(state.critic_opt.mu), "critic_v": wb(state.critic_opt.nu),
+        "deltas": deltas.contiguous(), "zs": zs.to(torch.float32).contiguous(),
+        "hyper": _hyper(1.0 / torch.clamp(w.sum(), min=1.0), cfg.gamma, cfg.tau, consts),
+        "kw": dict(actor_acts=ddpg.ACTOR_ACTS, critic_acts=ddpg.CRITIC_ACTS, n_bits=state.qat.config.n_bits,
+                   qat=state.qat.config.enabled, fxp32_phase1=state.qat.config.fxp32_phase1, fxp_weights=True),
+    }
+
+
+def _max_err(a: dict, b: dict) -> float:
+    from repro_torch import tree
+
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def _http_get(url: str) -> tuple[int, str]:
+    """(status, body) of a GET on the local telemetry endpoint."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10.0) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode()
+
+
+# the wrapper launches one update makes, by mode (the `train` phase's and
+# `train_fused`'s per-update counts)
+LEARNER_PER_UPDATE = {
+    "fused": {"fxp_mlp_fwd": 5, "fxp_mlp_bwd": 3, "ddpg_critic_step": 0, "ddpg_actor_step": 0},
+    "fused_step": {"fxp_mlp_fwd": 0, "fxp_mlp_bwd": 0, "ddpg_critic_step": 1, "ddpg_actor_step": 1},
+}
+
+
+def _learner_streams(spec, cfg, dev, rng, seed: int, launches: dict) -> tuple[dict, dict]:
+    """Parts 1 and 2 of the learner phase (`phase_learner`), per forced
+    kernel mode; returns (report, the engines)."""
+    from repro_torch.kernels.fxp_mlp import replay
+    from repro_torch.rl import ddpg
+    from repro_torch.train.learner import TRAIN_BACKENDS, LearnerEngine
+
+    report, engines = {}, {}
+    for mode in LEARNER_PER_UPDATE:
+        state = ddpg.init(spec, cfg, generator=torch.Generator().manual_seed(seed + 30), device=dev)
+        eng = LearnerEngine.from_ddpg(state, cfg, force_mode=mode)
+        require(eng.batcher_config.buckets == LEARNER_BUCKETS and eng.device.type == "cuda",
+                f"learner {mode}: buckets {eng.batcher_config.buckets} on {eng.device}")
+        direct_cfg = dataclasses.replace(cfg, backend=TRAIN_BACKENDS[mode])
+        # ---- 1. exact buckets: bitwise the direct calls on the same state sequence
+        exact, want = [], state
+        for rows in LEARNER_BUCKETS:
+            batch, acc = _host_batch(rng, spec, rows), {}
+            with _tally(acc):
+                got_m = eng.run_update(batch)
+            want, want_m = ddpg.update(want, _on(batch, dev), direct_cfg)
+            sync(dev)
+            diff = _same_state(eng.state, want)
+            require(not diff, f"learner {mode} B={rows}: the streamed update differs from the direct call at {diff}")
+            require(all(got_m[k] == float(v) for k, v in want_m.items()), f"learner {mode} B={rows}: metrics differ")
+            require({k: acc[k] for k in LEARNER_PER_UPDATE[mode]} == LEARNER_PER_UPDATE[mode],
+                    f"learner {mode} B={rows}: launches {acc}, expected {LEARNER_PER_UPDATE[mode]}")
+            exact.append({"rows": rows, "launches": acc})
+            launches.update({k: launches.get(k, 0) + v for k, v in acc.items()})
+        # ---- 2. padded requests: bitwise the direct call on the engine's padded
+        # batch; within the update contracts the unpadded call at its own rows
+        padded_rep = []
+        for rows in LEARNER_PADDED:
+            batch, start = _host_batch(rng, spec, rows), eng.state
+            bucket = eng.batcher_config.bucket_for(rows)
+            padded = eng._pad(batch, rows, bucket)
+            phase = "quant" if bool(start.qat.quantized_phase) else "monitor"
+            with _tally(launches):
+                eng.run_update(batch)
+            want, _ = ddpg.update(start, _on(padded, dev), direct_cfg)
+            unpadded, _ = ddpg.update(start, _on(batch, dev), direct_cfg)
+            sync(dev)
+            diff = _same_state(eng.state, want)
+            require(not diff, f"learner {mode} rows={rows}: the padded update differs from the direct call at {diff}")
+            errs = {"params": max(_max_err(getattr(eng.state, n), getattr(unpadded, n)) for n in ("actor", "critic")),
+                    "targets": max(_max_err(getattr(eng.state, n), getattr(unpadded, n))
+                                   for n in ("actor_target", "critic_target")),
+                    "mu": max(_max_err(getattr(eng.state, n).mu, getattr(unpadded, n).mu)
+                              for n in ("actor_opt", "critic_opt")),
+                    "nu": max(_max_err(getattr(eng.state, n).nu, getattr(unpadded, n).nu)
+                              for n in ("actor_opt", "critic_opt"))}
+            require(errs["params"] <= replay.STEP_TOL["params"][0] and errs["targets"] <= replay.STEP_TOL["targets"][0],
+                    f"learner {mode} rows={rows} (bucket {bucket}, {phase}): the padded update is {errs} from the "
+                    "unpadded one: a zero-weight row did not add exactly zero")
+            entry = {"rows": rows, "bucket": bucket, "phase": phase, "max_abs_vs_unpadded": errs}
+            if mode == "fused_step":
+                # the moments: kernels 4 and 5 on this padded case against their
+                # twins, through the float64 operand replay, as kernel_step holds them
+                pair = _step_pair(_learner_case(start, padded, cfg), bucket, phase, f"learner rows={rows}", edge=True,
+                                  moved=False)
+                entry["kernel_step_check"] = {name: {"max_abs": res["max_abs"], "twin_moved_least": res["moved"],
+                                                     "replay": res["replay"]} for name, (_, res) in pair.items()}
+            padded_rep.append(entry)
+        batch, start = _host_batch(rng, spec, LEARNER_CHUNKED), eng.state
+        with _tally(launches):
+            got_m = eng.run_update(batch)
+        want, cap = start, eng.batcher_config.max_batch
+        for lo in range(0, LEARNER_CHUNKED, cap):
+            n = min(cap, LEARNER_CHUNKED - lo)
+            part = {k: v[lo : lo + n] for k, v in batch.items()}
+            want, _ = ddpg.update(want, _on(eng._pad(part, n, eng.batcher_config.bucket_for(n)), dev), direct_cfg)
+        sync(dev)
+        diff = _same_state(eng.state, want)
+        require(got_m["chunks"] == 3 and not diff,
+                f"learner {mode} rows={LEARNER_CHUNKED}: {got_m['chunks']} chunks, state differs at {diff!r}")
+        report[mode] = {"exact": exact, "padded": padded_rep,
+                        "chunked": {"rows": LEARNER_CHUNKED, "chunks": [128, 128, 44], "bitwise": True},
+                        "updates": int(eng.state.step)}
+        engines[mode] = eng
+    return report, engines
+
+
+def _learner_threads(spec, cfg, dev, rng, seed: int, launches: dict) -> dict:
+    """Parts 3 and 5: producer threads into the adaptive learner, its
+    registry and health over HTTP, the SLO rules and a fleet view."""
+    from repro_torch.obs import FleetAggregator, Observability, SLOWatchdog, as_wire, default_rules
+    from repro_torch.rl import ddpg
+    from repro_torch.runtime.engine import BatcherConfig
+    from repro_torch.train.learner import LearnerEngine
+
+    rows = [int(r) for r in rng.integers(LEARNER_ROWS[0], LEARNER_ROWS[1] + 1, size=LEARNER_REQUESTS)]
+    batches = [_host_batch(rng, spec, r) for r in rows]
+    obs = Observability(serve_http=0)
+    try:
+        state = ddpg.init(spec, cfg, generator=torch.Generator().manual_seed(seed + 31), device=dev)
+        eng = LearnerEngine.from_ddpg(state, cfg, obs=obs, batcher=BatcherConfig(buckets=LEARNER_BUCKETS,
+                                                                                 max_wait_ms=5.0))
+        futs, lock = [], threading.Lock()
+
+        def producer(chunk):
+            for b in chunk:
+                f = eng.submit(b)
+                with lock:
+                    futs.append(f)
+
+        with _tally(launches):
+            warmed = eng.warmup()  # every (bucket, mode) on this thread: no build or first launch on the drain thread
+            eng.start()
+            code_live, body = _http_get(obs.server.url + "/healthz")
+            live = json.loads(body)
+            require(code_live == 200 and live["checks"]["learner"]["training"] is True,
+                    f"learner /healthz while training: {code_live} {live}")
+            threads = [threading.Thread(target=producer, args=(batches[i::LEARNER_THREADS],))
+                       for i in range(LEARNER_THREADS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+                require(not t.is_alive(), "learner: a producer thread did not finish")
+            results = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            eng.stop()
+        st = eng.stats()
+        finite = all(bool(torch.isfinite(x).all()) for x in (*eng.state.actor["l0"].values(),
+                                                            *eng.state.critic["l2"].values()))
+        require(len(results) == LEARNER_REQUESTS and st["requests"] == LEARNER_REQUESTS and
+                st["transitions"] == sum(rows) and finite and int(eng.state.step) == st["updates"],
+                f"learner threads: {len(results)} results, stats {st['requests']} requests "
+                f"{st['transitions']} transitions (submitted {sum(rows)}), finite {finite}")
+        # ---- 5. fleet telemetry
+        code, text = _http_get(obs.server.url + "/metrics")
+        series = {ln.rsplit(" ", 1)[0]: ln.rsplit(" ", 1)[1] for ln in text.splitlines() if ln and ln[0] != "#"}
+        want = {"learner_requests": LEARNER_REQUESTS, "learner_transitions": sum(rows),
+                "learner_updates": st["updates"]}
+        require(code == 200 and all(float(series.get(k, "nan")) == v for k, v in want.items()),
+                f"learner /metrics: {code}, {[(k, series.get(k)) for k in want]}")
+        code_after, body = _http_get(obs.server.url + "/healthz")
+        health = json.loads(body)
+        require(code_after == (200 if health["ok"] else 503) and health["checks"]["learner"]["training"] is False
+                and health["checks"]["learner"]["updates"] == st["updates"], f"learner /healthz after: {health}")
+        alerts = SLOWatchdog(default_rules()).evaluate(obs.registry)
+        fleet = FleetAggregator()
+        host = fleet.ingest(as_wire(obs.registry))
+        require(fleet.merged().counter("learner.updates").value == st["updates"], "fleet view lost the learner's updates")
+    finally:
+        obs.close()
+    return {
+        "threads": LEARNER_THREADS, "requests": LEARNER_REQUESTS, "rows": {"min": min(rows), "max": max(rows),
+                                                                           "sum": sum(rows)},
+        "warmed": warmed, "wall_s": wall, "updates": st["updates"], "batch_occupancy": st["batch_occupancy"],
+        "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"], "mode_histogram": st["mode_histogram"],
+        "cost_model": st["cost_model"], "dispatch_audit_drift": st["dispatch_audit"]["drift_factor"],
+        "telemetry": {"metrics_status": code, "prometheus_series": len(series),
+                      "healthz_while_training": code_live, "healthz_after": code_after,
+                      "healthz_ok_after": health["ok"], "slo_alerts": [a["rule"] for a in alerts],
+                      "fleet_host": host},
+    }
+
+
+def _learner_train_host(dev, seed: int, fused_agent, launches: dict) -> dict:
+    """Part 4: `train_fused`'s `train_host` run again through a learner
+    forced to "fused_step": its final agent bitwise that run's."""
+    from repro_torch.rl import ddpg, loop
+    from repro_torch.train.learner import LearnerEngine
+
+    env, cfg, qat_delay, _ = _train_config(seed, eval_every=TRAIN_CUT["warmup_steps"])
+    dcfg = _paper_ddpg(qat_delay, "pallas_fused_step")
+    seed_state = ddpg.init(env.spec, dcfg, generator=torch.Generator().manual_seed(seed + 32), device=dev)
+    learner = LearnerEngine.from_ddpg(seed_state, dcfg, force_mode="fused_step")
+    acc = {}
+    t0 = time.perf_counter()
+    with _tally(acc):
+        ts, info = loop.train_host(env, cfg, dcfg, device=dev, learner=learner)
+        sync(dev)
+    wall = time.perf_counter() - t0
+    updates = cfg.total_steps - cfg.warmup_steps + 1
+    want = {"fxp_mlp_fwd": cfg.total_steps, "fxp_mlp_fwd_residuals": 0, "fxp_mlp_bwd": 0,
+            "ddpg_critic_step": updates, "ddpg_actor_step": updates}
+    require(acc == want, f"learner train_host: launches {acc}, expected {want}")
+    diff = _same_state(ts.agent, fused_agent)
+    require(not diff and ts.agent is learner.state,
+            f"train_host(learner=) ended on another agent than train_fused's train_host: {diff}")
+    launches.update({k: launches.get(k, 0) + v for k, v in acc.items()})
+    st = learner.stats()
+    return {"env_steps": cfg.total_steps, "updates": updates, "wall_s": wall, "env_steps_per_s": cfg.total_steps / wall,
+            "times": info["times"], "learner_updates": st["updates"], "mode_histogram": st["mode_histogram"],
+            "bitwise_train_fused_agent": True, "launches": acc}
+
+
+def _learner_checkpoint(spec, cfg, dev, rng, seed: int, state) -> dict:
+    """Part 6: a learner's state saved and restored on the card into a
+    fresh template, bitwise; one more update from each, bitwise."""
+    import shutil
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.rl import ddpg
+    from repro_torch.train.learner import LearnerEngine
+
+    root = REPO / "build" / "learner_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        path = ckpt.save(root, int(state.step), state, extra={"mode": "fused_step"})
+        manifest = json.loads((path / "manifest.json").read_text())
+        template = ddpg.init(spec, cfg, generator=torch.Generator().manual_seed(seed + 33), device=dev)
+        restored, step, extra = ckpt.restore(root, template, device=dev)
+        diff = _same_state(restored, state)
+        require(not diff and step == int(state.step) and extra == {"mode": "fused_step"},
+                f"checkpoint: restored state differs at {diff!r} (step {step}, extra {extra})")
+        batch = _host_batch(rng, spec, 128)
+        a, b = (LearnerEngine.from_ddpg(s, cfg, force_mode="fused_step") for s in (state, restored))
+        a.run_update(batch)
+        b.run_update(batch)
+        diff = _same_state(a.state, b.state)
+        require(not diff, f"checkpoint: an update from the restored state differs at {diff}")
+        dtypes = sorted({leaf["dtype"] for leaf in manifest["leaves"]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"leaves": len(manifest["leaves"]), "dtypes": dtypes, "step": step, "restored_bitwise": True,
+            "next_update_bitwise": True}
+
+
+def _learner_throughput(spec, cfg, dev, rng, seed: int, launches: dict) -> dict:
+    """Part 7: per forced mode at bucket 128, updates/s and train IPS of
+    the learner, beside direct `ddpg.update` calls on the same host
+    batches, alternating update by update (so the learner's own cost per
+    update); then 16 requests of 8 rows coalesced into one bucket-128
+    update against 16 direct B = 8 updates, per kernel mode."""
+    from repro_torch.rl import ddpg
+    from repro_torch.runtime.engine import BatcherConfig
+    from repro_torch.train.learner import TRAIN_BACKENDS, LearnerEngine
+
+    per_mode = {}
+    for mode in ("fused_step", "fused", "jnp"):
+        state = ddpg.init(spec, cfg, generator=torch.Generator().manual_seed(seed + 34), device=dev)
+        eng = LearnerEngine.from_ddpg(state, cfg, force_mode=mode)
+        direct_cfg = dataclasses.replace(cfg, backend=TRAIN_BACKENDS[mode])
+        eng.warmup(buckets=(128,))
+        ddpg.update(state, _on(_host_batch(rng, spec, 128), dev), direct_cfg)
+        sync(dev)
+        eng.reset_stats()
+        direct, t_eng, t_dir = state, [], []
+        for _ in range(LEARNER_TIMED["updates"]):
+            batch = _host_batch(rng, spec, 128)
+            t0 = time.perf_counter()
+            with _tally(launches):
+                eng.run_update(batch)
+            t_eng.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            direct, metrics = ddpg.update(direct, _on(batch, dev), direct_cfg)
+            float(metrics["critic_loss"])  # the learner reads its metrics on the host too
+            sync(dev)
+            t_dir.append(time.perf_counter() - t0)
+        require(not _same_state(eng.state, direct), f"learner {mode}: timed stream parted from the direct calls")
+        st = eng.stats()
+        med_e, med_d = statistics.median(t_eng), statistics.median(t_dir)
+        per_mode[mode] = {"bucket": 128, "updates": LEARNER_TIMED["updates"],
+                          "updates_per_s_device": st["updates_per_s_device"], "train_ips_device": st["train_ips_device"],
+                          "updates_per_s_wall": len(t_eng) / sum(t_eng), "train_ips_wall": 128 * len(t_eng) / sum(t_eng),
+                          "update_ms_p50": med_e * 1e3, "direct_update_ms_p50": med_d * 1e3,
+                          "learner_overhead_ms_p50": (med_e - med_d) * 1e3}
+    coalesced = {}
+    n_req, rows = LEARNER_COALESCE
+    for mode in ("fused_step", "fused"):
+        state = ddpg.init(spec, cfg, generator=torch.Generator().manual_seed(seed + 35), device=dev)
+        eng = LearnerEngine.from_ddpg(state, cfg, force_mode=mode,
+                                      batcher=BatcherConfig(buckets=LEARNER_BUCKETS, max_wait_ms=50.0))
+        direct_cfg = dataclasses.replace(cfg, backend=TRAIN_BACKENDS[mode])
+        eng.warmup(buckets=(8, 128))
+        direct, t_coal, t_dir = state, [], []
+        eng.start()
+        try:
+            for _ in range(LEARNER_TIMED["rounds"]):
+                reqs = [_host_batch(rng, spec, rows) for _ in range(n_req)]
+                t0 = time.perf_counter()
+                with _tally(launches):
+                    futs = [eng.submit(r) for r in reqs]
+                    for f in futs:
+                        f.result(timeout=120)
+                t_coal.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                for r in reqs:
+                    direct, metrics = ddpg.update(direct, _on(r, dev), direct_cfg)
+                    float(metrics["critic_loss"])
+                sync(dev)
+                t_dir.append(time.perf_counter() - t0)
+        finally:
+            eng.stop()
+        st = eng.stats()
+        med_c, med_d = statistics.median(t_coal), statistics.median(t_dir)
+        coalesced[mode] = {
+            "requests": n_req, "rows": rows, "rounds": LEARNER_TIMED["rounds"],
+            "coalesced_updates": st["updates"], "batch_occupancy": st["batch_occupancy"],
+            "coalesced": {"updates_per_s": 1.0 / med_c * st["updates"] / LEARNER_TIMED["rounds"],
+                          "train_ips": n_req * rows / med_c, "round_ms_p50": med_c * 1e3},
+            "direct_b8": {"updates_per_s": n_req / med_d, "train_ips": n_req * rows / med_d,
+                          "round_ms_p50": med_d * 1e3},
+            "train_ips_ratio": med_d / med_c,
+        }
+    return {"per_mode": per_mode, "coalesce_16x8": coalesced}
+
+
+def phase_learner(dev, seed: int, fused_agent) -> dict:
+    """The learner engine (`train.learner.LearnerEngine`) at the paper's
+    nets on the card (module docstring, phase 16).  Fails on any part."""
+    from repro_torch.rl.envs import make
+
+    spec = make("halfcheetah").spec
+    cfg = _paper_ddpg(4, "pallas_fused_step")  # the QAT delay crossed inside part 2
+    rng = np.random.default_rng(seed + 18)  # its own stream: later phases keep their inputs
+    launches: dict = {}
+    streams, engines = _learner_streams(spec, cfg, dev, rng, seed, launches)
+    threads = _learner_threads(spec, cfg, dev, rng, seed, launches)
+    host = _learner_train_host(dev, seed, fused_agent, launches)
+    checkpoint = _learner_checkpoint(spec, cfg, dev, rng, seed, engines["fused_step"].state)
+    throughput = _learner_throughput(spec, cfg, dev, rng, seed, launches)
+    for name in ("fxp_mlp_fwd", "fxp_mlp_bwd", "ddpg_critic_step", "ddpg_actor_step"):
+        require(launches.get(name, 0) > 0, f"learner: kernel {name} never launched on the learner's path")
+    report = {"nets": {"actor": list(ACTOR_DIMS), "critic": list(CRITIC_DIMS)}, "buckets": list(LEARNER_BUCKETS),
+              "streams": streams, "threads": threads, "train_host": host, "checkpoint": checkpoint,
+              "throughput": throughput, "launches": launches,
+              "tolerance": {"streams": "bitwise", "padded_vs_unpadded": {"params": 2.0**-16, "targets": 1e-6},
+                            "fused_step_moments": "kernel_step's check (replay.check_step) on the padded case"}}
+    emit("learner", **report)
     return report
 
 
@@ -1940,7 +2413,8 @@ def main(argv=None) -> int:
     phase_update(gen, dev)
     phase_update(gen, dev, "pallas_fused_step")
     train = phase_train(gen, dev, args.seed)
-    fused = phase_train_fused(gen, dev, args.seed, train)
+    fused, fused_agent = phase_train_fused(gen, dev, args.seed, train)
+    learner = phase_learner(dev, args.seed, fused_agent)["launches"]
     phase_profile(gen, dev)
     times = phase_times(gen, dev, dev_info)
     phase_engine_latency(gen, dev)
@@ -1956,10 +2430,10 @@ def main(argv=None) -> int:
     by_path = {
         "fxp_dense": {"serve": serve_launches["fxp_dense"]},
         "fxp_mlp_fwd": {"serve": serve_launches["fxp_mlp_fwd"], "train": train["launches"]["fxp_mlp_fwd"],
-                        **fused_path("fxp_mlp_fwd")},
-        "fxp_mlp_bwd": {"train": train["launches"]["fxp_mlp_bwd"]},
-        "ddpg_critic_step": fused_path("ddpg_critic_step"),
-        "ddpg_actor_step": fused_path("ddpg_actor_step"),
+                        **fused_path("fxp_mlp_fwd"), "learner": learner["fxp_mlp_fwd"]},
+        "fxp_mlp_bwd": {"train": train["launches"]["fxp_mlp_bwd"], "learner": learner["fxp_mlp_bwd"]},
+        "ddpg_critic_step": {**fused_path("ddpg_critic_step"), "learner": learner["ddpg_critic_step"]},
+        "ddpg_actor_step": {**fused_path("ddpg_actor_step"), "learner": learner["ddpg_actor_step"]},
         "fxp_monitor_quant": {"layer_monitor": layer["launches"]["fxp_monitor_quant"]},
     }
 

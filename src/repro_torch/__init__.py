@@ -19,6 +19,13 @@ its residuals under autograd) and every backward the fused backward
 (`csrc/fxp_mlp_bwd.cu`).  `PolicyEngine.from_ddpg` serves the trained
 actor.
 
+`train.learner.LearnerEngine` streams coalesced, bucket-padded update
+requests through `ddpg.update` (the paper's intra-batch training path);
+`obs` carries the fleet telemetry (exporters, the `/metrics` and
+`/healthz` endpoint, aggregation, SLO rules), `checkpoint.ckpt` the
+reference's checkpoint layout and `runtime.ft` the fault-tolerance
+bookkeeping.
+
 Device rule: entry points run on `cuda` unless the caller passes
 `device="cpu"`; with no CUDA device and no explicit device they raise
 (`repro_torch.device.resolve_device`).  Kernel wrappers follow the device

@@ -8,7 +8,9 @@ Both functions take numpy arrays (convert on the JAX side with
   * `frozen_from_numpy` — a reference `FrozenQuant`'s fields → the port's
     `FrozenQuant` on `device`;
   * `ddpg_state_from_numpy` — a whole reference `DDPGState` (nets, targets,
-    Adam states, QAT state) → the port's `DDPGState` on `device`.
+    Adam states, QAT state) → the port's `DDPGState` on `device`;
+  * `ddpg_state_to_numpy` — its inverse: the port's `DDPGState` with every
+    leaf a numpy array, its leaves in the reference's pytree order.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.core.qat import FrozenQuant, QATConfig, QATState
 from repro_torch.core.ranges import RangeStat
 from repro_torch.device import DeviceLike, resolve_device
@@ -93,4 +96,14 @@ def ddpg_state_from_numpy(state, *, device: DeviceLike = None) -> DDPGState:
     )
 
 
-__all__ = ["actor_from_numpy", "frozen_from_numpy", "ddpg_state_from_numpy"]
+def ddpg_state_to_numpy(state: DDPGState) -> DDPGState:
+    """The port's `DDPGState` with every tensor copied to a numpy array of
+    its dtype (the counters int32), the layout kept: `ddpg_state_from_numpy`
+    takes it back.  `repro_torch.tree.leaves` lists its leaves in the
+    order of `jax.tree_util.tree_leaves` over the reference's state, so
+    `jax.tree_util.tree_unflatten` of a reference state's treedef over
+    them builds the reference's `DDPGState`."""
+    return tree.tree_map(lambda t: t.detach().cpu().numpy(), state)
+
+
+__all__ = ["actor_from_numpy", "frozen_from_numpy", "ddpg_state_from_numpy", "ddpg_state_to_numpy"]

@@ -1,7 +1,7 @@
 """Fixed-point formats, range monitors and QAT state (port of `repro.core`).
 
 The reference's re-exports, but for `core.parallelism` (not ported yet:
-`ROADMAP.md`, mesh serving)."""
+`ROADMAP.md` queue 1 item 5, adaptive parallelism and mesh serving)."""
 
 from repro_torch.core.fixedpoint import (
     FXP16,

@@ -527,7 +527,8 @@ def _leaves(tree) -> list:
     return [*tree[0], *tree[1]]
 
 
-def check_step(got, want, c: dict, name: str, quant: bool, kqs, kgs, critic=None, edge: bool = False) -> dict:
+def check_step(got, want, c: dict, name: str, quant: bool, kqs, kgs, critic=None, edge: bool = False,
+               moved: bool = True) -> dict:
     """Kernel 4's (name "critic") or 5's ("actor", through `critic`) result
     `got` against its twin's `want`, with the kernel's pass-2 operands kqs,
     kgs: the operands against the replay (`check_step_operands`); the four
@@ -537,7 +538,10 @@ def check_step(got, want, c: dict, name: str, quant: bool, kqs, kgs, critic=None
     Adam's step of one leaf can stay within a Q15.16 quantum); the site
     extrema; the loss
     partials at PART_TOL, plus one row's flipped decision for a plan-edge
-    case (`edge`) with fewer live rows than PART_ROWS.  Returns
+    case (`edge`) with fewer live rows than PART_ROWS.  `moved=False`
+    drops the moved-past-tolerance guard, for a case taken from a training
+    state (the learner's), whose step may move a small moment by less than
+    its tolerance; the moves are still reported.  Returns
     {"failures", "max_abs" per tree, "moved" (the twin's least move of
     params, mu and targets), "worst" (per tree of params and mu, the
     element farthest from the twin's: its leaf, index, error, the gradient
@@ -548,7 +552,7 @@ def check_step(got, want, c: dict, name: str, quant: bool, kqs, kgs, critic=None
     fails = list(rep["failures"])
     slack, grads = pass2_slack(rep["twin"], kqs, kgs)
     inputs = [c[name], c[f"{name}_m"], c[f"{name}_v"], c[f"{name}_t"]]
-    errs, moved, stale, worst = {}, {}, {}, {}
+    errs, moves, stale, worst = {}, {}, {}, {}
     for k, (tree, (atol, rtol)) in enumerate(STEP_TOL.items()):
         for leaf, (g, w, x, a) in enumerate(zip(_leaves(got[k]), _leaves(want[k]), _leaves(inputs[k]),
                                                 step_atol(c["hyper"], slack, grads, tree, atol))):
@@ -568,12 +572,12 @@ def check_step(got, want, c: dict, name: str, quant: bool, kqs, kgs, critic=None
                                "slack_quanta": float(slack[leaf].flatten()[i]) * 2.0**16,
                                "v": float(_leaves(inputs[2])[leaf].flatten()[i])}
             if tree != "nu":
-                moved[tree] = min(moved.get(tree, torch.inf), float((w - x).abs().max()))
+                moves[tree] = min(moves.get(tree, torch.inf), float((w - x).abs().max()))
                 leaf_stale = not unchanged_fails(x, w, a, rtol)
                 stale[tree] = stale.get(tree, True) and leaf_stale
-                if tree != "params" and leaf_stale:
+                if moved and tree != "params" and leaf_stale:
                     fails.append(f"{tree} leaf {leaf}: the twin moves it within its tolerance")
-    if stale["params"]:
+    if moved and stale["params"]:
         fails.append("params: the twin moves no leaf past its tolerance")
     mins, maxs = got[4].amin(0), got[5].amax(0)
     if float(mins[0]) != float(want[4][0, 0]) or float(maxs[0]) != float(want[5][0, 0]):
@@ -594,7 +598,7 @@ def check_step(got, want, c: dict, name: str, quant: bool, kqs, kgs, critic=None
         fails.append(f"loss partials / Σw: error {err.tolist()}")
     stats = {k: rep[k] for k in ("ambiguous", "rounded_apart", "relu_apart", "relu_apart_first")}
     stats["max_slack_quanta"] = max(float(t.max()) for t in slack) * 2.0**16 if slack else 0.0
-    return {"failures": fails, "max_abs": errs, "moved": moved, "worst": worst, "replay": stats}
+    return {"failures": fails, "max_abs": errs, "moved": moves, "worst": worst, "replay": stats}
 
 
 __all__ = ["check_step", "check_step_operands", "one_row", "pass2_slack", "step_atol", "step_twin",

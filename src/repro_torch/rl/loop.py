@@ -28,8 +28,10 @@ buffer holds min(steps · n_envs, capacity) transitions.
   every backend.
 * `train_fused` is the reference's chunked driver over the same windows.
 
-Not ported yet (`ROADMAP.md`): `learner=` (the learner engine) and
-`observability=` (the fleet telemetry bundle) raise.
+Only `train_host` takes a learner engine (`learner=`) and a telemetry
+bundle (`observability=`), as in the reference: the window drivers'
+captured timestep reads nothing on the host, and a learner's queue holds
+host arrays.
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import tree
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.optim import adam
 from repro_torch.rl import ddpg, replay
 from repro_torch.rl.envs.base import EnvState, env_init, init_fleet, step_fleet
 from repro_torch.rl.noise import NoiseProcess, NoiseState
@@ -126,11 +128,15 @@ def _updates_at(step: int, cfg: TrainConfig) -> bool:
 
 
 def _timestep(ts: TrainState, env, proc: NoiseProcess, dcfg: ddpg.DDPGConfig, update: bool,
-              mark: Callable[[], None] = lambda: None) -> tuple[TrainState, Tensor]:
+              mark: Callable[[], None] = lambda: None,
+              update_fn: Optional[Callable[[ddpg.DDPGState, dict], ddpg.DDPGState]] = None
+              ) -> tuple[TrainState, Tensor]:
     """One FIXAR timestep (module docstring), the one every driver runs;
     returns the new state and the fleet's rewards.  Reads nothing on the
-    host.  `mark` is called after each of the Fig.-9 segments that ran:
-    act, env, replay, and the update when there is one."""
+    host unless `update_fn` does.  `mark` is called after each of the
+    Fig.-9 segments that ran: act, env, replay, and the update when there
+    is one.  `update_fn(agent, batch) -> agent` replaces `ddpg.update`
+    (`train_host` passes its learner's)."""
     # 1. actor forward (inference) + exploration noise  [FPGA FP + PRNG]
     nz, eps = proc.sample(ts.noise, ts.gen)
     action = ddpg.act(ts.agent, ts.obs, cfg=dcfg, noise=eps)
@@ -147,25 +153,9 @@ def _timestep(ts: TrainState, env, proc: NoiseProcess, dcfg: ddpg.DDPGConfig, up
     # 5. critic/actor BP+WU                              [FPGA training]
     agent = ts.agent
     if update:
-        agent = ddpg.update(agent, batch, dcfg)[0]
+        agent = ddpg.update(agent, batch, dcfg)[0] if update_fn is None else update_fn(agent, batch)
         mark()
     return dataclasses.replace(ts, agent=agent, env_state=env_state, obs=next_obs, buf=buf, noise=nz), reward
-
-
-def _state_leaves(ts: TrainState) -> list[Tensor]:
-    """Every tensor of a `TrainState`, in a fixed order."""
-    a = ts.agent
-    nets = (a.actor, a.critic, a.actor_target, a.critic_target, a.actor_opt.mu, a.actor_opt.nu,
-            a.critic_opt.mu, a.critic_opt.nu)
-    out = [leaf for tree in nets for leaf in adam.tree_leaves(tree)]
-    out += [a.actor_opt.step, a.critic_opt.step, a.qat.step, a.step]
-    for name in sorted(a.qat.ranges):
-        r = a.qat.ranges[name]
-        out += [r.a_min, r.a_max, r.count]
-    b = ts.buf
-    out += [ts.env_state.q, ts.env_state.qd, ts.env_state.t, ts.obs, ts.noise.x,
-            b.obs, b.action, b.reward, b.next_obs, b.done, b.ptr, b.size]
-    return out
 
 
 class _Window:
@@ -190,7 +180,7 @@ class _Window:
 
     def _step(self, update: bool) -> None:
         new, reward = _timestep(self.ts, self.env, self.proc, self.dcfg, update)
-        pairs = [(d, s) for d, s in zip(_state_leaves(self.ts), _state_leaves(new)) if d is not s]
+        pairs = [(d, s) for d, s in zip(tree.leaves(self.ts), tree.leaves(new)) if d is not s]
         # one multi-tensor copy per dtype, not one copy kernel per leaf
         groups: dict = {}
         for d, s in pairs:
@@ -325,17 +315,38 @@ def train_host(
     observability=None,
 ) -> tuple[TrainState, dict[str, Any]]:
     """Paper-faithful host loop with the Fig.-9 timing breakdown (module
-    docstring).  `tracer` (an `obs.Tracer`), when enabled, gets one span
-    per segment and timestep: `loop.act`, `loop.env`, `loop.replay` and
-    `loop.update`.
+    docstring).
+
+    `learner` (optional) is a `train.learner.LearnerEngine` (or anything
+    with its `load_state` / `run_update` / `state` surface): the freshly
+    initialized agent is installed into it, and every update copies the
+    sampled batch to host numpy arrays and streams it through
+    `learner.run_update` — bucket padding, train-phase dispatch and the
+    learner's metrics included — instead of the loop's own `ddpg.update`.
+    The engine copies the batch back to its state's device inside
+    `run_update`; both copies are billed to the update segment.  The
+    update backend is whatever the engine's dispatcher picks;
+    `dcfg.backend` still drives acting.  The replay sample draws from the
+    loop's generator either way, so a learner forced to the mode of
+    `dcfg.backend` (`TRAIN_BACKENDS`) at a `batch_size` that is one of its
+    buckets ends on the same agent, bitwise.
+
+    `tracer` (an `obs.Tracer`), when enabled, gets one span per segment
+    and timestep: `loop.act`, `loop.env`, `loop.replay` and `loop.update`,
+    layered over a learner's own engine spans.
+
+    `observability` (an `obs.Observability`): its tracer is used when
+    `tracer` is None, its HTTP endpoint (`serve_http=port`) is started so
+    the host serves /metrics and /healthz while training, and its tracer is
+    flushed on exit, normal or aborted.
 
     Returns (final TrainState, {"times": {env, runtime, accelerator}
     seconds, "total_steps"})."""
-    if learner is not None:
-        raise NotImplementedError("learner= (the learner engine) is not ported yet: ROADMAP.md Queue 2")
-    if observability is not None:
-        raise NotImplementedError("observability= (fleet telemetry) is not ported yet: ROADMAP.md Queue 2")
     cfg = as_train_config(cfg)
+    if observability is not None:
+        if tracer is None:
+            tracer = observability.tracer
+        observability.ensure_server()
     ts = init_train_state(env, cfg, dcfg, device=device)
     dev = ts.obs.device
     proc = _noise_proc(cfg, dcfg)
@@ -346,21 +357,33 @@ def train_host(
         _sync(dev)
         stamps.append(time.perf_counter())
 
-    for step in range(cfg.total_steps):
-        stamps[:] = [time.perf_counter()]
-        update = _updates_at(step, cfg)
-        ts, _ = _timestep(ts, env, proc, dcfg, update, mark)
-        t0, t1, t2, t3 = stamps[:4]
-        t4 = stamps[4] if update else time.perf_counter()
-        times["accelerator"] += (t1 - t0) + (t4 - t3)
-        times["env"] += t2 - t1
-        times["runtime"] += t3 - t2
-        if tracer is not None and tracer.enabled:
-            tracer.complete("loop.act", t0, t1, cat="loop", step=step)
-            tracer.complete("loop.env", t1, t2, cat="loop", step=step)
-            tracer.complete("loop.replay", t2, t3, cat="loop", step=step)
-            if t4 > t3:
-                tracer.complete("loop.update", t3, t4, cat="loop", step=step)
+    update_fn = None
+    if learner is not None:
+        learner.load_state(ts.agent)
+
+        def update_fn(agent: ddpg.DDPGState, batch: dict) -> ddpg.DDPGState:
+            learner.run_update({k: v.cpu().numpy() for k, v in batch.items()})  # blocks until applied
+            return learner.state
+
+    try:
+        for step in range(cfg.total_steps):
+            stamps[:] = [time.perf_counter()]
+            update = _updates_at(step, cfg)
+            ts, _ = _timestep(ts, env, proc, dcfg, update, mark, update_fn)
+            t0, t1, t2, t3 = stamps[:4]
+            t4 = stamps[4] if update else time.perf_counter()
+            times["accelerator"] += (t1 - t0) + (t4 - t3)
+            times["env"] += t2 - t1
+            times["runtime"] += t3 - t2
+            if tracer is not None and tracer.enabled:
+                tracer.complete("loop.act", t0, t1, cat="loop", step=step)
+                tracer.complete("loop.env", t1, t2, cat="loop", step=step)
+                tracer.complete("loop.replay", t2, t3, cat="loop", step=step)
+                if t4 > t3:
+                    tracer.complete("loop.update", t3, t4, cat="loop", step=step)
+    finally:
+        if observability is not None:
+            observability.flush()
     return ts, {"times": times, "total_steps": cfg.total_steps}
 
 

@@ -1,8 +1,7 @@
 """`StreamEngine` — the shared request-lifecycle core of every engine.
 
 A copy of `repro.runtime.engine.base` for the port, with its imports
-rewritten and without the HTTP endpoint start (`Observability.serve_http`
-is not ported yet).  One implementation of the machinery `serve/policy` and `train/learner`
+rewritten.  One implementation of the machinery `serve/policy` and `train/learner`
 used to carry separately (and `serve/lm` would have re-derived a third
 time):
 
@@ -108,6 +107,7 @@ class StreamEngine:
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self.obs.register_health(health_name or prefix, self.health)
+        self.obs.ensure_server()
 
     # ------------------------------------------------------------------ #
     # dispatch + call accounting
@@ -179,8 +179,8 @@ class StreamEngine:
         """Shut the engine down for good: stop the serve loop and flush
         the tracer (to its configured path, if any) so a run that died
         mid-serve still leaves its trace on disk.  The observability
-        bundle itself may be shared with other engines;
-        `Observability.close()` owns it."""
+        bundle itself (HTTP server) stays up — it may be shared with
+        other engines; `Observability.close()` owns that."""
         self.stop()
         self.obs.flush()
 
@@ -192,9 +192,10 @@ class StreamEngine:
         return False
 
     def health(self) -> dict:
-        """Health source: ok while the dispatch calibration holds (always
-        ok for engines without a cost model), with the drift factor,
-        serving state and lifetime calls."""
+        """`/healthz` source: ok while the dispatch calibration holds
+        (always ok for engines without a cost model).  Includes enough
+        context (drift factor, serving state, lifetime calls) for an
+        operator to act on a 503 without shelling in."""
         out = {
             "ok": True,
             self.health_running_key: self._thread is not None,

@@ -621,3 +621,43 @@ def test_fxp_mlp_fwd_device_phase_graph_replays_across_a_phase_flip(dev, net):
         want = fxp_mlp_fwd_cuda(x, ws, bs, deltas, zs, quant=bool(p), **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(out, want)), p
+
+
+@pytest.mark.parametrize("mode", ["fused", "fused_step"])
+def test_learner_exact_bucket_stream_is_bitwise_direct_updates(dev, mode):
+    """The learner engine on the card at the paper's nets: requests that
+    fill a bucket (8, 32, 128) stream through `run_update` bitwise equal to
+    direct `ddpg.update` calls on the same state sequence, through the
+    kernels (their wrapper counters move)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.kernels.fxp_mlp.kernel import ddpg_actor_step_cuda, fxp_mlp_bwd_cuda
+    from repro_torch.rl import ddpg
+    from repro_torch.rl.envs import make
+    from repro_torch.train.learner import TRAIN_BACKENDS, LearnerEngine
+
+    spec = make("halfcheetah").spec
+    cfg = ddpg.DDPGConfig(qat_delay=2)
+    state = ddpg.init(spec, cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    eng = LearnerEngine.from_ddpg(state, cfg, force_mode=mode)
+    direct_cfg = dataclasses.replace(cfg, backend=TRAIN_BACKENDS[mode])
+    counter = ddpg_actor_step_cuda if mode == "fused_step" else fxp_mlp_bwd_cuda
+    r = np.random.default_rng(1)
+    want = state
+    for rows in (8, 32, 128, 8):
+        batch = {"obs": r.normal(size=(rows, spec.obs_dim)).astype(np.float32),
+                 "action": r.uniform(-1, 1, size=(rows, spec.act_dim)).astype(np.float32),
+                 "reward": r.normal(size=(rows,)).astype(np.float32),
+                 "next_obs": r.normal(size=(rows, spec.obs_dim)).astype(np.float32),
+                 "done": r.uniform(size=(rows,)) < 0.05}
+        before = counter.launches
+        got_metrics = eng.run_update(batch)
+        assert counter.launches > before
+        want, want_metrics = ddpg.update(want, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, direct_cfg)
+        for (path, a), (_, b) in zip(tree.flatten_with_path(eng.state), tree.flatten_with_path(want)):
+            assert a.is_cuda and torch.equal(a, b), f"{mode} B={rows} {path}"
+        assert all(got_metrics[k] == float(v) for k, v in want_metrics.items())
+    assert bool(eng.state.qat.quantized_phase)

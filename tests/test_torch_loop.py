@@ -76,12 +76,109 @@ def test_fleet_and_config_normalisation():
 
 
 def test_unported_options_and_the_device_rule_raise():
+    """`learner=` and `observability=` are ported: a value without their
+    surface (`load_state` / `run_update` / `state`; `tracer` /
+    `ensure_server` / `flush`) raises; without a card and without a device
+    the loop raises (the device rule)."""
     env = make("pendulum")
     cfg, dcfg = loop.TrainConfig(total_steps=1), ddpg.DDPGConfig()
-    with pytest.raises(NotImplementedError, match="learner"):
+    with pytest.raises(AttributeError, match="load_state"):
         loop.train_host(env, cfg, dcfg, device="cpu", learner=object())
-    with pytest.raises(NotImplementedError, match="observability"):
+    with pytest.raises(AttributeError, match="tracer"):
         loop.train_host(env, cfg, dcfg, device="cpu", observability=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             loop.train_host(env, cfg, dcfg)
+
+
+# --------------------------------------------------------------------- #
+# train_host(learner=, observability=)
+# --------------------------------------------------------------------- #
+
+LEARNER_RUN = dict(total_steps=10, warmup_steps=4, replay_capacity=64, n_envs=1)
+
+
+@pytest.mark.parametrize("mode", ["jnp", "fused", "fused_step"])
+def test_train_host_through_a_learner_is_bitwise_the_direct_loop(mode):
+    """A learner forced to the mode of `dcfg.backend`, at a batch size that
+    is one of its buckets, ends `train_host` on the same agent, bitwise, as
+    the loop's own `ddpg.update` (the paper's nets, the kernels' plain
+    versions, the QAT delay crossed)."""
+    from repro_torch import tree
+    from repro_torch.runtime.engine import BatcherConfig
+    from repro_torch.train.learner import TRAIN_BACKENDS, LearnerEngine
+
+    env = make(SMOKE.env)
+    dcfg = dataclasses.replace(SMOKE.ddpg, batch_size=8, backend=TRAIN_BACKENDS[mode], qat_delay=3)
+    cfg = loop.TrainConfig(**LEARNER_RUN)
+    want, _ = loop.train_host(env, cfg, dcfg, device="cpu")
+    seed_state = ddpg.init(env.spec, dcfg, generator=torch.Generator().manual_seed(99), device="cpu")
+    learner = LearnerEngine.from_ddpg(seed_state, dcfg, force_mode=mode, batcher=BatcherConfig(buckets=(8, 32)))
+    got, _ = loop.train_host(env, cfg, dcfg, device="cpu", learner=learner)
+    assert bool(got.agent.qat.quantized_phase)
+    for (path, a), (_, b) in zip(tree.flatten_with_path(got.agent), tree.flatten_with_path(want.agent)):
+        assert torch.equal(a, b), path
+    assert torch.equal(got.buf.reward, want.buf.reward) and torch.equal(got.obs, want.obs)
+
+
+def test_train_host_streams_updates_through_learner():
+    """The reference's checks (`tests/test_loop.py`): every post-warmup
+    step streams one update through the engine, and the loop's final agent
+    is the engine's state."""
+    from repro_torch.runtime.engine import BatcherConfig
+    from repro_torch.train.learner import LearnerEngine
+
+    env = make("pendulum")
+    cfg = loop.TrainConfig(total_steps=6, warmup_steps=2, replay_capacity=32, eval_every=10**6)
+    dcfg = ddpg.DDPGConfig(qat_enabled=False, batch_size=8)
+    seed_state = ddpg.init(env.spec, dcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    learner = LearnerEngine.from_ddpg(seed_state, dcfg, force_mode="jnp", batcher=BatcherConfig(buckets=(8, 16)))
+    ts, info = loop.train_host(env, cfg, dcfg, device="cpu", learner=learner)
+    st = learner.stats()
+    assert st["updates"] == int(ts.agent.step) > 0
+    assert st["transitions"] == st["updates"] * dcfg.batch_size
+    assert st["mode_histogram"] == {"train": {"jnp": st["updates"]}}
+    assert ts.agent is learner.state
+    assert info["times"]["accelerator"] > 0
+
+
+def test_train_host_observability_traces_serves_and_flushes(tmp_path):
+    """`observability=`: its tracer takes the loop's spans (and the
+    learner's, on one bundle), its HTTP endpoint is up while training, and
+    the trace lands at its path when the loop ends."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from repro_torch.obs import Observability, read_jsonl
+    from repro_torch.runtime.engine import BatcherConfig
+    from repro_torch.train.learner import LearnerEngine
+
+    env = make("pendulum")
+    cfg = loop.TrainConfig(total_steps=5, warmup_steps=2, replay_capacity=32)
+    dcfg = ddpg.DDPGConfig(batch_size=8, backend="jnp", qat_delay=2)
+    path = tmp_path / "trace.jsonl"
+    obs = Observability.tracing(path, serve_http=0)
+    seen = {}
+    try:
+        seed_state = ddpg.init(env.spec, dcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        learner = LearnerEngine.from_ddpg(seed_state, dcfg, force_mode="jnp", batcher=BatcherConfig(buckets=(8,)),
+                                          obs=obs)
+
+        def update_and_scrape(batch):
+            out = run_update(batch)
+            try:
+                with urllib.request.urlopen(obs.server.url + "/healthz", timeout=5.0) as r:
+                    seen["healthz"] = json.loads(r.read())
+            except urllib.error.HTTPError as err:  # 503: the uncalibrated cost model's drift
+                seen["healthz"] = json.loads(err.read())
+            return out
+
+        run_update, learner.run_update = learner.run_update, update_and_scrape
+        loop.train_host(env, cfg, dcfg, device="cpu", learner=learner, observability=obs)
+        names = [e["name"] for e in read_jsonl(path)]
+    finally:
+        obs.close()
+    assert names.count("loop.act") == names.count("loop.update") == cfg.total_steps
+    assert names.count("learner.launch") == 4 and "learner.block_until_ready" in names  # updates from step 1
+    assert seen["healthz"]["checks"]["learner"]["updates"] >= 1

@@ -185,3 +185,27 @@ def test_check_admits_a_relu_decision_only_within_rounding(phase):
     far = replay.check_step_operands(c, "actor", quant, qs, flipped, critic)
     assert near["failures"] == [] and near["ambiguous"] >= 1
     assert any(f.startswith("layer 1") for f in far["failures"]), far["failures"]
+
+
+@pytest.mark.parametrize("phase", PHASES)
+@pytest.mark.parametrize("name", NAMES)
+def test_moved_false_drops_only_the_moved_guard(name, phase):
+    """`moved=False` (a case from a training state) drops the guard that
+    the twin moves every leaf past its tolerance, and nothing else.  On a
+    step that hardly moves anything (every row of weight 0, first moments
+    of 1e-9) the guard refuses the twin's own result and `moved=False`
+    admits it; a tree left as it was where the twin does move it fails
+    either way on its error."""
+    quant = phase == "quant"
+    c = _case(12, 40, 6)
+    c["w"] = torch.zeros_like(c["w"])
+    c[f"{name}_m"] = ([t * 1e-6 for t in c[f"{name}_m"][0]], [t * 1e-6 for t in c[f"{name}_m"][1]])
+    want, qs, gs, critic = _step(c, name, quant)
+    strict = replay.check_step(want, want, c, name, quant, qs, gs, critic)["failures"]
+    assert strict and all("within its tolerance" in f or "moves no leaf" in f for f in strict)
+    assert replay.check_step(want, want, c, name, quant, qs, gs, critic, moved=False)["failures"] == []
+    c = _case(12, 40, 6)
+    want, qs, gs, critic = _step(c, name, quant)
+    got = (want[0], c[f"{name}_m"], want[2], want[3], *want[4:])  # the first moments left as they were
+    loose = replay.check_step(got, want, c, name, quant, qs, gs, critic, moved=False)["failures"]
+    assert loose and all("within its tolerance" not in f for f in loose)
