@@ -4,13 +4,14 @@
     python3 chip_smoke.py [--seed N] [--out FILE]   (FILE: every phase's result as JSON)
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit.  It drives the port's five main paths: policy serving (slice
+toolkit.  It drives the port's seven main paths: policy serving (slice
 1), DDPG training through backend "pallas" (slice 2), training through
 the fused whole-update step, eagerly and as a captured CUDA graph (slice
 3), Algorithm 1 over the per-layer datapath with the standalone
-monitor + quantizer at each site (slice 4), and the learner engine that
-coalesces update requests into bucket-padded batches (slice 8).  Phases,
-each printing one JSON line:
+monitor + quantizer at each site (slice 4), the learner engine that
+coalesces update requests into bucket-padded batches (slice 8), policy
+serving over a device mesh and the LM zoo's attention-family serving path
+at full width (slice 9).  Phases, each printing one JSON line:
 
   1. device   — the card's name and power limit (nvidia-smi), CUDA version,
                 TF32 switched off for matmul and cuDNN;
@@ -151,9 +152,36 @@ each printing one JSON line:
                 both phases: kernel, plain version, library yardstick and
                 the least time the card could take (`bound_ms`);
  19. engine   — host wall time of synchronous `run_batch` calls per mode
-                and batch (the engine's own cost, without queueing).
+                and batch (the engine's own cost, without queueing);
+ 20. mesh     — `PolicyEngine(mesh=make_serve_mesh())` (every visible
+                card on the `data` axis) at buckets 1, 8 and 128 in every
+                mode, bitwise the `mesh=None` engine's actions; the serve
+                rules (with the reference's layout hint) and the train
+                rules over qwen2-0.5b's and gemma3-1b's params and decode
+                caches (the reference's decode_32k cell, 128 × 32,768) on
+                the reference's (16, 16) production layout, shapes only:
+                sharded and replicated leaves and the bytes one device
+                would hold, per phase;
+ 21. lm       — the LM zoo's serving path at full width, random weights
+                from the seed, float32 params and bf16 compute (the
+                configs' own): qwen2-0.5b (24 layers, global KV) and
+                gemma3-1b (26 layers, 5 local : 1 global, a tail of 2,
+                window 512).  Per model: decode against the full forward on
+                a 16-token prompt; prefill and `generate` (16 new tokens)
+                on prompts of 128 and 1024 tokens, and 700 on gemma3 (its
+                masked local path; 1024 takes the banded one); decode ms per
+                step at 1, 4 and 16 lanes; an `LMEngine` with 4 lanes
+                serving 8 requests (prompts 64–1024, 16–32 new tokens),
+                admissions in the middle of decodes, each lane's logits
+                held to the B = 1 path on the same tokens and each request
+                against B = 1 `generate`, flips counted; tokens/s, TTFT and
+                peak memory.  For qwen2 also a float32 copy, TF32 off: the
+                card's forward of a 64-token prompt against the CPU's.
 
-Then the `{"kernels": [...]}` line and, last, the status line
+The LM path runs no kernel of the port's own: the reference computes its
+attention and products in jnp, outside any Pallas kernel, so they are
+`torch.matmul` / `einsum` here.  Then the `{"kernels": [...]}` line (the
+six TPU kernels' counterparts) and, last, the status line
 `{"ok": true, "device": {...}}`.  Any failed build, launch or comparison
 raises, so the run exits non-zero before the status line.  Without a CUDA
 device, or without the repository's `src/repro_torch` beside this file, it
@@ -195,7 +223,16 @@ rows adds what one row's output, within kernel B's forward contract, can
 move them by (at B = 9 one flipped bf16 limb moves the mean of eight rows
 past 1e-5).  Kernel 6 and the raw
 fixed-point API: bitwise, the contract for elementwise fixed-point ops
-(min and max are order-free; a NaN matches a NaN).
+(min and max are order-free; a NaN matches a NaN).  The serve mesh on one
+card: bitwise (the same code, one chunk).  LM, bf16: decode against the
+full forward within the reference's own contract, max |Δ| < 0.05·scale +
+0.05 (`tests/test_archs.py:77-78`); a lane's logits against the B = 1 path
+on the same tokens within the same bound, since the card's GEMMs may sum
+a row in another order at another batch size — and a lane's token may
+differ from B = 1's argmax only where B = 1's top-2 margin is within it.
+LM, float32 card against CPU: max |Δ| ≤ 1e-3·scale + 1e-3 (a float32 sum
+in another order, 24 layers deep; bf16 compute would miss it by an order
+of magnitude).
 """
 
 from __future__ import annotations
@@ -1317,7 +1354,15 @@ def _kernels_ran(run) -> tuple:
     and `reduce_update`, the second pass kernels 4 and 5 share."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the trace can lose what runs as it starts (a trace of kernel 6
+        # lost its first kernel so; one run of this check lost two whole
+        # replays of 1,000 on the H100): a sleep kernel, not counted, and a
+        # host wait come first, so the run starts well inside the trace
+        torch.cuda._sleep(50_000_000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         out = run()
         # the trace loses kernels that end within a few ms of its stop (on
         # the H100 up to a replay and a half of 250): a ≈ 25 ms sleep kernel
@@ -1429,14 +1474,16 @@ def phase_train_fused(gen: torch.Generator, dev, seed: int, pallas: dict) -> dic
     win = loop._Window(loop.init_train_state(env, cfg, dcfg, device=dev), env, cfg, dcfg)
     win.run(0, cfg.warmup_steps)  # the first window, eager; its last step is the first update
     win._capture()  # records the updating timestep and runs none of it
-    ran = {}
+    ran, parts = {}, []
     for first in range(cfg.warmup_steps, cfg.total_steps, 250):  # a trace of 250 replays is ≈ 120k kernels
         _, part = _kernels_ran(lambda first=first: win.run(first, min(250, cfg.total_steps - first)))
         ran = {k: ran.get(k, 0) + v for k, v in part.items()}
+        parts.append(part["fxp_mlp_fwd"])
     want_ran = {"fxp_mlp_fwd": replays, "fxp_mlp_fwd_residuals": 0, "fxp_mlp_bwd": 0, "ddpg_critic_target": replays,
                 "ddpg_critic_step": replays, "ddpg_actor_step": replays, "reduce_update": 2 * replays}
     require(ran == want_ran and loop.train_device.graph_replays == 2 * replays,
-            f"train_device graph window: kernels that ran {ran}, expected {want_ran}")
+            f"train_device graph window: kernels that ran {ran}, expected {want_ran} "
+            f"(kernel B by trace of 250 replays: {parts})")
     rerun_same = all(torch.equal(getattr(win.ts.agent, n)[layer][leaf], getattr(ts_d.agent, n)[layer][leaf])
                      for n in ("actor", "critic") for layer in getattr(ts_d.agent, n) for leaf in ("w", "b"))
     require(rerun_same, "train_device: the profiled rerun ended on another agent")
@@ -2381,6 +2428,346 @@ def phase_engine_latency(gen: torch.Generator, dev, calls: int = 50) -> None:
     emit("engine", rows=rows, note="host wall time of synchronous run_batch calls on the main thread")
 
 
+# --------------------------------------------------------------------------
+# slice 9: the serving mesh, the rules, and the LM zoo's attention family
+# --------------------------------------------------------------------------
+
+MESH_BUCKETS = (1, 8, 128)
+RULE_ARCHS = ("qwen2_0_5b", "gemma3_1b")
+RULE_CACHE = (128, 32_768)  # the reference's decode_32k cell: batch, cache length
+LM_ARCHS = ("qwen2_0_5b", "gemma3_1b")
+LM_PROMPTS = {"qwen2_0_5b": (128, 1024), "gemma3_1b": (128, 700, 1024)}  # 700: gemma3's masked local path
+LM_GEN_NEW = 16
+LM_REQUESTS = dict(lanes=4, n=8, prompt=(64, 1024), max_new=(16, 32))
+LM_MAX_SEQ = 1024 + 32
+LM_DECODE_LANES = (1, 4, 16)
+LM_PARITY_PROMPT = 16  # decode against the full forward
+LM_F32_PROMPT = 64  # float32 qwen2, card against CPU
+LM_TOL = 0.05  # the reference's decode contract: max|Δ| < 0.05·scale + 0.05 (tests/test_archs.py:77-78)
+LM_F32_TOL = 1e-3  # float32 card against CPU: max|Δ| <= 1e-3·scale + 1e-3
+
+
+def _shard_counts(specs, shapes, rules, mesh) -> dict:
+    """Leaves the rules shard (some dim on a mesh axis) and replicate, and
+    the float32 bytes one device of `mesh` would hold."""
+    from repro_torch.core import parallelism as par
+
+    counts = {"sharded": 0, "replicated": 0, "bytes_per_device": 0}
+
+    def visit(logical, shape):
+        spec = rules.mesh_axes(logical.axes, tuple(shape.shape), mesh)
+        split = 1
+        for entry in spec:
+            for ax in ((entry,) if isinstance(entry, str) else entry or ()):
+                split *= mesh.shape[ax]
+        counts["sharded" if split > 1 else "replicated"] += 1
+        counts["bytes_per_device"] += shape.numel() * shape.element_size() // split
+        return spec
+
+    par.map_logical(visit, specs, shapes)
+    return counts
+
+
+def phase_mesh(gen: torch.Generator, dev) -> dict:
+    """`PolicyEngine(mesh=make_serve_mesh())` on the card bitwise the
+    `mesh=None` engine at buckets 1, 8 and 128 in every mode; the serve and
+    train rules over qwen2-0.5b's and gemma3-1b's params and decode caches
+    on the reference's (16, 16) production layout (shapes only:
+    `FakeTensorMode` builds the trees without memory, as `jax.eval_shape`)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import registry
+    from repro_torch.core import parallelism as par
+    from repro_torch.launch.mesh import make_production_mesh, make_serve_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.rl import ddpg
+    from repro_torch.serve.policy import BatcherConfig, PolicyEngine
+
+    mesh = make_serve_mesh(device=dev)  # on the card: every visible CUDA device
+    require(mesh.devices is not None and (dev.type != "cuda" or mesh.size == torch.cuda.device_count()),
+            f"serve mesh {mesh!r}")
+    actor = ddpg.init_actor(ACTOR_DIMS[0], ACTOR_DIMS[-1], generator=gen, device=dev)
+    frozen = _calibrate(actor, gen, dev)
+    serve = {}
+    for mode in ("fused", "layer", "jnp"):
+        batcher = BatcherConfig(buckets=MESH_BUCKETS)
+        on_mesh = PolicyEngine(actor, frozen, device=dev, force_mode=mode, batcher=batcher, mesh=mesh)
+        plain = PolicyEngine(actor, frozen, device=dev, force_mode=mode, batcher=batcher)
+        for b in MESH_BUCKETS:
+            obs = (torch.randn(b, ACTOR_DIMS[0], generator=gen) * 2).numpy()
+            got, want = on_mesh.run_batch(obs), plain.run_batch(obs)
+            require(got.shape == (b, ACTOR_DIMS[-1]) and np.array_equal(got, want),
+                    f"mesh {mode} B={b}: not bitwise the mesh=None engine (max |Δ| {np.abs(got - want).max()})")
+            serve[f"{mode}/{b}"] = "bitwise"
+        on_mesh.close()
+        plain.close()
+
+    layout = make_production_mesh()
+    require(layout.is_layout_only or layout.size == torch.cuda.device_count(), f"layout {layout!r}")
+    rules = {}
+    for arch in RULE_ARCHS:
+        cfg = registry.get(arch)
+        with FakeTensorMode():
+            p_shapes = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+            c_shapes = T.init_cache(cfg, *RULE_CACHE, device="cpu")
+        hints = {"prefer_head_dim": cfg.n_kv_heads % layout.shape["model"] != 0}
+        rules[arch] = {"serve_hints": hints}
+        for phase, r in (("serve", par.serve_rules(layout, **hints)), ("train", par.train_rules(layout))):
+            rules[arch][phase] = {"params": _shard_counts(T.param_specs(cfg), p_shapes, r, layout),
+                                  "cache": _shard_counts(T.cache_specs(cfg), c_shapes, r, layout)}
+            require(rules[arch][phase]["params"]["sharded"] > 0, f"{arch} {phase}: the rules shard no param")
+    emit("mesh", serve_mesh={"shape": mesh.shape, "devices": [str(d) for d in mesh.devices]},
+         buckets=list(MESH_BUCKETS), serve=serve, layout=layout.shape, cache_cell=list(RULE_CACHE), rules=rules)
+    return rules
+
+
+def _wall_ms(fn, dev, reps: int = 3) -> float:
+    """Median host wall time of a synchronous call (the card drained before
+    and after), after one warmup call."""
+    fn()
+    sync(dev)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _lm_decode_vs_forward(params, cfg, gen, dev) -> dict:
+    from repro_torch.models import transformer as T
+
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_PARITY_PROMPT), generator=gen).to(dev)
+    full, _ = T.forward(params, {"tokens": toks}, cfg)
+    cache = T.init_cache(cfg, 1, LM_PARITY_PROMPT, device=dev)
+    dec = torch.cat([T.decode_step(params, toks[:, i:i + 1], cache, i, cfg)[0] for i in range(LM_PARITY_PROMPT)], 1)
+    full, dec = full.float(), dec.float()
+    require(bool(torch.isfinite(full).all()) and bool(torch.isfinite(dec).all()), "decode/forward: non-finite logits")
+    err, scale = float((dec - full).abs().max()), float(full.abs().max())
+    require(err < LM_TOL * scale + LM_TOL, f"decode against forward: max |Δ| {err} >= {LM_TOL}·{scale} + {LM_TOL}")
+    return {"max_abs": err, "scale": scale, "limit": LM_TOL * scale + LM_TOL}
+
+
+class _Recorded:
+    """A histogram that also keeps every value it observes."""
+
+    def __init__(self, hist):
+        self.hist, self.values = hist, []
+
+    def observe(self, v) -> None:
+        self.values.append(v)
+        self.hist.observe(v)
+
+    def __getattr__(self, name):
+        return getattr(self.hist, name)
+
+
+def _lm_engine_run(params, cfg, dev, prompts, max_new, record: bool):
+    """One `generate_batch` through a fresh 4-lane engine.  With `record`,
+    the engine's prefill and decode calls are wrapped to keep each lane's
+    logits (on the card) per request, and the admissions made while other
+    lanes were decoding are counted."""
+    from repro_torch.serve.lm import LMEngine
+
+    eng = LMEngine(params, cfg, lanes=LM_REQUESTS["lanes"], max_seq=LM_MAX_SEQ, device=dev)
+    logits: dict = {}
+    mid = [0]
+    eng._m_ttft = _Recorded(eng._m_ttft)  # TTFT exactly: the histogram's quantiles are bucketed
+    if record:
+        prefill, decode = eng._prefill, eng._decode
+
+        def rec_prefill(tokens, cache):
+            last, cache = prefill(tokens, cache)
+            logits[tokens[0].cpu().numpy().tobytes()] = [last[0].float().clone()]
+            mid[0] += bool(eng._active) and eng._metrics.calls > 0  # others mid-decode
+            return last, cache
+
+        def rec_decode(tokens, cache, pos):
+            out, cache = decode(tokens, cache, pos)
+            for lane, st in eng._active.items():
+                logits[st.req.prompt.tobytes()].append(out[lane, -1].float().clone())
+            return out, cache
+
+        eng._prefill, eng._decode = rec_prefill, rec_decode
+    t0 = time.perf_counter()
+    outs = eng.generate_batch(prompts, max_new)
+    stats = {**eng.stats(), "wall_s": time.perf_counter() - t0,
+             "ttft_ms": sorted(v * 1e3 for v in eng._m_ttft.values)}
+    eng.close()
+    return outs, stats, logits, mid[0]
+
+
+def _lm_lanes_vs_b1(params, cfg, dev, prompts, max_new, outs, logits) -> dict:
+    """Each lane's logits against the B = 1 path on the same tokens (the
+    request's prompt, then its own emitted tokens, teacher-forced): within
+    LM_TOL·scale + LM_TOL at every step; a token may differ from the B = 1
+    argmax only where B = 1's top-2 margin is within that tolerance (a
+    flip).  Also each request against `generate` at B = 1."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import generate
+
+    worst, flips, steps, gen_equal, margins = 0.0, 0, 0, 0, []
+    for prompt, n, out in zip(prompts, max_new, outs):
+        s = len(prompt)
+        require(out.shape == (s + n,) and np.array_equal(out[:s], prompt), "engine: reply is not prompt + tokens")
+        lane = logits[prompt.tobytes()]
+        require(len(lane) == n, f"engine: {len(lane)} logit rows recorded for {n} tokens")
+        toks = torch.from_numpy(out).to(dev)[None]
+        cache = T.init_cache(cfg, 1, LM_MAX_SEQ, device=dev)
+        b1, cache = T.prefill(params, {"tokens": toks[:, :s]}, cfg, cache=cache)
+        for k in range(n):
+            if k:
+                b1 = T.decode_step(params, toks[:, s + k - 1:s + k], cache, s + k - 1, cfg)[0][:, -1]
+            ref = b1[0].float()
+            require(bool(torch.isfinite(lane[k]).all()) and bool(torch.isfinite(ref).all()), "lm: non-finite logits")
+            err, scale = float((lane[k] - ref).abs().max()), float(ref.abs().max())
+            limit = LM_TOL * scale + LM_TOL
+            require(err <= limit, f"lane logits against B = 1: max |Δ| {err} > {limit} at token {k}")
+            worst = max(worst, err / limit)
+            top2 = torch.topk(ref, 2).values
+            margin = float(top2[0] - top2[1])
+            if int(torch.argmax(ref)) != int(out[s + k]):
+                flips += 1
+                margins.append(margin)
+                require(margin <= limit, f"token {k} differs from B = 1 at a top-2 margin {margin} > {limit}")
+            steps += 1
+        gen_equal += int(np.array_equal(generate(params, cfg, prompt[None], n)[0].cpu().numpy(), out))
+    return {"tokens": steps, "flips": flips, "flip_margins": margins, "worst_err_over_limit": worst,
+            "requests_equal_to_generate": gen_equal, "requests": len(prompts)}
+
+
+def _lm_decode_ms(params, cfg, dev, lanes: int, steps: int = 10) -> float:
+    from repro_torch.models import transformer as T
+
+    cache = T.init_cache(cfg, lanes, LM_MAX_SEQ, device=dev)
+    tokens = torch.zeros((lanes, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((lanes,), LM_MAX_SEQ // 2, dtype=torch.int64, device=dev)  # half the cache filled
+
+    def run():
+        for _ in range(steps):
+            T.decode_step(params, tokens, cache, pos, cfg)
+
+    with torch.inference_mode():
+        return _wall_ms(run, dev, reps=5) / steps
+
+
+def _lm_profile(params, cfg, dev, steps: int = 10) -> dict:
+    """`torch.profiler` over `steps` decode steps at 4 lanes and over three
+    1024-token prefills: wall and device-busy ms, the device's idle share,
+    kernels per call."""
+    from repro_torch.models import transformer as T
+
+    cache = T.init_cache(cfg, 4, LM_MAX_SEQ, device=dev)
+    tokens = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((4,), LM_MAX_SEQ // 2, dtype=torch.int64, device=dev)
+    prompt = torch.zeros((1, 1024), dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        T.decode_step(params, tokens, cache, pos, cfg)
+        T.prefill(params, {"tokens": prompt}, cfg)
+        torch.cuda.synchronize()
+        decode = _profile(lambda: [T.decode_step(params, tokens, cache, pos, cfg) for _ in range(steps)], steps,
+                          "step")
+        prefill = _profile(lambda: [T.prefill(params, {"tokens": prompt}, cfg) for _ in range(3)], 3, "call")
+    keep = ("wall_ms_per", "device_busy_ms_per", "device_idle_share", "kernels_per", "top_kernels_ms_per")
+    return {name: {k: v for k, v in prof.items() if k.startswith(keep)}
+            for name, prof in (("decode_lanes4", decode), ("prefill_1024", prefill))}
+
+
+def _lm_f32_card_vs_cpu(params, cfg, gen, dev) -> dict:
+    """The same float32 weights (TF32 off) on the card and on the CPU: one
+    64-token prompt's logits within LM_F32_TOL·scale + LM_F32_TOL."""
+    import dataclasses as dc
+
+    from repro_torch import tree
+    from repro_torch.models import transformer as T
+
+    cfg32 = dc.replace(cfg, dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_F32_PROMPT), generator=gen)
+    with torch.inference_mode():
+        card, _ = T.forward(params, {"tokens": toks.to(dev)}, cfg32)
+        cpu_params = tree.tree_map(lambda t: t.cpu(), params)
+        host, _ = T.forward(cpu_params, {"tokens": toks}, cfg32)
+    card = card.cpu()
+    require(card.dtype == torch.float32 and bool(torch.isfinite(card).all()), "f32 forward: non-finite logits")
+    err, scale = float((card - host).abs().max()), float(host.abs().max())
+    limit = LM_F32_TOL * scale + LM_F32_TOL
+    require(err <= limit, f"float32 card against CPU: max |Δ| {err} > {limit}")
+    return {"max_abs": err, "scale": scale, "limit": limit, "tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def phase_lm(gen: torch.Generator, dev, dev_info: dict) -> dict:
+    """The LM zoo's attention-family serving path at full width, random
+    weights from the seed: `generate` and `LMEngine` for qwen2-0.5b and
+    gemma3-1b (float32 params, bf16 compute, as their configs say)."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import generate
+
+    report = {}
+    rng = np.random.default_rng(int(torch.randint(0, 2**31, (1,), generator=gen)))
+    for arch in LM_ARCHS:
+        cfg = registry.get(arch)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params32 = T.init_params(torch.Generator(device=dev).manual_seed(int(torch.randint(0, 2**31, (1,),
+                                                                                               generator=gen))),
+                                 cfg, device=dev)
+        n_params = sum(t.numel() for t in tree.leaves(params32))
+        row = {"name": cfg.name, "params": n_params, "config_params": cfg.total_params(),
+               "n_layers": cfg.n_layers, "compute_dtype": str(cfg.compute_dtype)}
+        if arch == "qwen2_0_5b":
+            row["f32_card_vs_cpu"] = _lm_f32_card_vs_cpu(params32, cfg, gen, dev)
+        params = T.serving_params(params32, cfg)  # frozen: cast once
+        with torch.inference_mode():
+            row["decode_vs_forward"] = _lm_decode_vs_forward(params, cfg, gen, dev)
+            row["prefill_ms"], row["generate"] = {}, {}
+            for s in LM_PROMPTS[arch]:
+                prompt = torch.randint(0, cfg.vocab_size, (1, s), generator=gen).to(dev)
+                cache = T.init_cache(cfg, 1, s, device=dev)
+                last, _ = T.prefill(params, {"tokens": prompt}, cfg, cache=cache)
+                require(bool(torch.isfinite(last.float()).all()), f"{arch} prefill {s}: non-finite logits")
+                row["prefill_ms"][s] = _wall_ms(lambda: T.prefill(params, {"tokens": prompt}, cfg,
+                                                                  cache=T.init_cache(cfg, 1, s, device=dev)), dev)
+                out = generate(params, cfg, prompt, LM_GEN_NEW)
+                require(out.shape == (1, s + LM_GEN_NEW) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+                        and torch.equal(out[:, :s], prompt.to(torch.int32)), f"{arch} generate {s}: bad tokens")
+                row["generate"][s] = out[0, s:].tolist()
+        row["decode_ms_per_step"] = {lanes: _lm_decode_ms(params, cfg, dev, lanes) for lanes in LM_DECODE_LANES}
+        if dev.type == "cuda":
+            row["profile"] = _lm_profile(params, cfg, dev)
+
+        lo, hi = LM_REQUESTS["prompt"]
+        prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+                   for n in rng.integers(lo, hi + 1, size=LM_REQUESTS["n"])]
+        max_new = [int(n) for n in rng.integers(LM_REQUESTS["max_new"][0], LM_REQUESTS["max_new"][1] + 1,
+                                                size=LM_REQUESTS["n"])]
+        outs, _, logits, mid = _lm_engine_run(params, cfg, dev, prompts, max_new, record=True)
+        require(mid >= 1, f"{arch}: no admission happened in the middle of a decode")
+        with torch.inference_mode():
+            row["engine_vs_b1"] = _lm_lanes_vs_b1(params, cfg, dev, prompts, max_new, outs, logits)
+        row["engine_vs_b1"]["admissions_mid_decode"] = mid
+        del logits
+        outs2, stats, _, _ = _lm_engine_run(params, cfg, dev, prompts, max_new, record=False)
+        require(all(np.array_equal(a, b) for a, b in zip(outs, outs2)), f"{arch}: engine runs disagree")
+        row["engine"] = {"prompt_lens": [len(p) for p in prompts], "max_new": max_new,
+                         "generated_tokens_per_s": stats["tokens"] / stats["wall_s"],
+                         **{k: stats[k] for k in ("requests", "admitted", "evicted", "tokens", "decode_steps",
+                                                  "wall_s", "tokens_per_s_device", "ttft_ms", "ttft_p50_ms",
+                                                  "ttft_p99_ms", "p50_ms", "p99_ms", "decode_occupancy")}}
+        require(stats["requests"] == LM_REQUESTS["n"] and stats["tokens"] == sum(max_new), f"{arch}: {stats}")
+        row["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+        row["seconds"] = time.perf_counter() - t0
+        report[arch] = row
+        del params, params32
+    emit("lm", nvidia_smi=dev_info["nvidia_smi"], tolerance={"decode": f"{LM_TOL}·scale + {LM_TOL}",
+         "f32_card_vs_cpu": f"{LM_F32_TOL}·scale + {LM_F32_TOL}"}, **report)
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every random weight and input")
@@ -2418,6 +2805,8 @@ def main(argv=None) -> int:
     phase_profile(gen, dev)
     times = phase_times(gen, dev, dev_info)
     phase_engine_latency(gen, dev)
+    phase_mesh(gen, dev)
+    phase_lm(gen, dev, dev_info)
 
     host, device = fused["train_host"], fused["train_device"]
 

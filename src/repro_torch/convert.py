@@ -10,7 +10,14 @@ Both functions take numpy arrays (convert on the JAX side with
   * `ddpg_state_from_numpy` — a whole reference `DDPGState` (nets, targets,
     Adam states, QAT state) → the port's `DDPGState` on `device`;
   * `ddpg_state_to_numpy` — its inverse: the port's `DDPGState` with every
-    leaf a numpy array, its leaves in the reference's pytree order.
+    leaf a numpy array, its leaves in the reference's pytree order;
+  * `lm_params_from_numpy` / `lm_ranges_from_numpy` / `lm_cache_from_numpy`
+    — an LM's param tree, QAT range tree or KV-cache tree in the
+    reference's layout (`jax.tree.map(np.asarray, tree)`) → the port's
+    `models.transformer` trees on `device`, leaf for leaf;
+  * `lm_params_to_numpy` / `lm_ranges_to_numpy` / `lm_cache_to_numpy` —
+    their inverses (a bfloat16 leaf comes back as a float32 array, which
+    holds it exactly: numpy has no bfloat16 of its own).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from repro_torch import tree
 from repro_torch.core.qat import FrozenQuant, QATConfig, QATState
 from repro_torch.core.ranges import RangeStat
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adam import AdamState
 from repro_torch.rl.ddpg import DDPGState
 
@@ -106,4 +114,70 @@ def ddpg_state_to_numpy(state: DDPGState) -> DDPGState:
     return tree.tree_map(lambda t: t.detach().cpu().numpy(), state)
 
 
-__all__ = ["actor_from_numpy", "frozen_from_numpy", "ddpg_state_from_numpy", "ddpg_state_to_numpy"]
+def _np_to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits across
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _tree_from_numpy(tree, dev: torch.device, dtype=None):
+    """dicts, lists and range stats (anything with `a_min`, `a_max`,
+    `count`) of arrays → the same tree of tensors on `dev` (cast to `dtype`
+    when given)."""
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_numpy(v, dev, dtype) for v in tree]
+    if all(hasattr(tree, f) for f in ("a_min", "a_max", "count")):
+        return RangeStat(a_min=_tensor(tree.a_min, dev), a_max=_tensor(tree.a_max, dev),
+                         count=_tensor(tree.count, dev, np.int32))
+    t = _np_to_torch(tree)
+    return t.to(dev) if dtype is None else t.to(dev, dtype)
+
+
+def _tree_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_numpy(v) for v in tree]
+    if isinstance(tree, RangeStat):
+        return RangeStat(*(_tree_to_numpy(getattr(tree, f)) for f in ("a_min", "a_max", "count")))
+    t = tree.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_params_from_numpy(params: dict, *, device: DeviceLike = None) -> dict:
+    """The reference's LM param tree (`models.transformer.init_params`
+    layout, numpy leaves) → the port's, float32 tensors on `device`."""
+    return _tree_from_numpy(params, resolve_device(device), torch.float32)
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The port's LM param tree → the same tree of numpy arrays."""
+    return _tree_to_numpy(params)
+
+
+def lm_ranges_from_numpy(ranges: dict, *, device: DeviceLike = None) -> dict:
+    """The reference's QAT range tree (`init_ranges` layout: RangeStats of
+    stacked (n,) arrays) → the port's on `device`."""
+    return _tree_from_numpy(ranges, resolve_device(device))
+
+
+def lm_ranges_to_numpy(ranges: dict) -> dict:
+    return _tree_to_numpy(ranges)
+
+
+def lm_cache_from_numpy(cache: dict, cfg: ModelConfig, *, device: DeviceLike = None) -> dict:
+    """The reference's KV-cache tree (`init_cache` layout) → the port's, in
+    `cfg`'s compute dtype on `device`."""
+    return _tree_from_numpy(cache, resolve_device(device), cfg.compute_dtype)
+
+
+def lm_cache_to_numpy(cache: dict) -> dict:
+    return _tree_to_numpy(cache)
+
+
+__all__ = ["actor_from_numpy", "frozen_from_numpy", "ddpg_state_from_numpy", "ddpg_state_to_numpy",
+           "lm_params_from_numpy", "lm_params_to_numpy", "lm_ranges_from_numpy", "lm_ranges_to_numpy",
+           "lm_cache_from_numpy", "lm_cache_to_numpy"]

@@ -1,7 +1,5 @@
-"""Fixed-point formats, range monitors and QAT state (port of `repro.core`).
-
-The reference's re-exports, but for `core.parallelism` (not ported yet:
-`ROADMAP.md` queue 1 item 5, adaptive parallelism and mesh serving)."""
+"""Fixed-point formats, range monitors, QAT state and adaptive parallelism
+(port of `repro.core`, with the reference's re-exports)."""
 
 from repro_torch.core.fixedpoint import (
     FXP16,
@@ -18,3 +16,12 @@ from repro_torch.core.fixedpoint import (
 )
 from repro_torch.core.qat import QATConfig, QATContext, QATState, quantize_grads, quantize_weights
 from repro_torch.core.ranges import RangeStat, init_ranges
+from repro_torch.core.parallelism import (
+    Logical,
+    ShardingRules,
+    constrain,
+    rules_for,
+    serve_rules,
+    train_rules,
+    tree_shardings,
+)

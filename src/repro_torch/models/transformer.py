@@ -1,0 +1,374 @@
+"""Model assembly for the attention family (port of
+`repro.models.transformer`).
+
+Layer stacks are grouped by `block_pattern` period: the params of every
+period are stacked along a leading axis and the stack is walked period by
+period (a Python loop over the period index: the reference's `lax.scan`
+and its `unroll=True` branch alike), the remainder layers run as the
+"tail".  The tree layout is the reference's — ``{"embed", "final_norm",
+"frontend", "scan": [per pattern slot, leading n_periods axis], "tail":
+[...]}``, with its leaf names — so `convert.lm_params_from_numpy` carries
+the reference's weights across leaf for leaf.
+
+Public API
+----------
+  init_params(gen, cfg, device=)               parameter tree
+  param_specs(cfg)                             matching Logical tree
+  init_ranges(cfg, device=)                    stacked QAT range tree
+  ranges_specs(cfg)                            its Logical tree
+  forward(params, batch, cfg, ...)             logits (prefill path)
+  init_cache(cfg, batch, max_seq, device=)     decode KV caches
+  cache_specs(cfg)                             Logical tree for caches
+  decode_step(params, tokens, cache, pos, ...) one-token serve step
+  prefill(params, batch, cfg, cache=)          prompt pass (+ cache writes)
+  serving_params(params, cfg)                  frozen params in the compute dtype
+
+Blocks: `ATTN_GLOBAL` and `ATTN_LOCAL` with a dense MLP.  An MoE, RWKV-6 or
+RG-LRU block raises `NotImplementedError` (ROADMAP queue 1: later slices),
+as does `loss_fn`'s training path, which is not here.  KV caches are
+written in place (`models.layers`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Union
+
+import torch
+
+from repro_torch import tree
+from repro_torch.core.parallelism import Logical, ShardingRules, constrain, map_logical
+from repro_torch.core.ranges import RangeStat
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import frontend as fe
+from repro_torch.models import layers as L
+from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6, ModelConfig
+
+Tensor = torch.Tensor
+Params = dict[str, Any]
+ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
+
+
+# ---------------------------------------------------------------------------
+# trees: index / stack along the leading layer axis
+# ---------------------------------------------------------------------------
+
+
+def _at(node, i: int):
+    """Every leaf of `node` indexed at `i` along its leading axis (views)."""
+    if isinstance(node, Tensor):
+        return node[i]
+    if isinstance(node, RangeStat):
+        return RangeStat(node.a_min[i], node.a_max[i], node.count[i])
+    if isinstance(node, dict):
+        return {k: _at(v, i) for k, v in node.items()}
+    raise TypeError(f"not a tree node: {type(node).__name__}")
+
+
+def _stack(trees: list):
+    """The trees (same structure) stacked leaf by leaf on a new leading axis."""
+    first = trees[0]
+    if isinstance(first, Tensor):
+        return torch.stack(trees)
+    if isinstance(first, RangeStat):
+        return RangeStat(*(torch.stack([getattr(t, f) for t in trees]) for f in ("a_min", "a_max", "count")))
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    raise TypeError(f"not a tree node: {type(first).__name__}")
+
+
+def _lead(node):
+    """`node` with a leading axis of one added to every leaf."""
+    return _stack([node])
+
+
+# ---------------------------------------------------------------------------
+# per-block init / specs
+# ---------------------------------------------------------------------------
+
+
+def _unported(cfg: ModelConfig, bt: str) -> NotImplementedError:
+    kind = "MoE" if bt in ATTN and cfg.is_moe else {RWKV6: "RWKV-6", RGLRU: "RG-LRU"}.get(bt, bt)
+    return NotImplementedError(
+        f"{cfg.name}: {kind} blocks are not ported to repro_torch yet (ROADMAP queue 1: the MoE and "
+        "recurrent slices)")
+
+
+def _check_block(cfg: ModelConfig, bt: str) -> None:
+    if bt not in ATTN or cfg.is_moe:
+        raise _unported(cfg, bt)
+
+
+def block_sites(cfg: ModelConfig, bt: str) -> tuple[str, ...]:
+    if bt in ATTN:
+        return L.MOE_SITES if cfg.is_moe else L.ATTN_SITES
+    if bt == RWKV6:
+        return L.RWKV_SITES
+    if bt == RGLRU:
+        return L.RGLRU_SITES
+    raise ValueError(bt)
+
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, bt: str, lead: tuple = ()) -> Params:
+    _check_block(cfg, bt)
+    return {"ln1": L.norm_init(gen, cfg, lead), "attn": L.attn_init(gen, cfg, lead),
+            "ln2": L.norm_init(gen, cfg, lead), "ffn": L.mlp_init(gen, cfg, lead)}
+
+
+def block_specs(cfg: ModelConfig, bt: str) -> Params:
+    _check_block(cfg, bt)
+    return {"ln1": L.norm_specs(cfg), "attn": L.attn_specs(cfg),
+            "ln2": L.norm_specs(cfg), "ffn": L.mlp_specs(cfg)}
+
+
+# ---------------------------------------------------------------------------
+# whole-model init / specs
+# ---------------------------------------------------------------------------
+
+
+def _generator(gen: Union[torch.Generator, int], device: DeviceLike) -> torch.Generator:
+    if isinstance(gen, torch.Generator):
+        return gen
+    return torch.Generator(device=resolve_device(device)).manual_seed(int(gen))
+
+
+def init_params(gen: Union[torch.Generator, int], cfg: ModelConfig, *, device: DeviceLike = None) -> Params:
+    """Random float32 params: uniform(±fan_in^−½) weights, N(0, 1/d)
+    embeddings, unit norm scales, zero biases (the reference's
+    distributions; its `jax.random` draws are not reproduced — carry the
+    reference's own weights across with `convert.lm_params_from_numpy`).
+    `gen` is a `torch.Generator` (its device is where the draws run) or a
+    seed for a new generator on `device`; the tree ends on `device`."""
+    dev = resolve_device(device)
+    gen = _generator(gen, dev)
+    params: Params = {"embed": L.embed_init(gen, cfg), "final_norm": L.norm_init(gen, cfg),
+                      "frontend": fe.frontend_init(gen, cfg)}
+    params["scan"] = [block_init(gen, cfg, bt, (cfg.n_periods,)) for bt in cfg.block_pattern]
+    params["tail"] = [block_init(gen, cfg, cfg.block_pattern[i]) for i in range(cfg.n_tail)]
+    return tree.tree_map(lambda t: t.to(dev), params)
+
+
+def _add_leading(spec_tree):
+    """Prefix a `layers` (never-sharded) axis for stacked params."""
+    return map_logical(lambda lg: Logical("layers", *lg.axes), spec_tree)
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    specs: Params = {"embed": L.embed_specs(cfg), "final_norm": L.norm_specs(cfg),
+                     "frontend": fe.frontend_specs(cfg)}
+    specs["scan"] = [_add_leading(block_specs(cfg, bt)) for bt in cfg.block_pattern]
+    specs["tail"] = [block_specs(cfg, cfg.block_pattern[i]) for i in range(cfg.n_tail)]
+    return specs
+
+
+def init_ranges(cfg: ModelConfig, *, device: DeviceLike = None) -> Params:
+    """QAT range trees (stacked for scan slots, (1,) for tail/head)."""
+    dev = resolve_device(device)
+    return {"scan": [L.init_site_ranges(block_sites(cfg, bt), cfg.n_periods, device=dev)
+                     for bt in cfg.block_pattern],
+            "tail": [L.init_site_ranges(block_sites(cfg, cfg.block_pattern[i]), 1, device=dev)
+                     for i in range(cfg.n_tail)],
+            "head": L.init_site_ranges(L.HEAD_SITES, 1, device=dev)}
+
+
+def ranges_specs(cfg: ModelConfig) -> Params:
+    """Every range leaf replicated (`Logical(None)`), as the reference's."""
+    rep = lambda sites: {s: RangeStat(Logical(None), Logical(None), Logical(None)) for s in sites}  # noqa: E731
+    return {"scan": [rep(block_sites(cfg, bt)) for bt in cfg.block_pattern],
+            "tail": [rep(block_sites(cfg, cfg.block_pattern[i])) for i in range(cfg.n_tail)],
+            "head": rep(L.HEAD_SITES)}
+
+
+# the leaves a serving tree holds in the compute dtype (norm scales and
+# biases stay float32: the norms compute in float32 either way)
+_MATMUL_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv", "wg", "wu", "wd", "bu", "bd",
+                            "embedding", "head", "proj"})
+
+
+def serving_params(params: Params, cfg: ModelConfig) -> Params:
+    """`params` with every product weight cast to the compute dtype, once.
+
+    Serving params are frozen, and every layer casts a weight to the compute
+    dtype where it uses it (`.to` is the identity on a tensor already in
+    that dtype): so a tree cast here gives bitwise the logits of the float32
+    tree, without a per-step pass over the float32 weights."""
+    dt = cfg.compute_dtype
+
+    def cast(node, key=None):
+        if isinstance(node, Tensor):
+            return node.to(dt) if key in _MATMUL_LEAVES else node
+        if isinstance(node, dict):
+            return {k: cast(v, k) for k, v in node.items()}
+        return [cast(v, key) for v in node]
+
+    return cast(params)
+
+
+# ---------------------------------------------------------------------------
+# block forward (full-sequence)
+# ---------------------------------------------------------------------------
+
+
+def block_forward(x: Tensor, bp: Params, cfg: ModelConfig, bt: str, *, positions: Tensor,
+                  rules: Optional[ShardingRules], qat: L.LayerQAT, state: Optional[dict] = None,
+                  attn_chunk: int = 0) -> tuple[Tensor, Optional[dict]]:
+    """Returns (x_out, new_state)."""
+    _check_block(cfg, bt)
+    h = L.apply_norm(x, bp["ln1"], cfg)
+    h, state = L.attn_forward(h, bp["attn"], cfg, local=(bt == ATTN_LOCAL), positions=positions,
+                              rules=rules, qat=qat, chunk=attn_chunk, cache=state)
+    x = x + h
+    h = L.apply_norm(x, bp["ln2"], cfg)
+    h = L.mlp_forward(h, bp["ffn"], cfg, rules, qat)
+    return x + h, state
+
+
+def _block_state_init(cfg: ModelConfig, bt: str, batch: int, max_seq: int, dev: torch.device, lead: tuple = ()):
+    """Decode KV cache for one layer of type bt; local layers use a window
+    ring."""
+    _check_block(cfg, bt)
+    t = min(max_seq, cfg.window) if bt == ATTN_LOCAL else max_seq
+    shape = lead + (batch, t, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
+
+
+def _block_state_specs(cfg: ModelConfig, bt: str):
+    _check_block(cfg, bt)
+    s = Logical("batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": s, "v": s}
+
+
+# ---------------------------------------------------------------------------
+# full forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
+            rules: Optional[ShardingRules] = None, ranges: Optional[Params] = None,
+            quant_phase: Optional[Tensor] = None, states: Optional[Params] = None,
+            attn_chunk: int = 0) -> tuple[Tensor, dict[str, Any]]:
+    """Full-sequence forward. Returns (logits, {"ranges", "states", "aux"}).
+
+    `ranges` (with `quant_phase`, a bool tensor) turns the QAT sites on and
+    returns the updated range tree.  `states` (prefill): a cache tree from
+    `init_cache` — attention blocks write the prompt's K/V into it, in
+    place, and it comes back as "states".  "aux" is the MoE balance loss,
+    zero here."""
+    qat_on = ranges is not None
+    if "tokens" in batch:
+        x = L.embed_tokens(batch["tokens"], params["embed"], cfg, rules)
+        b, s = batch["tokens"].shape
+    else:  # audio frontend: embeddings only
+        b, s, _ = batch["frontend"].shape
+        x = torch.zeros((b, s, cfg.d_model), dtype=cfg.compute_dtype, device=batch["frontend"].device)
+    x = fe.apply_frontend(x, params["frontend"], batch, cfg, rules)
+    positions = torch.arange(s, device=x.device)
+    has_states = states is not None
+    new_ranges = {"scan": [], "tail": []} if qat_on else None
+
+    # ---- stacked periods -----------------------------------------------------
+    slot_ranges = [[] for _ in cfg.block_pattern]
+    for i in range(cfg.n_periods):
+        for si, bt in enumerate(cfg.block_pattern):
+            qat = L.LayerQAT(_at(ranges["scan"][si], i) if qat_on else None, quant_phase, cfg.qat_bits)
+            st = _at(states["scan"][si], i) if has_states else None
+            x, _ = block_forward(x, _at(params["scan"][si], i), cfg, bt, positions=positions, rules=rules,
+                                 qat=qat, state=st, attn_chunk=attn_chunk)
+            if qat_on:
+                slot_ranges[si].append(qat.collect())
+        x = constrain(x, rules, "batch", "seq", "embed")
+    if qat_on and cfg.n_periods > 0:
+        new_ranges["scan"] = [_stack(r) for r in slot_ranges]
+
+    # ---- tail layers ---------------------------------------------------------
+    for i in range(cfg.n_tail):
+        bt = cfg.block_pattern[i]
+        qat = L.LayerQAT(_at(ranges["tail"][i], 0) if qat_on else None, quant_phase, cfg.qat_bits)
+        st = states["tail"][i] if has_states else None
+        x, _ = block_forward(x, params["tail"][i], cfg, bt, positions=positions, rules=rules, qat=qat,
+                             state=st, attn_chunk=attn_chunk)
+        if qat_on:
+            new_ranges["tail"].append(_lead(qat.collect()))
+
+    # ---- head ----------------------------------------------------------------
+    x = L.apply_norm(x, params["final_norm"], cfg)
+    qat = L.LayerQAT(_at(ranges["head"], 0) if qat_on else None, quant_phase, cfg.qat_bits)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    logits = L.lm_head(x, params["embed"], cfg, rules, qat)
+    if qat_on:
+        new_ranges["head"] = _lead(qat.collect())
+    return logits, {"ranges": new_ranges, "states": states, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serve: caches + decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device: DeviceLike = None) -> Params:
+    """Zero KV caches in the compute dtype: (n_periods, B, T, Hk, hd) per
+    pattern slot, (B, T, Hk, hd) per tail layer; T = max_seq for global
+    layers, min(max_seq, window) (a ring) for local ones."""
+    dev = resolve_device(device)
+    scan = [_block_state_init(cfg, bt, batch, max_seq, dev, (cfg.n_periods,)) for bt in cfg.block_pattern]
+    tail = [_block_state_init(cfg, cfg.block_pattern[i], batch, max_seq, dev) for i in range(cfg.n_tail)]
+    return {"scan": scan, "tail": tail}
+
+
+def cache_specs(cfg: ModelConfig) -> Params:
+    scan = [_add_leading(_block_state_specs(cfg, bt)) for bt in cfg.block_pattern]
+    tail = [_block_state_specs(cfg, cfg.block_pattern[i]) for i in range(cfg.n_tail)]
+    return {"scan": scan, "tail": tail}
+
+
+def _block_decode(x: Tensor, bp: Params, cfg: ModelConfig, bt: str, *, cache, pos, rules, qat):
+    _check_block(cfg, bt)
+    h = L.apply_norm(x, bp["ln1"], cfg)
+    h, cache = L.attn_decode(h, bp["attn"], cfg, local=(bt == ATTN_LOCAL), cache=cache, pos=pos,
+                             rules=rules, qat=qat)
+    x = x + h
+    h = L.apply_norm(x, bp["ln2"], cfg)
+    h = L.mlp_forward(h, bp["ffn"], cfg, rules, qat)
+    return x + h, cache
+
+
+def decode_step(params: Params, tokens: Tensor, cache: Params, pos, cfg: ModelConfig, *,
+                rules: Optional[ShardingRules] = None, ranges: Optional[Params] = None,
+                quant_phase: Optional[Tensor] = None) -> tuple[Tensor, Params]:
+    """One-token decode. tokens: (B, 1); pos: an int, the current position
+    of every row, or a (B,) int tensor of per-row positions for
+    continuously batched decode (serve/lm) — attention layers scatter and
+    mask per lane.  Writes the caches in place and returns
+    (logits (B, 1, V), cache)."""
+    qat_on = ranges is not None
+    x = L.embed_tokens(tokens, params["embed"], cfg, rules)
+    for i in range(cfg.n_periods):
+        for si, bt in enumerate(cfg.block_pattern):
+            qat = L.LayerQAT(_at(ranges["scan"][si], i) if qat_on else None, quant_phase, cfg.qat_bits)
+            x, _ = _block_decode(x, _at(params["scan"][si], i), cfg, bt, cache=_at(cache["scan"][si], i),
+                                 pos=pos, rules=rules, qat=qat)
+    for i in range(cfg.n_tail):
+        bt = cfg.block_pattern[i]
+        qat = L.LayerQAT(_at(ranges["tail"][i], 0) if qat_on else None, quant_phase, cfg.qat_bits)
+        x, _ = _block_decode(x, params["tail"][i], cfg, bt, cache=cache["tail"][i], pos=pos, rules=rules,
+                             qat=qat)
+    x = L.apply_norm(x, params["final_norm"], cfg)
+    qat = L.LayerQAT(_at(ranges["head"], 0) if qat_on else None, quant_phase, cfg.qat_bits)
+    return L.lm_head(x, params["embed"], cfg, rules, qat), cache
+
+
+def prefill(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
+            rules: Optional[ShardingRules] = None, attn_chunk: int = 0, cache: Optional[Params] = None):
+    """Prompt processing; returns last-position logits.
+
+    Without `cache` this is the logits-only path.  With `cache` (from
+    `init_cache`), the whole prompt is processed in ONE batched pass that
+    also fills the KV caches — returns (last_logits, cache) ready for
+    `decode_step` at pos = S."""
+    logits, extras = forward(params, batch, cfg, rules=rules, states=cache, attn_chunk=attn_chunk)
+    last = logits[:, -1, :]
+    return last if cache is None else (last, extras["states"])
+
+
+__all__ = ["init_params", "param_specs", "init_ranges", "ranges_specs", "serving_params", "forward",
+           "init_cache", "cache_specs", "decode_step", "prefill", "block_sites"]

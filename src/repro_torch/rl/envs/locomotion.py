@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.rl.envs.base import EnvSpec, EnvState
+from repro_torch.rl.envs.base import EnvSpec, EnvState, FunctionalEnv
 
 Tensor = torch.Tensor
 
@@ -40,7 +40,7 @@ def _draw_device(generator: torch.Generator, device: DeviceLike) -> tuple[torch.
 
 
 @dataclasses.dataclass(frozen=True)
-class ChainEnv:
+class ChainEnv(FunctionalEnv):
     """Generic articulated chain. aux state = [v, height, pitch] subset."""
 
     spec: EnvSpec
@@ -159,7 +159,7 @@ def make_pendulum(**scenario) -> "PendulumEnv":
 
 
 @dataclasses.dataclass(frozen=True)
-class PendulumEnv:
+class PendulumEnv(FunctionalEnv):
     """Classic underactuated pendulum swing-up (exact dynamics, fast
     learning check for tests)."""
 

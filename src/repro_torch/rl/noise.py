@@ -10,11 +10,17 @@ A frozen `NoiseProcess` config plus an explicit `NoiseState` carry:
 `kind="ou"` the Ornstein-Uhlenbeck process of the original DDPG paper,
 `kind="none"` no exploration.  `advance` is the same step given the
 standard-normal draws, so a test can feed both ports the same numbers.
+
+The reference's deprecated free functions (`ou_init`, `ou_step`,
+`gaussian`, the `OUState` alias) are kept as shims over `NoiseProcess`;
+each warns with a `DeprecationWarning`, and where the reference takes a
+JAX key they take a `torch.Generator`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -66,4 +72,37 @@ class NoiseProcess:
         return self.advance(state, normal.to(state.x.device))
 
 
-__all__ = ["KINDS", "NoiseState", "NoiseProcess"]
+# --------------------------------------------------------------------- #
+# Deprecation shims — the pre-redesign free-function surface.
+# --------------------------------------------------------------------- #
+
+
+def _warn(old: str, new: str) -> None:
+    warnings.warn(f"repro_torch.rl.noise.{old} is deprecated; use {new}", DeprecationWarning, stacklevel=3)
+
+
+def ou_init(shape, *, device: DeviceLike = None) -> NoiseState:
+    """Deprecated: use ``NoiseProcess(kind='ou').init(shape)``."""
+    _warn("ou_init", "NoiseProcess(kind='ou').init(shape)")
+    return NoiseProcess(kind="ou").init(shape, device=device)
+
+
+def ou_step(state: NoiseState, generator: torch.Generator, *, theta: float = 0.15, sigma: float = 0.2,
+            dt: float = 1e-2) -> tuple[NoiseState, Tensor]:
+    """Deprecated: use ``NoiseProcess(kind='ou', ...).sample(state, generator)``."""
+    _warn("ou_step", "NoiseProcess(kind='ou', ...).sample(state, generator)")
+    return NoiseProcess(kind="ou", sigma=sigma, theta=theta, dt=dt).sample(state, generator)
+
+
+def gaussian(generator: torch.Generator, shape, sigma: float = 0.1, *, device: DeviceLike = None) -> Tensor:
+    """Deprecated: use ``NoiseProcess(kind='gaussian', sigma=...).sample``."""
+    _warn("gaussian", "NoiseProcess(kind='gaussian', sigma=...).sample")
+    proc = NoiseProcess(kind="gaussian", sigma=sigma)
+    _, eps = proc.sample(proc.init(shape, device=device if device is not None else generator.device), generator)
+    return eps
+
+
+# the old OUState name aliased the same single-field carry
+OUState = NoiseState
+
+__all__ = ["KINDS", "NoiseState", "NoiseProcess", "ou_init", "ou_step", "gaussian", "OUState"]

@@ -25,8 +25,13 @@ Trace span names (`serve.dispatch`, `serve.launch`,
 `serve.block_until_ready`) and `stats()` keys are the reference's.
 
 Differences from the reference: `device=` picks the card (default) or the
-CPU; `jax.block_until_ready` becomes a stream synchronize; there is no mesh
-sharding yet.
+CPU; `jax.block_until_ready` becomes a stream synchronize.  `mesh=` (a
+`core.parallelism.Mesh` over a `data` axis, `launch.mesh.make_serve_mesh`)
+splits a padded bucket whose rows divide by the mesh's size into one chunk
+per device, runs each chunk on its device against a replica of the actor,
+and concatenates the results in order — the reference's batch sharding
+with replicated weights, spelled out.  On one card the split is one chunk:
+the same code, a no-op.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.parallelism import Mesh
 from repro_torch.core.qat import FrozenQuant
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import Observability
@@ -72,14 +78,28 @@ class PolicyEngine(StreamEngine):
         batcher: BatcherConfig = BatcherConfig(),
         modes: Sequence[str] = MODES,
         force_mode: Optional[str] = None,
+        mesh: Optional[Mesh] = None,
         obs: Optional[Observability] = None,
     ):
         self.device = resolve_device(device)
-        self.actor = {
-            name: {k: v.to(self.device, torch.float32).contiguous() for k, v in layer.items()}
-            for name, layer in actor.items()
-        }
+        self.actor = _actor_on(actor, self.device)
         self.frozen = frozen.to(self.device) if frozen is not None else None
+        self.mesh = mesh
+        self._replicas = None
+        if mesh is not None:
+            if mesh.devices is None:
+                raise ValueError(f"{mesh!r} is a layout only: serving needs a mesh of devices")
+            if any(n > 1 for name, n in mesh.shape.items() if name != "data"):
+                raise NotImplementedError(
+                    f"{mesh!r}: replicating across a non-data mesh axis is not ported (ROADMAP queue 1)")
+            if "data" not in mesh.shape:
+                raise ValueError(f"{mesh!r} has no 'data' axis to split the batch over")
+            # one actor replica per mesh device (the engine's own on its device)
+            self._replicas = [
+                (dev, self.actor, self.frozen) if _same_device(dev, self.device)
+                else (dev, _actor_on(self.actor, dev), self.frozen.to(dev) if self.frozen is not None else None)
+                for dev in mesh.devices
+            ]
         self.batcher_config = batcher
         n = len(ddpg.ACTOR_ACTS)
         dims = [int(self.actor["l0"]["w"].shape[0])]
@@ -126,12 +146,20 @@ class PolicyEngine(StreamEngine):
     def _call(self, x_padded: np.ndarray, mode: str) -> torch.Tensor:
         if mode not in self.modes:
             raise ValueError(f"mode {mode!r} not in enabled modes {self.modes}")
+        if self._replicas is not None and x_padded.shape[0] % len(self._replicas) == 0:
+            # batch split along the mesh's data axis, weights replicated
+            chunks = np.split(x_padded, len(self._replicas))
+            ys = [ddpg.act_batch(actor, torch.from_numpy(c).to(dev), frozen, mode=mode)
+                  for (dev, actor, frozen), c in zip(self._replicas, chunks)]
+            return torch.cat([y.to(self.device) for y in ys])
         x = torch.from_numpy(x_padded).to(self.device)
         return ddpg.act_batch(self.actor, x, self.frozen, mode=mode)
 
     def _synchronize(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        devices = [self.device] + [dev for dev, _, _ in self._replicas or ()]
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
 
     def run_batch(self, obs) -> np.ndarray:
         """One engine pass over (n, obs_dim) observations: pad to a bucket,
@@ -217,6 +245,20 @@ class PolicyEngine(StreamEngine):
             "dispatch_audit": self._audit.snapshot(),
             "qat_telemetry": self._qat.stats(),
         }
+
+
+def _actor_on(actor: Params, dev: torch.device) -> Params:
+    return {name: {k: v.to(dev, torch.float32).contiguous() for k, v in layer.items()}
+            for name, layer in actor.items()}
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (a.index if a.index is not None else current) == (b.index if b.index is not None else current)
 
 
 __all__ = ["PolicyEngine"]

@@ -123,3 +123,30 @@ def test_make_scenario_knobs():
         env.step(s, torch.zeros(3, 6))
     with pytest.raises(ValueError, match="generator"):
         pbase.step_fleet(env, s, torch.zeros(3, 6))
+
+
+def test_deprecated_env_surface_matches_reference():
+    """`Env`, `FunctionalEnv` and `auto_reset`: the in-repo envs keep the
+    legacy `reset` spelling, `env_init` resolves either spelling, and
+    `auto_reset` is `step_auto` itself."""
+    assert pbase.auto_reset is pbase.step_auto and rbase.auto_reset is rbase.step_auto
+    for name in NAMES:
+        env_p, env_r = penvs.make(name), rloco.make(name)
+        assert isinstance(env_p, pbase.FunctionalEnv) and isinstance(env_r, rbase.FunctionalEnv)
+        assert isinstance(env_p, pbase.Env) and isinstance(env_r, rbase.Env)
+        s1, o1 = env_p.reset(torch.Generator().manual_seed(4), 3, device="cpu")
+        s2, o2 = env_p.init(torch.Generator().manual_seed(4), 3, device="cpu")
+        assert torch.equal(o1, o2) and torch.equal(s1.q, s2.q)
+
+    class LegacyEnv:
+        """An env of the old protocol: only `reset`."""
+
+        spec = penvs.make("pendulum").spec
+
+        def reset(self, generator, n=1, *, device=None):
+            return penvs.make("pendulum").init(generator, n, device=device)
+
+    s, obs = pbase.env_init(LegacyEnv(), torch.Generator().manual_seed(1), 2, device="cpu")
+    assert obs.shape == (2, 3)
+    for name in ("Env", "FunctionalEnv", "auto_reset"):
+        assert name in pbase.__all__ and name in penvs.__all__

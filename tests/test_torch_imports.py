@@ -40,6 +40,33 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert out[1] == "[]", f"the port imported {out[1]}"
 
 
+LM_SLICE_MODULES = (
+    "repro_torch.core.parallelism", "repro_torch.launch.mesh", "repro_torch.models.config",
+    "repro_torch.models.layers", "repro_torch.models.frontend", "repro_torch.models.transformer",
+    "repro_torch.configs.registry", "repro_torch.serve.engine", "repro_torch.serve.lm.engine",
+) + tuple(f"repro_torch.configs.{m}" for m in (
+    "dbrx_132b", "deepseek_7b", "demo_100m", "gemma3_1b", "hubert_xlarge", "internlm2_1_8b",
+    "moonshot_v1_16b_a3b", "phi3_vision_4_2b", "qwen2_0_5b", "recurrentgemma_2b", "rwkv6_1_6b", "fixar_ddpg"))
+
+
+def test_lm_slice_modules_are_walked_and_import_alone():
+    """The mesh, the rules and the LM zoo's modules are among those the
+    walk above imports, and each imports in a fresh interpreter with
+    neither jax nor repro loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')}\n"
+        f"want = {LM_SLICE_MODULES!r}\n"
+        "print(sorted(set(want) - names))\n"
+        "for n in want: importlib.import_module(n)\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True, text=True,
+                         timeout=120, check=True).stdout.splitlines()
+    assert out == ["[]", "[]"], out
+
+
 def _imported_roots(path: pathlib.Path) -> set:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):

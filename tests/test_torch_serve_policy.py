@@ -264,3 +264,41 @@ def test_actor_site_telemetry_matches_reference():
     want = rddpg.actor_site_telemetry(state.actor, jnp.asarray(obs), ref_frozen, jnp.asarray(mask))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_devices", [1, 2])
+@pytest.mark.parametrize("mode", MODES)
+def test_mesh_engine_matches_unsharded_engine(mode, n_devices):
+    """`mesh=` on a 1- and a 2-device CPU serve mesh: a bucket whose rows
+    divide by the mesh splits into one chunk per device; the actions are
+    the `mesh=None` engine's (every row of the plain versions is computed
+    alone, so bitwise), and within the serve contract of the reference's
+    engine with its own 1-device mesh.  Bucket 1 on 2 devices does not
+    divide and runs unsplit, as in the reference."""
+    from repro.launch.mesh import make_serve_mesh as ref_serve_mesh
+
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    state, _, actor, frozen = _regime("frozen")
+    buckets = BatcherConfig(buckets=(1, 8, 32))
+    mesh = make_serve_mesh(n_devices, device="cpu")
+    sharded = PolicyEngine(actor, frozen, device="cpu", force_mode=mode, batcher=buckets, mesh=mesh)
+    plain = PolicyEngine(actor, frozen, device="cpu", force_mode=mode, batcher=buckets)
+    ref = RefEngine.from_ddpg(state, force_mode=mode, batcher=RefBatcherConfig(buckets=(1, 8, 32)),
+                              mesh=ref_serve_mesh(1))
+    for rows in (1, 5, 8, 27):
+        obs = _obs(rows, seed=7)
+        got = sharded.run_batch(obs)
+        np.testing.assert_array_equal(got, plain.run_batch(obs), err_msg=f"{mode}/{n_devices}/{rows}")
+        np.testing.assert_allclose(got, ref.run_batch(obs), **SERVE_TOL)
+    assert sharded.stats()["batches"] == 4
+
+
+def test_mesh_engine_refuses_a_layout_without_devices():
+    from repro_torch.core.parallelism import Mesh
+
+    _, _, actor, frozen = _regime("off")
+    with pytest.raises(ValueError, match="layout only"):
+        PolicyEngine(actor, frozen, device="cpu", mesh=Mesh((2,), ("data",)))
+    with pytest.raises(NotImplementedError, match="non-data mesh axis"):
+        PolicyEngine(actor, frozen, device="cpu", mesh=Mesh((1, 2), ("data", "model"), ["cpu", "cpu"]))
