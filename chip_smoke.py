@@ -11,7 +11,9 @@ the fused whole-update step, eagerly and as a captured CUDA graph (slice
 monitor + quantizer at each site (slice 4), the learner engine that
 coalesces update requests into bucket-padded batches (slice 8), policy
 serving over a device mesh and the LM zoo's attention-family serving path
-at full width (slice 9).  Phases, each printing one JSON line:
+at full width (slice 9), and the LM zoo's MoE, RWKV-6 and RG-LRU serving
+paths at full width (slice 10).  Phases, each printing one JSON line (`lm`
+one per model), each line with its wall seconds since the line before:
 
   1. device   — the card's name and power limit (nvidia-smi), CUDA version,
                 TF32 switched off for matmul and cuDNN;
@@ -157,30 +159,47 @@ at full width (slice 9).  Phases, each printing one JSON line:
                 card on the `data` axis) at buckets 1, 8 and 128 in every
                 mode, bitwise the `mesh=None` engine's actions; the serve
                 rules (with the reference's layout hint) and the train
-                rules over qwen2-0.5b's and gemma3-1b's params and decode
-                caches (the reference's decode_32k cell, 128 × 32,768) on
-                the reference's (16, 16) production layout, shapes only:
-                sharded and replicated leaves and the bytes one device
-                would hold, per phase;
+                rules over the params and decode caches (the reference's
+                decode_32k cell, 128 × 32,768) of qwen2-0.5b, gemma3-1b,
+                moonshot-v1-16b-a3b, rwkv6-1.6b, recurrentgemma-2b and
+                dbrx-132b at their full configs on the reference's (16, 16)
+                production layout, shapes only: sharded and replicated
+                leaves and the bytes one device would hold, per phase;
  21. lm       — the LM zoo's serving path at full width, random weights
-                from the seed, float32 params and bf16 compute (the
-                configs' own): qwen2-0.5b (24 layers, global KV) and
-                gemma3-1b (26 layers, 5 local : 1 global, a tail of 2,
-                window 512).  Per model: decode against the full forward on
-                a 16-token prompt; prefill and `generate` (16 new tokens)
-                on prompts of 128 and 1024 tokens, and 700 on gemma3 (its
-                masked local path; 1024 takes the banded one); decode ms per
-                step at 1, 4 and 16 lanes; an `LMEngine` with 4 lanes
-                serving 8 requests (prompts 64–1024, 16–32 new tokens),
+                from the seed, float32 params cast once to the bf16 serving
+                tree (the configs' compute dtype), one model at a time, the
+                float32 tree freed after the cast: qwen2-0.5b (24 layers,
+                global KV), gemma3-1b (26 layers, 5 local : 1 global, a tail
+                of 2, window 512), moonshot-v1-16b-a3b (MoE 64 experts
+                top-6, 12 of its 48 layers), rwkv6-1.6b (24 RWKV-6 layers),
+                recurrentgemma-2b (26 layers: 8 periods of RG-LRU, RG-LRU,
+                local attention + 2 RG-LRU, window 2048) and dbrx-132b (MoE
+                16 experts top-4, 2 of its 40 layers).  Per model: decode
+                against the full forward (16 tokens; 8 for MoE, where the
+                forward drops no pair); prefill and `generate` (16 new
+                tokens) on prompts of 128 and 1024 tokens, 700 on gemma3
+                (its masked local path; 1024 takes the banded one), 2304 on
+                recurrentgemma (past its window: the ring wraps); decode ms
+                per step at 1, 4 and 16 lanes, beside the least time of the
+                serving tree's read (every expert, for MoE's dense
+                dispatch); a `torch.profiler` pass over
+                decode at 4 lanes and 1024-token prefills; except for dbrx,
+                an `LMEngine` with 4 lanes serving 8 requests (prompts
+                64–1024, rwkv6's rounded down to a multiple of 128 past
+                128; 16–32 new tokens, 8–16 for this slice's models),
                 admissions in the middle of decodes, each lane's logits
-                held to the B = 1 path on the same tokens and each request
-                against B = 1 `generate`, flips counted; tokens/s, TTFT and
-                peak memory.  For qwen2 also a float32 copy, TF32 off: the
-                card's forward of a 64-token prompt against the CPU's.
+                held to the B = 1 path on the same tokens and every request
+                equal to B = 1 `generate`, flips counted; tokens/s, TTFT and
+                peak memory.  rwkv6 must refuse a 200-token prompt (the
+                reference's chunk rule).  Float32, TF32 off, the card's
+                forward of a 64-token prompt against the CPU's: qwen2 whole,
+                one pattern period of moonshot (1 layer), rwkv6 (1) and
+                recurrentgemma (3).  The six ported kernels' counts are set
+                to 0 before the phase and must read 0 after it.
 
 The LM path runs no kernel of the port's own: the reference computes its
-attention and products in jnp, outside any Pallas kernel, so they are
-`torch.matmul` / `einsum` here.  Then the `{"kernels": [...]}` line (the
+attention, MoE dispatch, recurrences and products in jnp, outside any
+Pallas kernel, so they are `torch.matmul` / `einsum` here.  Then the `{"kernels": [...]}` line (the
 six TPU kernels' counterparts) and, last, the status line
 `{"ok": true, "device": {...}}`.  Any failed build, launch or comparison
 raises, so the run exits non-zero before the status line.  Without a CUDA
@@ -232,7 +251,7 @@ a row in another order at another batch size — and a lane's token may
 differ from B = 1's argmax only where B = 1's top-2 margin is within it.
 LM, float32 card against CPU: max |Δ| ≤ 1e-3·scale + 1e-3 (a float32 sum
 in another order, 24 layers deep; bf16 compute would miss it by an order
-of magnitude).
+of magnitude), also for one period of each recurrent and MoE family.
 """
 
 from __future__ import annotations
@@ -240,6 +259,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -306,10 +326,15 @@ def require(cond: bool, msg: str) -> None:
 
 
 PHASES: list = []  # every emitted line, for --out
+_LAST_LINE = [time.perf_counter()]
 
 
 def emit(phase: str, **fields) -> None:
-    PHASES.append({"phase": phase, **fields})
+    """Print one phase's JSON line, with the wall seconds since the line
+    before it (the phase's own time, for a phase that prints one line)."""
+    now = time.perf_counter()
+    PHASES.append({"phase": phase, **fields, "line_seconds": now - _LAST_LINE[0]})
+    _LAST_LINE[0] = now
     print(json.dumps(PHASES[-1]), flush=True)
 
 
@@ -2429,20 +2454,30 @@ def phase_engine_latency(gen: torch.Generator, dev, calls: int = 50) -> None:
 
 
 # --------------------------------------------------------------------------
-# slice 9: the serving mesh, the rules, and the LM zoo's attention family
+# slices 9 and 10: the serving mesh, the rules, and the LM zoo
 # --------------------------------------------------------------------------
 
 MESH_BUCKETS = (1, 8, 128)
-RULE_ARCHS = ("qwen2_0_5b", "gemma3_1b")
+RULE_ARCHS = ("qwen2_0_5b", "gemma3_1b", "moonshot_v1_16b_a3b", "rwkv6_1_6b", "recurrentgemma_2b", "dbrx_132b")
 RULE_CACHE = (128, 32_768)  # the reference's decode_32k cell: batch, cache length
-LM_ARCHS = ("qwen2_0_5b", "gemma3_1b")
-LM_PROMPTS = {"qwen2_0_5b": (128, 1024), "gemma3_1b": (128, 700, 1024)}  # 700: gemma3's masked local path
+LM_ARCHS = ("qwen2_0_5b", "gemma3_1b", "moonshot_v1_16b_a3b", "rwkv6_1_6b", "recurrentgemma_2b", "dbrx_132b")
+# depth cut only where one card's 80 GB forces it (the float32 tree beside its bf16 serving copy)
+LM_LAYERS = {"moonshot_v1_16b_a3b": 12, "dbrx_132b": 2}
+# 700: gemma3's masked local path (1024 takes the banded one); 2304: past recurrentgemma's 2048 window, so
+# its ring wraps in the prefill (the masked local path: banded needs S >= 2 windows, a multiple of one)
+LM_PROMPTS = {"qwen2_0_5b": (128, 1024), "gemma3_1b": (128, 700, 1024), "moonshot_v1_16b_a3b": (128, 1024),
+              "rwkv6_1_6b": (128, 1024), "recurrentgemma_2b": (128, 1024, 2304), "dbrx_132b": (128, 1024)}
 LM_GEN_NEW = 16
 LM_REQUESTS = dict(lanes=4, n=8, prompt=(64, 1024), max_new=(16, 32))
+LM_MAX_NEW_NEW = (8, 16)  # slice 10's models: fewer new tokens a request, the same prompt mix
+LM_NO_ENGINE = ("dbrx_132b",)  # the few-large-experts MoE shape: decode against forward and decode ms only
 LM_MAX_SEQ = 1024 + 32
 LM_DECODE_LANES = (1, 4, 16)
 LM_PARITY_PROMPT = 16  # decode against the full forward
-LM_F32_PROMPT = 64  # float32 qwen2, card against CPU
+LM_PARITY_PROMPT_MOE = 8  # B·S <= 8: capacity 8 holds every pair, so the forward drops none
+LM_F32_PROMPT = 64  # float32, card against CPU
+LM_F32_LAYERS = {"qwen2_0_5b": None, "moonshot_v1_16b_a3b": 1, "rwkv6_1_6b": 1, "recurrentgemma_2b": 3}
+LM_RWKV_REFUSED = 200  # > 128 and no multiple of 128: the reference's chunk rule refuses it
 LM_TOL = 0.05  # the reference's decode contract: max|Δ| < 0.05·scale + 0.05 (tests/test_archs.py:77-78)
 LM_F32_TOL = 1e-3  # float32 card against CPU: max|Δ| <= 1e-3·scale + 1e-3
 
@@ -2471,9 +2506,10 @@ def _shard_counts(specs, shapes, rules, mesh) -> dict:
 def phase_mesh(gen: torch.Generator, dev) -> dict:
     """`PolicyEngine(mesh=make_serve_mesh())` on the card bitwise the
     `mesh=None` engine at buckets 1, 8 and 128 in every mode; the serve and
-    train rules over qwen2-0.5b's and gemma3-1b's params and decode caches
-    on the reference's (16, 16) production layout (shapes only:
-    `FakeTensorMode` builds the trees without memory, as `jax.eval_shape`)."""
+    train rules over the params and decode caches of `RULE_ARCHS` at their
+    full configs (dbrx-132b's 132B params among them) on the reference's
+    (16, 16) production layout (shapes only: `FakeTensorMode` builds the
+    trees without memory, as `jax.eval_shape`)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import registry
@@ -2536,17 +2572,20 @@ def _wall_ms(fn, dev, reps: int = 3) -> float:
 
 
 def _lm_decode_vs_forward(params, cfg, gen, dev) -> dict:
+    """Token-by-token decode against the full forward on one prompt (for an
+    MoE model 8 tokens, where the forward's capacity drops no pair)."""
     from repro_torch.models import transformer as T
 
-    toks = torch.randint(0, cfg.vocab_size, (1, LM_PARITY_PROMPT), generator=gen).to(dev)
+    n = LM_PARITY_PROMPT_MOE if cfg.is_moe else LM_PARITY_PROMPT
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=gen).to(dev)
     full, _ = T.forward(params, {"tokens": toks}, cfg)
-    cache = T.init_cache(cfg, 1, LM_PARITY_PROMPT, device=dev)
-    dec = torch.cat([T.decode_step(params, toks[:, i:i + 1], cache, i, cfg)[0] for i in range(LM_PARITY_PROMPT)], 1)
+    cache = T.init_cache(cfg, 1, n, device=dev)
+    dec = torch.cat([T.decode_step(params, toks[:, i:i + 1], cache, i, cfg)[0] for i in range(n)], 1)
     full, dec = full.float(), dec.float()
     require(bool(torch.isfinite(full).all()) and bool(torch.isfinite(dec).all()), "decode/forward: non-finite logits")
     err, scale = float((dec - full).abs().max()), float(full.abs().max())
     require(err < LM_TOL * scale + LM_TOL, f"decode against forward: max |Δ| {err} >= {LM_TOL}·{scale} + {LM_TOL}")
-    return {"max_abs": err, "scale": scale, "limit": LM_TOL * scale + LM_TOL}
+    return {"max_abs": err, "scale": scale, "limit": LM_TOL * scale + LM_TOL, "tokens": n}
 
 
 class _Recorded:
@@ -2603,12 +2642,16 @@ def _lm_lanes_vs_b1(params, cfg, dev, prompts, max_new, outs, logits) -> dict:
     request's prompt, then its own emitted tokens, teacher-forced): within
     LM_TOL·scale + LM_TOL at every step; a token may differ from the B = 1
     argmax only where B = 1's top-2 margin is within that tolerance (a
-    flip).  Also each request against `generate` at B = 1."""
+    flip).  Also each request against `generate` at B = 1: equal, or
+    parting from it exactly at its first flip (B = 1's argmax there is
+    `generate`'s token, so after an admitted flip the two streams go on
+    from different tokens)."""
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import generate
 
-    worst, flips, steps, gen_equal, margins = 0.0, 0, 0, 0, []
+    worst, flips, steps, gen_equal, gen_parted, margins = 0.0, 0, 0, 0, 0, []
     for prompt, n, out in zip(prompts, max_new, outs):
+        first_flip = None
         s = len(prompt)
         require(out.shape == (s + n,) and np.array_equal(out[:s], prompt), "engine: reply is not prompt + tokens")
         lane = logits[prompt.tobytes()]
@@ -2630,11 +2673,21 @@ def _lm_lanes_vs_b1(params, cfg, dev, prompts, max_new, outs, logits) -> dict:
             if int(torch.argmax(ref)) != int(out[s + k]):
                 flips += 1
                 margins.append(margin)
+                first_flip = k if first_flip is None else first_flip
                 require(margin <= limit, f"token {k} differs from B = 1 at a top-2 margin {margin} > {limit}")
             steps += 1
-        gen_equal += int(np.array_equal(generate(params, cfg, prompt[None], n)[0].cpu().numpy(), out))
+        want = generate(params, cfg, prompt[None], n)[0].cpu().numpy()
+        parted = np.flatnonzero(want != out)
+        if parted.size == 0:
+            gen_equal += 1
+        else:
+            require(parted[0] == s + first_flip if first_flip is not None else False,
+                    f"request of {s} tokens parts from B = 1 generate at token {parted[0] - s}, not at a flip "
+                    f"(first flip: {first_flip})")
+            gen_parted += 1
     return {"tokens": steps, "flips": flips, "flip_margins": margins, "worst_err_over_limit": worst,
-            "requests_equal_to_generate": gen_equal, "requests": len(prompts)}
+            "requests_equal_to_generate": gen_equal, "requests_parting_at_a_flip": gen_parted,
+            "requests": len(prompts)}
 
 
 def _lm_decode_ms(params, cfg, dev, lanes: int, steps: int = 10) -> float:
@@ -2677,12 +2730,10 @@ def _lm_profile(params, cfg, dev, steps: int = 10) -> dict:
 def _lm_f32_card_vs_cpu(params, cfg, gen, dev) -> dict:
     """The same float32 weights (TF32 off) on the card and on the CPU: one
     64-token prompt's logits within LM_F32_TOL·scale + LM_F32_TOL."""
-    import dataclasses as dc
-
     from repro_torch import tree
     from repro_torch.models import transformer as T
 
-    cfg32 = dc.replace(cfg, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
     toks = torch.randint(0, cfg.vocab_size, (1, LM_F32_PROMPT), generator=gen)
     with torch.inference_mode():
         card, _ = T.forward(params, {"tokens": toks.to(dev)}, cfg32)
@@ -2693,58 +2744,129 @@ def _lm_f32_card_vs_cpu(params, cfg, gen, dev) -> dict:
     err, scale = float((card - host).abs().max()), float(host.abs().max())
     limit = LM_F32_TOL * scale + LM_F32_TOL
     require(err <= limit, f"float32 card against CPU: max |Δ| {err} > {limit}")
-    return {"max_abs": err, "scale": scale, "limit": limit, "tf32": torch.backends.cuda.matmul.allow_tf32}
+    return {"max_abs": err, "scale": scale, "limit": limit, "tf32": torch.backends.cuda.matmul.allow_tf32,
+            "n_layers": cfg.n_layers}
 
 
-def phase_lm(gen: torch.Generator, dev, dev_info: dict) -> dict:
-    """The LM zoo's attention-family serving path at full width, random
-    weights from the seed: `generate` and `LMEngine` for qwen2-0.5b and
-    gemma3-1b (float32 params, bf16 compute, as their configs say)."""
+def _lm_seed(gen: torch.Generator) -> int:
+    return int(torch.randint(0, 2**31, (1,), generator=gen))
+
+
+def _lm_config(arch: str):
+    from repro_torch.configs import registry
+
+    cfg = registry.get(arch)
+    return dataclasses.replace(cfg, n_layers=LM_LAYERS[arch]) if arch in LM_LAYERS else cfg
+
+
+def _lm_prompt_lens(arch: str, rng: np.random.Generator, n: int) -> list:
+    """The engine mix's prompt lengths; RWKV-6 takes only lengths its chunk
+    rule accepts (≤ 128, or a multiple of 128: rounded down)."""
+    lo, hi = LM_REQUESTS["prompt"]
+    lens = [int(v) for v in rng.integers(lo, hi + 1, size=n)]
+    return [v // 128 * 128 if arch == "rwkv6_1_6b" and v > 128 else v for v in lens]
+
+
+def _lm_f32_period(arch: str, gen: torch.Generator, dev) -> dict:
+    """One pattern period of the arch at full width, float32 (TF32 off):
+    the card's forward against the CPU's on the same weights."""
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(_lm_config(arch), n_layers=LM_F32_LAYERS[arch], dtype="float32")
+    params = T.init_params(torch.Generator(device=dev).manual_seed(_lm_seed(gen)), cfg, device=dev)
+    out = _lm_f32_card_vs_cpu(params, cfg, gen, dev)
+    del params
+    return out
+
+
+def _lm_rwkv_refused(params, cfg, dev) -> str:
+    """`generate` on a prompt the chunk rule refuses raises, naming it."""
+    from repro_torch.serve.engine import generate
+
+    try:
+        generate(params, cfg, torch.zeros((1, LM_RWKV_REFUSED), dtype=torch.int32, device=dev), 2)
+    except ValueError as err:
+        require("not divisible by chunk" in str(err), f"rwkv6 {LM_RWKV_REFUSED}: {err}")
+        return str(err)
+    raise SmokeFailure(f"rwkv6: a {LM_RWKV_REFUSED}-token prompt was not refused")
+
+
+def _lm_launches() -> dict:
+    """The six ported kernels' wrapper counts (kernel B's residual mode too)."""
+    from repro_torch.kernels.fxp_matmul.kernel import fxp_dense_cuda
+    from repro_torch.kernels.quantize.kernel import monitor_quant_cuda
+
+    return {**_counts(),
+            "fxp_dense": fxp_dense_cuda.launches, "fxp_monitor_quant": monitor_quant_cuda.launches}
+
+
+def _lm_weight_read(params, cfg) -> int:
+    """Bytes of the serving tree one decode step reads: every leaf (the MoE
+    dense dispatch runs every expert), an untied embedding table only for
+    its gathered rows (not counted)."""
+    from repro_torch import tree
+
+    total = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    if not cfg.tie_embeddings:
+        emb = params["embed"]["embedding"]
+        total -= emb.numel() * emb.element_size()
+    return total
+
+
+def _lm_model(arch: str, gen: torch.Generator, dev, rng: np.random.Generator, dev_info: dict) -> dict:
+    """One model of the LM zoo at full width (depth cut per `LM_LAYERS`):
+    random float32 weights from the seed, cast once to the serving tree
+    (bf16 compute, as the configs say), the float32 tree then freed."""
     from repro_torch import tree
     from repro_torch.configs import registry
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import generate
 
-    report = {}
-    rng = np.random.default_rng(int(torch.randint(0, 2**31, (1,), generator=gen)))
-    for arch in LM_ARCHS:
-        cfg = registry.get(arch)
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        params32 = T.init_params(torch.Generator(device=dev).manual_seed(int(torch.randint(0, 2**31, (1,),
-                                                                                               generator=gen))),
-                                 cfg, device=dev)
-        n_params = sum(t.numel() for t in tree.leaves(params32))
-        row = {"name": cfg.name, "params": n_params, "config_params": cfg.total_params(),
-               "n_layers": cfg.n_layers, "compute_dtype": str(cfg.compute_dtype)}
-        if arch == "qwen2_0_5b":
-            row["f32_card_vs_cpu"] = _lm_f32_card_vs_cpu(params32, cfg, gen, dev)
-        params = T.serving_params(params32, cfg)  # frozen: cast once
-        with torch.inference_mode():
-            row["decode_vs_forward"] = _lm_decode_vs_forward(params, cfg, gen, dev)
-            row["prefill_ms"], row["generate"] = {}, {}
-            for s in LM_PROMPTS[arch]:
-                prompt = torch.randint(0, cfg.vocab_size, (1, s), generator=gen).to(dev)
-                cache = T.init_cache(cfg, 1, s, device=dev)
-                last, _ = T.prefill(params, {"tokens": prompt}, cfg, cache=cache)
-                require(bool(torch.isfinite(last.float()).all()), f"{arch} prefill {s}: non-finite logits")
-                row["prefill_ms"][s] = _wall_ms(lambda: T.prefill(params, {"tokens": prompt}, cfg,
-                                                                  cache=T.init_cache(cfg, 1, s, device=dev)), dev)
-                out = generate(params, cfg, prompt, LM_GEN_NEW)
-                require(out.shape == (1, s + LM_GEN_NEW) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
-                        and torch.equal(out[:, :s], prompt.to(torch.int32)), f"{arch} generate {s}: bad tokens")
-                row["generate"][s] = out[0, s:].tolist()
-        row["decode_ms_per_step"] = {lanes: _lm_decode_ms(params, cfg, dev, lanes) for lanes in LM_DECODE_LANES}
-        if dev.type == "cuda":
-            row["profile"] = _lm_profile(params, cfg, dev)
+    cfg = _lm_config(arch)
+    gc.collect()  # the previous model's engine may hold its params in a reference cycle
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    row = {"name": cfg.name, "n_layers": cfg.n_layers, "config_layers": registry.get(arch).n_layers,
+           "compute_dtype": str(cfg.compute_dtype)}
+    if arch in LM_F32_LAYERS and LM_F32_LAYERS[arch] is not None:
+        row["f32_card_vs_cpu"] = _lm_f32_period(arch, gen, dev)
+    params32 = T.init_params(torch.Generator(device=dev).manual_seed(_lm_seed(gen)), cfg, device=dev)
+    row["params"] = sum(t.numel() for t in tree.leaves(params32))
+    row["config_params"] = cfg.total_params()
+    if arch in LM_F32_LAYERS and LM_F32_LAYERS[arch] is None:
+        row["f32_card_vs_cpu"] = _lm_f32_card_vs_cpu(params32, cfg, gen, dev)
+    params = T.serving_params(params32, cfg)  # frozen: cast once
+    del params32
+    read = _lm_weight_read(params, cfg)
+    row["decode_weight_read"] = {"bytes": read, "bound_ms": read / dev_info["peak_bytes_per_s"] * 1e3
+                                 if "peak_bytes_per_s" in dev_info else None}
+    with torch.inference_mode():
+        row["decode_vs_forward"] = _lm_decode_vs_forward(params, cfg, gen, dev)
+        row["prefill_ms"], row["generate"] = {}, {}
+        for s in LM_PROMPTS[arch]:
+            prompt = torch.randint(0, cfg.vocab_size, (1, s), generator=gen).to(dev)
+            cache = T.init_cache(cfg, 1, s, device=dev)
+            last, _ = T.prefill(params, {"tokens": prompt}, cfg, cache=cache)
+            require(bool(torch.isfinite(last.float()).all()), f"{arch} prefill {s}: non-finite logits")
+            row["prefill_ms"][s] = _wall_ms(lambda: T.prefill(params, {"tokens": prompt}, cfg,
+                                                              cache=T.init_cache(cfg, 1, s, device=dev)), dev)
+            out = generate(params, cfg, prompt, LM_GEN_NEW)
+            require(out.shape == (1, s + LM_GEN_NEW) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+                    and torch.equal(out[:, :s], prompt.to(torch.int32)), f"{arch} generate {s}: bad tokens")
+            row["generate"][s] = out[0, s:].tolist()
+        if arch == "rwkv6_1_6b":
+            row["rwkv_refused"] = {"prompt": LM_RWKV_REFUSED, "error": _lm_rwkv_refused(params, cfg, dev)}
+    row["decode_ms_per_step"] = {lanes: _lm_decode_ms(params, cfg, dev, lanes) for lanes in LM_DECODE_LANES}
+    if dev.type == "cuda":
+        row["profile"] = _lm_profile(params, cfg, dev)
 
-        lo, hi = LM_REQUESTS["prompt"]
-        prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
-                   for n in rng.integers(lo, hi + 1, size=LM_REQUESTS["n"])]
-        max_new = [int(n) for n in rng.integers(LM_REQUESTS["max_new"][0], LM_REQUESTS["max_new"][1] + 1,
-                                                size=LM_REQUESTS["n"])]
+    if arch not in LM_NO_ENGINE:
+        n_req = LM_REQUESTS["n"]
+        lo, hi = LM_REQUESTS["max_new"] if arch in ("qwen2_0_5b", "gemma3_1b") else LM_MAX_NEW_NEW
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in _lm_prompt_lens(arch, rng, n_req)]
+        max_new = [int(n) for n in rng.integers(lo, hi + 1, size=n_req)]
         outs, _, logits, mid = _lm_engine_run(params, cfg, dev, prompts, max_new, record=True)
         require(mid >= 1, f"{arch}: no admission happened in the middle of a decode")
         with torch.inference_mode():
@@ -2758,14 +2880,33 @@ def phase_lm(gen: torch.Generator, dev, dev_info: dict) -> dict:
                          **{k: stats[k] for k in ("requests", "admitted", "evicted", "tokens", "decode_steps",
                                                   "wall_s", "tokens_per_s_device", "ttft_ms", "ttft_p50_ms",
                                                   "ttft_p99_ms", "p50_ms", "p99_ms", "decode_occupancy")}}
-        require(stats["requests"] == LM_REQUESTS["n"] and stats["tokens"] == sum(max_new), f"{arch}: {stats}")
-        row["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-        row["seconds"] = time.perf_counter() - t0
-        report[arch] = row
-        del params, params32
-    emit("lm", nvidia_smi=dev_info["nvidia_smi"], tolerance={"decode": f"{LM_TOL}·scale + {LM_TOL}",
-         "f32_card_vs_cpu": f"{LM_F32_TOL}·scale + {LM_F32_TOL}"}, **report)
-    return report
+        require(stats["requests"] == n_req and stats["tokens"] == sum(max_new), f"{arch}: {stats}")
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    row["seconds"] = time.perf_counter() - t0
+    del params
+    return row
+
+
+def phase_lm(gen: torch.Generator, dev, dev_info: dict) -> dict:
+    """The LM zoo's serving path at full width, random weights from the
+    seed, bf16 compute (the configs' own), one model at a time: qwen2-0.5b
+    and gemma3-1b (attention), moonshot-v1-16b-a3b (MoE, 12 of 48 layers),
+    rwkv6-1.6b (RWKV-6), recurrentgemma-2b (RG-LRU + local attention) and
+    dbrx-132b (MoE, 2 of 40 layers).  One line per model; the six ported
+    kernels' counts are set to 0 before the first and must read 0 after
+    the last (the reference's LM path calls no Pallas kernel)."""
+    _reset_counts()
+    report = {}
+    rng = np.random.default_rng(_lm_seed(gen))
+    for arch in LM_ARCHS:
+        report[arch] = _lm_model(arch, gen, dev, rng, dev_info)
+        emit("lm", model=arch, nvidia_smi=dev_info["nvidia_smi"],
+             tolerance={"decode": f"{LM_TOL}·scale + {LM_TOL}", "f32_card_vs_cpu": f"{LM_F32_TOL}·scale + {LM_F32_TOL}"},
+             **report[arch])
+    launches = _lm_launches()
+    require(not any(launches.values()), f"lm: a ported kernel ran on the LM path: {launches}")
+    emit("lm_launches", archs=list(LM_ARCHS), launches=launches)
+    return {"models": report, "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -2806,7 +2947,7 @@ def main(argv=None) -> int:
     times = phase_times(gen, dev, dev_info)
     phase_engine_latency(gen, dev)
     phase_mesh(gen, dev)
-    phase_lm(gen, dev, dev_info)
+    lm_launches = phase_lm(gen, dev, dev_info)["launches"]
 
     host, device = fused["train_host"], fused["train_device"]
 
@@ -2825,6 +2966,8 @@ def main(argv=None) -> int:
         "ddpg_actor_step": {**fused_path("ddpg_actor_step"), "learner": learner["ddpg_actor_step"]},
         "fxp_monitor_quant": {"layer_monitor": layer["launches"]["fxp_monitor_quant"]},
     }
+    for name, paths in by_path.items():  # the LM zoo's path: none of the six (checked to be 0 there)
+        paths["lm"] = lm_launches[name]
 
     def wrapper_count(paths: dict) -> int:
         return sum(v["wrapper_calls"] if isinstance(v, dict) else v for v in paths.values())

@@ -169,9 +169,17 @@ def lm_ranges_to_numpy(ranges: dict) -> dict:
 
 
 def lm_cache_from_numpy(cache: dict, cfg: ModelConfig, *, device: DeviceLike = None) -> dict:
-    """The reference's KV-cache tree (`init_cache` layout) → the port's, in
-    `cfg`'s compute dtype on `device`."""
-    return _tree_from_numpy(cache, resolve_device(device), cfg.compute_dtype)
+    """The reference's decode-cache tree (`init_cache` layout) → the port's
+    on `device`: K/V in `cfg`'s compute dtype, the recurrent states
+    (RWKV-6 "wkv", "x_tm", "x_cm"; RG-LRU "h", "conv") in float32, as the
+    reference keeps them under any compute dtype."""
+    dev = resolve_device(device)
+
+    def layer(slot: dict) -> dict:
+        return {name: _np_to_torch(a).to(dev, cfg.compute_dtype if name in ("k", "v") else torch.float32)
+                for name, a in slot.items()}
+
+    return {part: [layer(slot) for slot in cache[part]] for part in ("scan", "tail")}
 
 
 def lm_cache_to_numpy(cache: dict) -> dict:

@@ -1,6 +1,7 @@
 """Shared neural layers for the architecture zoo (port of
-`repro.models.layers`: the attention family — norms, RoPE, grouped
-attention with its KV caches, the dense MLP, embedding and head).
+`repro.models.layers`: norms (the RWKV per-head group norm among them),
+RoPE, grouped attention with its KV caches, the dense MLP, embedding and
+head).
 
 Everything is functional: params are plain dicts of tensors, each `*_init`
 has a matching `*_specs` returning the same tree with `Logical` leaves
@@ -21,8 +22,7 @@ Differences from the reference: KV caches are written in place (a decode
 step or a prefill with a cache returns the cache it was given, updated),
 so a step costs no copy of the cache; a weight already in the compute
 dtype is used as it is (`.to` is then a no-op), so serving casts its
-frozen params once (`models.transformer.serving_params`).  The RWKV
-group norm waits for the recurrent slice (ROADMAP queue 1).
+frozen params once (`models.transformer.serving_params`).
 """
 
 from __future__ import annotations
@@ -188,6 +188,17 @@ def apply_norm(x: Tensor, p: Params, cfg: ModelConfig, eps: float = 1e-6) -> Ten
         ms = xf.square().mean(-1, keepdim=True)
         y = xf * torch.rsqrt(ms + eps) * p["scale"]
     return y.to(x.dtype)
+
+
+def group_norm_heads(x: Tensor, scale: Tensor, bias: Tensor, n_heads: int, eps: float = 64e-5) -> Tensor:
+    """Per-head group norm (RWKV wkv output norm), in float32 with the
+    population variance. x: (..., H*hd)."""
+    shape = x.shape
+    xf = x.to(torch.float32).reshape(*shape[:-1], n_heads, -1)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y.reshape(shape) * scale + bias).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -442,7 +453,7 @@ def attn_decode(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, cache: d
 
 
 # ---------------------------------------------------------------------------
-# MLP (dense; MoE waits for its slice)
+# MLP (dense; the MoE FFN is `models.moe`)
 # ---------------------------------------------------------------------------
 
 

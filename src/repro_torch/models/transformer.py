@@ -1,4 +1,4 @@
-"""Model assembly for the attention family (port of
+"""Model assembly for all 10 architectures (port of
 `repro.models.transformer`).
 
 Layer stacks are grouped by `block_pattern` period: the params of every
@@ -17,16 +17,19 @@ Public API
   init_ranges(cfg, device=)                    stacked QAT range tree
   ranges_specs(cfg)                            its Logical tree
   forward(params, batch, cfg, ...)             logits (prefill path)
-  init_cache(cfg, batch, max_seq, device=)     decode KV caches
+  init_cache(cfg, batch, max_seq, device=)     decode KV caches / recurrent states
   cache_specs(cfg)                             Logical tree for caches
   decode_step(params, tokens, cache, pos, ...) one-token serve step
   prefill(params, batch, cfg, cache=)          prompt pass (+ cache writes)
   serving_params(params, cfg)                  frozen params in the compute dtype
 
-Blocks: `ATTN_GLOBAL` and `ATTN_LOCAL` with a dense MLP.  An MoE, RWKV-6 or
-RG-LRU block raises `NotImplementedError` (ROADMAP queue 1: later slices),
-as does `loss_fn`'s training path, which is not here.  KV caches are
-written in place (`models.layers`).
+Blocks: `ATTN_GLOBAL` and `ATTN_LOCAL` with a dense MLP or the MoE FFN
+(`models.moe`, the dense dispatch), `RWKV6` (`models.rwkv6`) and `RGLRU`
+with a dense MLP (`models.rglru`).  `loss_fn`'s training path is not here
+(ROADMAP queue 1).  KV caches and recurrent states are written in place:
+a prefill with a cache or a decode step leaves the cache it was given
+updated (the per-layer caches are views of the stacked tree), ready for
+the next step.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ from repro_torch.core.ranges import RangeStat
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import frontend as fe
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6, ModelConfig
 
 Tensor = torch.Tensor
@@ -86,18 +92,6 @@ def _lead(node):
 # ---------------------------------------------------------------------------
 
 
-def _unported(cfg: ModelConfig, bt: str) -> NotImplementedError:
-    kind = "MoE" if bt in ATTN and cfg.is_moe else {RWKV6: "RWKV-6", RGLRU: "RG-LRU"}.get(bt, bt)
-    return NotImplementedError(
-        f"{cfg.name}: {kind} blocks are not ported to repro_torch yet (ROADMAP queue 1: the MoE and "
-        "recurrent slices)")
-
-
-def _check_block(cfg: ModelConfig, bt: str) -> None:
-    if bt not in ATTN or cfg.is_moe:
-        raise _unported(cfg, bt)
-
-
 def block_sites(cfg: ModelConfig, bt: str) -> tuple[str, ...]:
     if bt in ATTN:
         return L.MOE_SITES if cfg.is_moe else L.ATTN_SITES
@@ -109,15 +103,29 @@ def block_sites(cfg: ModelConfig, bt: str) -> tuple[str, ...]:
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, bt: str, lead: tuple = ()) -> Params:
-    _check_block(cfg, bt)
-    return {"ln1": L.norm_init(gen, cfg, lead), "attn": L.attn_init(gen, cfg, lead),
-            "ln2": L.norm_init(gen, cfg, lead), "ffn": L.mlp_init(gen, cfg, lead)}
+    if bt in ATTN:
+        ffn = moe_mod.moe_init(gen, cfg, lead) if cfg.is_moe else L.mlp_init(gen, cfg, lead)
+        return {"ln1": L.norm_init(gen, cfg, lead), "attn": L.attn_init(gen, cfg, lead),
+                "ln2": L.norm_init(gen, cfg, lead), "ffn": ffn}
+    if bt == RWKV6:
+        return {"ln1": L.norm_init(gen, cfg, lead), "ln2": L.norm_init(gen, cfg, lead),
+                "rwkv": rwkv_mod.rwkv_init(gen, cfg, lead)}
+    if bt == RGLRU:
+        return {"ln1": L.norm_init(gen, cfg, lead), "rnn": rglru_mod.rglru_init(gen, cfg, lead),
+                "ln2": L.norm_init(gen, cfg, lead), "ffn": L.mlp_init(gen, cfg, lead)}
+    raise ValueError(bt)
 
 
 def block_specs(cfg: ModelConfig, bt: str) -> Params:
-    _check_block(cfg, bt)
-    return {"ln1": L.norm_specs(cfg), "attn": L.attn_specs(cfg),
-            "ln2": L.norm_specs(cfg), "ffn": L.mlp_specs(cfg)}
+    if bt in ATTN:
+        ffn = moe_mod.moe_specs(cfg) if cfg.is_moe else L.mlp_specs(cfg)
+        return {"ln1": L.norm_specs(cfg), "attn": L.attn_specs(cfg), "ln2": L.norm_specs(cfg), "ffn": ffn}
+    if bt == RWKV6:
+        return {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg), "rwkv": rwkv_mod.rwkv_specs(cfg)}
+    if bt == RGLRU:
+        return {"ln1": L.norm_specs(cfg), "rnn": rglru_mod.rglru_specs(cfg), "ln2": L.norm_specs(cfg),
+                "ffn": L.mlp_specs(cfg)}
+    raise ValueError(bt)
 
 
 # ---------------------------------------------------------------------------
@@ -178,10 +186,16 @@ def ranges_specs(cfg: ModelConfig) -> Params:
             "head": rep(L.HEAD_SITES)}
 
 
-# the leaves a serving tree holds in the compute dtype (norm scales and
-# biases stay float32: the norms compute in float32 either way)
+# the leaves a serving tree holds in the compute dtype: exactly those every
+# family casts where it uses them.  Norm scales and biases (the RWKV group
+# norm's too) stay float32, and so do the leaves the reference uses in
+# float32: the MoE router, RWKV-6's decay (w0, wA, wB) and bonus (u), the
+# RG-LRU gates (wa, ba, wi, bi, lam).  wg / wo / wk / wv are cast wherever
+# they occur (attention, MLP, MoE experts, RWKV-6, RG-LRU).
 _MATMUL_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv", "wg", "wu", "wd", "bu", "bd",
-                            "embedding", "head", "proj"})
+                            "embedding", "head", "proj",
+                            "tm_A", "tm_B", "tm_base", "wr", "cm_wk", "cm_wv", "cm_wr", "cm_mu_k", "cm_mu_r",
+                            "wx", "conv_w", "conv_b"})
 
 
 def serving_params(params: Params, cfg: ModelConfig) -> Params:
@@ -210,22 +224,49 @@ def serving_params(params: Params, cfg: ModelConfig) -> Params:
 
 def block_forward(x: Tensor, bp: Params, cfg: ModelConfig, bt: str, *, positions: Tensor,
                   rules: Optional[ShardingRules], qat: L.LayerQAT, state: Optional[dict] = None,
-                  attn_chunk: int = 0) -> tuple[Tensor, Optional[dict]]:
-    """Returns (x_out, new_state)."""
-    _check_block(cfg, bt)
-    h = L.apply_norm(x, bp["ln1"], cfg)
-    h, state = L.attn_forward(h, bp["attn"], cfg, local=(bt == ATTN_LOCAL), positions=positions,
-                              rules=rules, qat=qat, chunk=attn_chunk, cache=state)
-    x = x + h
-    h = L.apply_norm(x, bp["ln2"], cfg)
-    h = L.mlp_forward(h, bp["ffn"], cfg, rules, qat)
-    return x + h, state
+                  attn_chunk: int = 0) -> tuple[Tensor, Optional[dict], Optional[Tensor]]:
+    """Returns (x_out, state, aux_loss): the state given, updated in place
+    (a fresh zero recurrent state when none was given), and the MoE
+    balance loss (None for other blocks)."""
+    aux = None
+    if state is None and bt in (RWKV6, RGLRU):
+        # stateless prefill: fresh zero recurrent state
+        state = _block_state_init(cfg, bt, x.shape[0], 0, x.device)
+    if bt in ATTN:
+        h = L.apply_norm(x, bp["ln1"], cfg)
+        h, state = L.attn_forward(h, bp["attn"], cfg, local=(bt == ATTN_LOCAL), positions=positions,
+                                  rules=rules, qat=qat, chunk=attn_chunk, cache=state)
+        x = x + h
+        h = L.apply_norm(x, bp["ln2"], cfg)
+        if cfg.is_moe:
+            h, aux = moe_mod.moe_forward(h, bp["ffn"], cfg, rules, qat)
+        else:
+            h = L.mlp_forward(h, bp["ffn"], cfg, rules, qat)
+        return x + h, state, aux
+    if bt == RWKV6:
+        h = L.apply_norm(x, bp["ln1"], cfg)
+        h, state = rwkv_mod.time_mix(h, bp["rwkv"], cfg, state, rules, qat)
+        x = x + h
+        h = L.apply_norm(x, bp["ln2"], cfg)
+        h, state = rwkv_mod.channel_mix(h, bp["rwkv"], cfg, state, rules, qat)
+        return x + h, state, aux
+    if bt == RGLRU:
+        h = L.apply_norm(x, bp["ln1"], cfg)
+        h, state = rglru_mod.rglru_forward(h, bp["rnn"], cfg, state, rules, qat)
+        x = x + h
+        h = L.apply_norm(x, bp["ln2"], cfg)
+        h = L.mlp_forward(h, bp["ffn"], cfg, rules, qat)
+        return x + h, state, aux
+    raise ValueError(bt)
 
 
 def _block_state_init(cfg: ModelConfig, bt: str, batch: int, max_seq: int, dev: torch.device, lead: tuple = ()):
-    """Decode KV cache for one layer of type bt; local layers use a window
-    ring."""
-    _check_block(cfg, bt)
+    """Zero recurrent state (float32) or decode KV cache (compute dtype) for
+    one layer of type bt; local layers use a window ring."""
+    if bt == RWKV6:
+        return rwkv_mod.init_state(cfg, batch, dev, lead)
+    if bt == RGLRU:
+        return rglru_mod.init_state(cfg, batch, dev, lead)
     t = min(max_seq, cfg.window) if bt == ATTN_LOCAL else max_seq
     shape = lead + (batch, t, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
@@ -233,7 +274,10 @@ def _block_state_init(cfg: ModelConfig, bt: str, batch: int, max_seq: int, dev: 
 
 
 def _block_state_specs(cfg: ModelConfig, bt: str):
-    _check_block(cfg, bt)
+    if bt == RWKV6:
+        return rwkv_mod.state_specs(cfg)
+    if bt == RGLRU:
+        return rglru_mod.state_specs(cfg)
     s = Logical("batch", "kv_seq", "kv_heads", "head_dim")
     return {"k": s, "v": s}
 
@@ -251,9 +295,10 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
 
     `ranges` (with `quant_phase`, a bool tensor) turns the QAT sites on and
     returns the updated range tree.  `states` (prefill): a cache tree from
-    `init_cache` — attention blocks write the prompt's K/V into it, in
-    place, and it comes back as "states".  "aux" is the MoE balance loss,
-    zero here."""
+    `init_cache` — attention blocks write the prompt's K/V into it and
+    recurrent blocks consume its states and write their new ones, in
+    place; it comes back as "states".  "aux" is the MoE balance loss summed
+    over the layers (zero for other archs)."""
     qat_on = ranges is not None
     if "tokens" in batch:
         x = L.embed_tokens(batch["tokens"], params["embed"], cfg, rules)
@@ -265,6 +310,7 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
     positions = torch.arange(s, device=x.device)
     has_states = states is not None
     new_ranges = {"scan": [], "tail": []} if qat_on else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     # ---- stacked periods -----------------------------------------------------
     slot_ranges = [[] for _ in cfg.block_pattern]
@@ -272,8 +318,10 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
         for si, bt in enumerate(cfg.block_pattern):
             qat = L.LayerQAT(_at(ranges["scan"][si], i) if qat_on else None, quant_phase, cfg.qat_bits)
             st = _at(states["scan"][si], i) if has_states else None
-            x, _ = block_forward(x, _at(params["scan"][si], i), cfg, bt, positions=positions, rules=rules,
-                                 qat=qat, state=st, attn_chunk=attn_chunk)
+            x, _, aux = block_forward(x, _at(params["scan"][si], i), cfg, bt, positions=positions, rules=rules,
+                                      qat=qat, state=st, attn_chunk=attn_chunk)
+            if aux is not None:
+                aux_total = aux_total + aux
             if qat_on:
                 slot_ranges[si].append(qat.collect())
         x = constrain(x, rules, "batch", "seq", "embed")
@@ -285,19 +333,20 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
         bt = cfg.block_pattern[i]
         qat = L.LayerQAT(_at(ranges["tail"][i], 0) if qat_on else None, quant_phase, cfg.qat_bits)
         st = states["tail"][i] if has_states else None
-        x, _ = block_forward(x, params["tail"][i], cfg, bt, positions=positions, rules=rules, qat=qat,
-                             state=st, attn_chunk=attn_chunk)
+        x, _, aux = block_forward(x, params["tail"][i], cfg, bt, positions=positions, rules=rules, qat=qat,
+                                  state=st, attn_chunk=attn_chunk)
+        if aux is not None:
+            aux_total = aux_total + aux
         if qat_on:
             new_ranges["tail"].append(_lead(qat.collect()))
 
     # ---- head ----------------------------------------------------------------
     x = L.apply_norm(x, params["final_norm"], cfg)
     qat = L.LayerQAT(_at(ranges["head"], 0) if qat_on else None, quant_phase, cfg.qat_bits)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     logits = L.lm_head(x, params["embed"], cfg, rules, qat)
     if qat_on:
         new_ranges["head"] = _lead(qat.collect())
-    return logits, {"ranges": new_ranges, "states": states, "aux": aux}
+    return logits, {"ranges": new_ranges, "states": states, "aux": aux_total}
 
 
 # ---------------------------------------------------------------------------
@@ -306,9 +355,12 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device: DeviceLike = None) -> Params:
-    """Zero KV caches in the compute dtype: (n_periods, B, T, Hk, hd) per
-    pattern slot, (B, T, Hk, hd) per tail layer; T = max_seq for global
-    layers, min(max_seq, window) (a ring) for local ones."""
+    """Zero decode caches: per pattern slot a tree whose leaves lead with
+    n_periods, per tail layer the unstacked tree.  Attention layers hold
+    K/V in the compute dtype, (…, B, T, Hk, hd), T = max_seq for global
+    layers, min(max_seq, window) (a ring) for local ones; recurrent layers
+    their float32 states (RWKV-6 "wkv", "x_tm", "x_cm"; RG-LRU "h",
+    "conv"), which no max_seq bounds."""
     dev = resolve_device(device)
     scan = [_block_state_init(cfg, bt, batch, max_seq, dev, (cfg.n_periods,)) for bt in cfg.block_pattern]
     tail = [_block_state_init(cfg, cfg.block_pattern[i], batch, max_seq, dev) for i in range(cfg.n_tail)]
@@ -322,14 +374,32 @@ def cache_specs(cfg: ModelConfig) -> Params:
 
 
 def _block_decode(x: Tensor, bp: Params, cfg: ModelConfig, bt: str, *, cache, pos, rules, qat):
-    _check_block(cfg, bt)
-    h = L.apply_norm(x, bp["ln1"], cfg)
-    h, cache = L.attn_decode(h, bp["attn"], cfg, local=(bt == ATTN_LOCAL), cache=cache, pos=pos,
-                             rules=rules, qat=qat)
-    x = x + h
-    h = L.apply_norm(x, bp["ln2"], cfg)
-    h = L.mlp_forward(h, bp["ffn"], cfg, rules, qat)
-    return x + h, cache
+    if bt in ATTN:
+        h = L.apply_norm(x, bp["ln1"], cfg)
+        h, cache = L.attn_decode(h, bp["attn"], cfg, local=(bt == ATTN_LOCAL), cache=cache, pos=pos,
+                                 rules=rules, qat=qat)
+        x = x + h
+        h = L.apply_norm(x, bp["ln2"], cfg)
+        if cfg.is_moe:
+            h, _ = moe_mod.moe_forward(h, bp["ffn"], cfg, rules, qat)
+        else:
+            h = L.mlp_forward(h, bp["ffn"], cfg, rules, qat)
+        return x + h, cache
+    if bt == RWKV6:
+        h = L.apply_norm(x, bp["ln1"], cfg)
+        h, cache = rwkv_mod.decode_step(h, bp["rwkv"], cfg, cache, rules, qat, "tmix")
+        x = x + h
+        h = L.apply_norm(x, bp["ln2"], cfg)
+        h, cache = rwkv_mod.decode_step(h, bp["rwkv"], cfg, cache, rules, qat, "cmix")
+        return x + h, cache
+    if bt == RGLRU:
+        h = L.apply_norm(x, bp["ln1"], cfg)
+        h, cache = rglru_mod.decode_step(h, bp["rnn"], cfg, cache, rules, qat)
+        x = x + h
+        h = L.apply_norm(x, bp["ln2"], cfg)
+        h = L.mlp_forward(h, bp["ffn"], cfg, rules, qat)
+        return x + h, cache
+    raise ValueError(bt)
 
 
 def decode_step(params: Params, tokens: Tensor, cache: Params, pos, cfg: ModelConfig, *,
@@ -338,8 +408,9 @@ def decode_step(params: Params, tokens: Tensor, cache: Params, pos, cfg: ModelCo
     """One-token decode. tokens: (B, 1); pos: an int, the current position
     of every row, or a (B,) int tensor of per-row positions for
     continuously batched decode (serve/lm) — attention layers scatter and
-    mask per lane.  Writes the caches in place and returns
-    (logits (B, 1, V), cache)."""
+    mask per lane; recurrent blocks are position-independent either way.
+    Writes the caches and states in place and returns (logits (B, 1, V),
+    cache)."""
     qat_on = ranges is not None
     x = L.embed_tokens(tokens, params["embed"], cfg, rules)
     for i in range(cfg.n_periods):
@@ -363,8 +434,8 @@ def prefill(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
 
     Without `cache` this is the logits-only path.  With `cache` (from
     `init_cache`), the whole prompt is processed in ONE batched pass that
-    also fills the KV caches — returns (last_logits, cache) ready for
-    `decode_step` at pos = S."""
+    also fills the KV caches and recurrent states — returns (last_logits,
+    cache) ready for `decode_step` at pos = S."""
     logits, extras = forward(params, batch, cfg, rules=rules, states=cache, attn_chunk=attn_chunk)
     last = logits[:, -1, :]
     return last if cache is None else (last, extras["states"])

@@ -2,10 +2,10 @@
 third `StreamEngine` client).
 
 `serve/engine.generate` serves one batch of prompts at a time.  `LMEngine`
-keeps a fixed set of decode *lanes* — rows of one engine-wide KV cache —
-and runs ONE `decode_step` per tick across every active lane, at
-heterogeneous positions (the vector-`pos` form of
-`models/layers.attn_decode`):
+keeps a fixed set of decode *lanes* — rows of one engine-wide KV cache /
+recurrent state — and runs ONE `decode_step` per tick across every active
+lane, at heterogeneous positions (the vector-`pos` form of
+`models/layers.attn_decode`; recurrent blocks ignore the positions):
 
     requests ──submit(prompt, max_new)──▶ LMQueue (FIFO)
                                             │ admit: free lane?
@@ -33,7 +33,8 @@ Scheduling invariants (the reference's):
     at another batch size, so a lane's logits are held to the B = 1 path
     within a bf16 tolerance instead (`chip_smoke.py`'s `lm` phase);
   * dirty lanes are safe — admission overwrites the lane's entire cache
-    row, so whatever the previous occupant left is unreachable.
+    row (its K/V and its recurrent states), so whatever the previous
+    occupant left is unreachable.
 
 Decoding is greedy only.  Serving params are frozen, so the engine casts
 the product weights to the compute dtype once, at construction
@@ -103,8 +104,8 @@ def _insert_lane(big: Params, small: Params, lane: int) -> Params:
 
     `init_cache` leaves are batch-first: stacked leaves carry the period
     axis first ((P, B, ...) — batch at axis 1), tail leaves start at batch
-    (axis 0).  The whole row is overwritten, which is what makes
-    dirty-lane reuse safe."""
+    (axis 0).  The whole row — every leaf, K/V and recurrent states alike —
+    is overwritten, which is what makes dirty-lane reuse safe."""
     for b, s in zip(big["scan"], small["scan"]):
         for name in b:
             b[name][:, lane] = s[name][:, 0].to(b[name].dtype)

@@ -1,7 +1,8 @@
 """Port parity: the continuously batched LM engine (`repro_torch.serve.lm`)
 on the CPU — the reference's contract and tests (tests/serve/
-test_lm_engine.py) on qwen2 (global KV cache) and gemma3 (local ring +
-global mix), in the configs' own bfloat16:
+test_lm_engine.py) on one arch per cache/state family: qwen2 (global KV
+cache), gemma3 (local ring + global mix), recurrentgemma (RG-LRU states +
+local ring) and rwkv6 (RWKV-6 states), in the configs' own bfloat16:
 
   * per-token parity — every sequence the engine decodes is exactly what
     the port's sequential `generate` produces, whatever shares the batch;
@@ -12,7 +13,8 @@ global mix), in the configs' own bfloat16:
 
 Serving casts the float32 params to the compute dtype once
 (`transformer.serving_params`); its logits are held bitwise to the
-reference's cast-at-every-use order.  Greedy tokens: exact.
+reference's cast-at-every-use order, for every LM arch.  Greedy tokens:
+exact.
 """
 
 import dataclasses
@@ -38,12 +40,16 @@ from repro_torch.serve.engine import generate
 from repro_torch.serve.lm import LMEngine
 from repro_torch.serve.lm.engine import _insert_lane
 
-ARCHS = ["qwen2_0_5b", "gemma3_1b"]
-# with random weights a tied-embedding model (qwen2, gemma3) echoes its last
-# prompt token greedily; an untied head (internlm2) makes the stream vary
+ARCHS = ["qwen2_0_5b", "gemma3_1b", "recurrentgemma_2b", "rwkv6_1_6b"]
+RECURRENT_ARCHS = ["recurrentgemma_2b", "rwkv6_1_6b"]
+# with random weights a tied-embedding model (qwen2, gemma3, recurrentgemma)
+# echoes its last prompt token greedily; an untied head (internlm2, rwkv6)
+# makes the stream vary
 PARITY_ARCHS = ARCHS + ["internlm2_1_8b"]
-# prompt lengths: 40 > the gemma3 smoke window (32), so the local-attention
-# ring cache wraps during prefill
+# every decoder arch (hubert is an encoder): the engine's tokens against the reference's generate
+DECODER_ARCHS = [a for a in preg.lm_archs() if preg.get(a).causal]
+# prompt lengths: 40 > the gemma3 / recurrentgemma smoke window (32), so the
+# local-attention ring cache wraps during prefill
 PROMPT_LENS = (6, 11, 40)
 MAX_NEW = (6, 3, 4)
 _CACHE: dict = {}
@@ -76,7 +82,7 @@ def test_batched_decode_matches_sequential_generate(arch):
         np.testing.assert_array_equal(out, _generate(params, cfg, prompt, n))
 
 
-@pytest.mark.parametrize("arch", PARITY_ARCHS)
+@pytest.mark.parametrize("arch", DECODER_ARCHS)
 def test_engine_tokens_match_reference_generate(arch):
     """On the reference's float32 weights, the port's engine emits the
     reference's `generate` tokens, prompt for prompt."""
@@ -239,6 +245,73 @@ def test_insert_lane_overwrites_the_whole_row():
 
 def _leaves(tree):
     return [v for slot in tree["scan"] + tree["tail"] for v in slot.values()]
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_insert_lane_overwrites_the_whole_recurrent_state(arch):
+    """Every recurrent leaf of the lane (RWKV-6 wkv / x_tm / x_cm, RG-LRU h
+    / conv, and the local layers' K/V) is overwritten on admission, in
+    float32; the other lanes are untouched."""
+    cfg, _, _ = _setup(arch)
+    big = PT.init_cache(cfg, 3, 40, device="cpu")
+    for leaf in _leaves(big):
+        leaf.fill_(7)
+    small = PT.init_cache(cfg, 1, 40, device="cpu")
+    for leaf in _leaves(small):
+        leaf.copy_(torch.randn(leaf.shape, generator=torch.Generator().manual_seed(2)).to(leaf.dtype))
+    _insert_lane(big, small, 2)
+    names = set()
+    for b, s in zip(big["scan"], small["scan"]):
+        for name in b:
+            names.add(name)
+            assert torch.equal(b[name][:, 2], s[name][:, 0]) and bool((b[name][:, :2] == 7).all())
+    for b, s in zip(big["tail"], small["tail"]):
+        for name in b:
+            assert torch.equal(b[name][2], s[name][0]) and bool((b[name][:2] == 7).all())
+    assert names >= ({"h", "conv"} if arch == "recurrentgemma_2b" else {"wkv", "x_tm", "x_cm"})
+    assert all(leaf.dtype == torch.float32 for slot in big["scan"] for n, leaf in slot.items() if n not in ("k", "v"))
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_lane_reused_after_a_recurrent_request_gives_generate_tokens(arch):
+    """One lane: a request finishes and leaves its recurrent state in the
+    lane; the next request admitted there emits `generate`'s tokens."""
+    cfg, params, prompts = _setup(arch)
+    eng = LMEngine(params, cfg, lanes=1, max_seq=64, device="cpu")
+    first, second = eng.generate_batch([prompts[2], prompts[0]], [4, 6])
+    np.testing.assert_array_equal(first, _generate(params, cfg, prompts[2], 4))
+    np.testing.assert_array_equal(second, _generate(params, cfg, prompts[0], 6))
+    state = eng._cache["scan"][0]["h" if arch == "recurrentgemma_2b" else "wkv"]
+    assert state.dtype == torch.float32 and float(state.abs().max()) > 0  # the lane holds a state
+
+
+def _forward_batch(cfg, seed=1, b=2, s=12):
+    rng = np.random.default_rng(seed)
+    batch = {}
+    if cfg.frontend != "audio_stub":
+        batch["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32))
+    if cfg.frontend != "none":
+        n = cfg.frontend_len if cfg.frontend == "vision_stub" else s
+        batch["frontend"] = torch.from_numpy(rng.normal(size=(b, n, cfg.frontend_dim)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch", preg.lm_archs())
+def test_serving_params_give_the_float32_trees_logits_bitwise(arch):
+    """Every arch, every block family: the forward's logits through the
+    once-cast serving tree are bitwise those of the float32 tree; the
+    leaves the reference uses in float32 stay float32."""
+    cfg, params, _ = _setup(arch)
+    cast = PT.serving_params(params, cfg)
+    batch = _forward_batch(cfg)
+    want, _ = PT.forward(params, batch, cfg)
+    got, _ = PT.forward(cast, batch, cfg)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    kept = {"router", "w0", "wA", "wB", "u", "wa", "ba", "wi", "bi", "lam", "scale", "bias", "gn_scale", "gn_bias"}
+    for slot in cast["scan"]:
+        for part in slot.values():
+            for name, leaf in part.items():
+                assert leaf.dtype == (torch.float32 if name in kept else torch.bfloat16), (arch, name)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -5,7 +5,7 @@ The rules are pure data and shape arithmetic, so parity is exact: every
 preset and keyword gives the reference's rules dict on the (1, 1), (2, 4),
 (16, 16) and (2, 16, 16) layouts, and `mesh_axes` gives the reference's
 spec (entry for entry of its PartitionSpec) for every leaf of every
-attention arch's `param_specs` and `cache_specs`, with the shape-aware
+LM arch's `param_specs` and `cache_specs`, with the shape-aware
 divisibility guard, at the full configs' shapes.  The reference's meshes
 are stand-ins with `.axis_names` / `.shape` (as tests/test_sharding.py
 builds one), so no layout needs devices.  `constrain` is a no-op on one
@@ -15,7 +15,6 @@ device and raises on more.
 import itertools
 import types
 
-import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -43,10 +42,7 @@ PRESETS = [("train", {}), ("train", {"shard_seq": True})] + [
     ("serve", dict(shard_kv_seq=a, prefer_head_dim=b, shard_expert_ffn=c))
     for a, b, c in itertools.product((False, True), repeat=3)
 ]
-# the attention family: every arch whose blocks are attention + a dense MLP
-ATTN_ARCHS = [a for a in preg.lm_archs()
-              if set(preg.get(a).block_pattern) <= {"global", "local"} and not preg.get(a).is_moe]
-UNPORTED_ARCHS = [a for a in preg.lm_archs() if a not in ATTN_ARCHS]
+ARCHS = preg.lm_archs()  # every block family: attention, MoE, RWKV-6, RG-LRU
 
 
 class _RefMesh:
@@ -123,7 +119,7 @@ _SHAPES: dict = {}
 
 
 @pytest.mark.parametrize("what", ["params", "cache"])
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_mesh_axes_match_reference_on_every_leaf(arch, what):
     """Every leaf of the arch's spec tree, at the full config's shapes, on
     every layout and preset: the port's spec is the reference's, with the
@@ -150,7 +146,7 @@ def test_mesh_axes_match_reference_on_every_leaf(arch, what):
     assert n == len(pairs) * len(LAYOUTS) * len(PRESETS)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_tree_pspecs_and_shardings_follow_the_rules(arch):
     cfg = preg.get(arch)
     ref_mesh, mesh = _meshes("16x16")
@@ -281,13 +277,3 @@ def test_core_reexports_match_reference():
 
     names = [n for n in dir(rcore) if n in rpar.__all__]
     assert names and all(getattr(pcore, n) is getattr(ppar, n) for n in names)
-
-
-@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
-def test_unported_blocks_raise_in_the_spec_trees(arch):
-    cfg = preg.get(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        PT.param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        PT.cache_specs(cfg)
-    assert np.isfinite(cfg.total_params()) and cfg.total_params() == rreg.get(arch).total_params()
