@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--out FILE]   (FILE: every phase's result as JSON)
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit.  It drives the port's seven main paths: policy serving (slice
+toolkit.  It drives the port's eight main paths: policy serving (slice
 1), DDPG training through backend "pallas" (slice 2), training through
 the fused whole-update step, eagerly and as a captured CUDA graph (slice
 3), Algorithm 1 over the per-layer datapath with the standalone
@@ -12,8 +12,9 @@ monitor + quantizer at each site (slice 4), the learner engine that
 coalesces update requests into bucket-padded batches (slice 8), policy
 serving over a device mesh and the LM zoo's attention-family serving path
 at full width (slice 9), and the LM zoo's MoE, RWKV-6 and RG-LRU serving
-paths at full width (slice 10).  Phases, each printing one JSON line (`lm`
-one per model), each line with its wall seconds since the line before:
+paths at full width (slice 10), and LM training with QAT at full width
+(slice 11).  Phases, each printing one JSON line (`lm` one per model),
+each line with its wall seconds since the line before:
 
   1. device   — the card's name and power limit (nvidia-smi), CUDA version,
                 TF32 switched off for matmul and cuDNN;
@@ -195,7 +196,35 @@ one per model), each line with its wall seconds since the line before:
                 forward of a 64-token prompt against the CPU's: qwen2 whole,
                 one pattern period of moonshot (1 layer), rwkv6 (1) and
                 recurrentgemma (3).  The six ported kernels' counts are set
-                to 0 before the phase and must read 0 after it.
+                to 0 before the phase and must read 0 after it;
+ 22. lm_train — LM training at full width (slice 11): demo-100m
+                (`configs/demo_100m.py`, 12 layers, d 768, 12 / 4 heads,
+                GLU 3072, vocab 32,768, tied; bf16 compute, float32 master
+                weights, remat "dots") through the port's own train CLI
+                (`repro_torch.launch.train.main`) at B = 8, S = 1024 with
+                QAT (delay 30): 70 steps checkpointed every 30 and at the
+                end, then the step-70 checkpoint deleted and the same
+                command resumed from step 60, the two under
+                `torch.use_deterministic_algorithms(True)` (cuBLAS's
+                workspace set deterministic at start); the loss must fall
+                (mean of the last 5 steps below the first 5's by 0.2, the
+                reference's rule), `quant_phase` flip at step 31, every
+                range leaf stay finite and bitwise frozen from the delay's
+                checkpoint on, every param stay finite, and the resumed
+                step-70 state equal the uninterrupted one bitwise.  Then
+                the step's host wall ms (p50 of 6 steady steps, each
+                ending in a sync), tokens/s, MFU (6·N·tokens plus causal
+                attention over 989 TFLOP/s), peak memory and a profiler
+                pass over 3 steps; the same step with `ce_chunk=256` and
+                with remat "none" (ms and peak memory each); 4 steps
+                through `LearnerEngine(learner_update_fns(...),
+                pad_policy="exact")` bitwise 4 direct calls; and one
+                float32 step (TF32 off, QAT in the monitor phase, B = 1,
+                S = 128) per family, card against CPU on the same params
+                and batch: qwen2-0.5b (1 layer), moonshot-v1-16b-a3b (1
+                layer, 64 experts), rwkv6-1.6b (1), recurrentgemma-2b (3).
+                The six kernels' counts are set to 0 before and must read
+                0 after.
 
 The LM path runs no kernel of the port's own: the reference computes its
 attention, MoE dispatch, recurrences and products in jnp, outside any
@@ -251,7 +280,12 @@ a row in another order at another batch size — and a lane's token may
 differ from B = 1's argmax only where B = 1's top-2 margin is within it.
 LM, float32 card against CPU: max |Δ| ≤ 1e-3·scale + 1e-3 (a float32 sum
 in another order, 24 layers deep; bf16 compute would miss it by an order
-of magnitude), also for one period of each recurrent and MoE family.
+of magnitude), also for one period of each recurrent and MoE family.  LM
+training, float32 card against CPU: the loss within 1e-3·|loss| + 1e-3,
+each gradient leaf within 1e-3·max|g_leaf| + 1e-6 (the same contract leaf
+by leaf; the card's backward may sum a gather's or an embedding's
+scatter in another order), the new ranges 2e-5; demo-100m's resumed run,
+its frozen ranges and the learner path: bitwise.
 """
 
 from __future__ import annotations
@@ -262,6 +296,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -2909,6 +2944,292 @@ def phase_lm(gen: torch.Generator, dev, dev_info: dict) -> dict:
     return {"models": report, "launches": launches}
 
 
+# the lm_train phase: demo-100m at full width and depth through the train CLI
+LM_TRAIN_ARCH = "demo_100m"
+LM_TRAIN_CLI = dict(batch=8, seq=1024, qat_delay=30, steps=70, ckpt_every=30)
+LM_TRAIN_TIMED = 8  # steps timed for the step ms (the first 2 not counted)
+LM_TRAIN_VARIANTS = {"ce_chunk_256": dict(ce_chunk=256), "remat_none": dict(remat="none")}
+LM_TRAIN_PROFILED = 3
+LM_TRAIN_LEARNER_STEPS = 4
+# one full-width train step per family, float32, card against CPU: one
+# pattern period each, B = 1, S = 128 (RWKV-6's chunk), QAT in the monitor phase
+LM_TRAIN_FAMILIES = {"qwen2_0_5b": 1, "moonshot_v1_16b_a3b": 1, "rwkv6_1_6b": 1, "recurrentgemma_2b": 3}
+LM_TRAIN_F32 = dict(batch=1, seq=128)
+LM_TRAIN_F32_TOL = 1e-3  # loss 1e-3·|loss| + 1e-3; each grad leaf 1e-3·max|g_leaf| + 1e-6
+BF16_DENSE_PEAK = 989e12  # H100 SXM data sheet, dense bf16 (PERF.md §3)
+
+
+def _lm_train_cli(dev, *extra) -> tuple:
+    """`repro_torch.launch.train.main` with the phase's arguments; its log
+    lines go to a buffer (the records come back with the state)."""
+    import io
+
+    from repro_torch.launch.train import main as train_main
+
+    c = LM_TRAIN_CLI
+    argv = ["--arch", LM_TRAIN_ARCH, "--device", str(dev), "--batch", str(c["batch"]),
+            "--seq", str(c["seq"]), "--qat", "--qat-delay", str(c["qat_delay"]), "--log-every", "1", *extra]
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        state, records = train_main(argv)
+    return state, records, out.getvalue()
+
+
+def _lm_train_config():
+    from repro_torch.configs import registry
+
+    return dataclasses.replace(registry.get(LM_TRAIN_ARCH), qat=True, qat_delay=LM_TRAIN_CLI["qat_delay"])
+
+
+def _bitwise_trees(a, b) -> list:
+    """Paths of the leaves where two states differ (empty: bitwise equal)."""
+    from repro_torch import tree
+
+    return [pa for (pa, x), (_, y) in zip(tree.flatten_with_path(a), tree.flatten_with_path(b))
+            if not torch.equal(x, y)]
+
+
+def _lm_train_resume(dev) -> dict:
+    """The CLI's runs under `torch.use_deterministic_algorithms(True)`: 70
+    steps checkpointed every 30 and at the end; then the step-70 checkpoint
+    is deleted, as a run preempted after step 60 leaves the directory, and
+    the same command resumes from step 60.  Checks the loss falling (the
+    reference's rule), the phase flip at the delay, the ranges frozen from
+    then on, finite params, and the resumed state bitwise the uninterrupted
+    one."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import ckpt
+
+    c = LM_TRAIN_CLI
+    ckdir = REPO / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    steps = ["--steps", str(c["steps"]), "--ckpt-dir", str(ckdir), "--ckpt-every", str(c["ckpt_every"])]
+    resume_from = c["steps"] // c["ckpt_every"] * c["ckpt_every"]
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        whole, rec, _ = _lm_train_cli(dev, *steps)
+        at_delay, _, _ = ckpt.restore(ckdir, whole, step=c["qat_delay"])
+        at_resume, _, _ = ckpt.restore(ckdir, whole, step=resume_from)
+        shutil.rmtree(ckdir / f"step_{c['steps']:08d}")
+        resumed, rec_r, log_r = _lm_train_cli(dev, *steps, "--resume")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    wall = time.perf_counter() - t0
+    losses = [r["loss"] for r in rec]
+    require(len(rec) == c["steps"] and [r["step"] for r in rec] == list(range(1, c["steps"] + 1)), "lm_train: log")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    require(last5 < first5 - 0.2, f"lm_train: the loss did not fall: first 5 {first5}, last 5 {last5}")
+    phases = [r["quant_phase"] for r in rec]
+    require(phases == [int(r["step"] > c["qat_delay"]) for r in rec],
+            f"lm_train: quant_phase does not flip at step {c['qat_delay']}: {phases}")
+    require(c["qat_delay"] % c["ckpt_every"] == 0, "the delay's checkpoint is the frozen ranges'")
+    ranges = tree.leaves(whole.ranges)
+    require(all(bool(torch.isfinite(t.float()).all()) for t in ranges), "lm_train: a range leaf is not finite")
+    for what, later in ((f"step {resume_from}", at_resume.ranges), (f"step {c['steps']} (resumed)", resumed.ranges),
+                        (f"step {c['steps']}", whole.ranges)):
+        moved = _bitwise_trees(at_delay.ranges, later)
+        require(not moved, f"lm_train: ranges moved after the delay, {what}: {moved[:4]}")
+    require(all(bool(torch.isfinite(t).all()) for t in tree.leaves(whole.params)), "lm_train: a param is not finite")
+    require(f"resumed from step {resume_from}" in log_r, f"lm_train: the second run did not resume: {log_r[:200]}")
+    differ = _bitwise_trees(resumed, whole)
+    require(not differ, f"lm_train: the resumed step-{c['steps']} state is not the uninterrupted run's: {differ[:6]}")
+    require([r["loss"] for r in rec_r] == [r["loss"] for r in rec[resume_from:]], "lm_train: resumed losses differ")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return {"steps": c["steps"], "resumed_from": resume_from, "checkpoint_every": c["ckpt_every"],
+            "losses": losses, "loss_first5_mean": first5, "loss_last5_mean": last5,
+            "loss_rule": "mean(last 5) < mean(first 5) - 0.2 (tests/test_system.py:57)",
+            "quant_phase_flips_at_step": c["qat_delay"] + 1, "ranges_after_delay": "bitwise frozen",
+            "resumed_vs_uninterrupted": "bitwise", "deterministic_algorithms": True,
+            "deterministic_refusals": [], "cli_s_per_step": [r["s_per_step"] for r in rec],
+            "wall_s_two_runs": wall}, whole
+
+
+def _lm_train_flops(cfg, batch: int, seq: int, n_params: int) -> float:
+    """Model FLOPs of one training step: 6·N·tokens (N every param, the
+    tied embedding once: it is the head's product) plus causal attention,
+    6·L·B·S²·H·hd (QKᵀ and PV over the causal half, forward and backward)."""
+    return 6.0 * n_params * batch * seq + 6.0 * cfg.n_layers * batch * seq * seq * cfg.n_heads * cfg.hd
+
+
+def _lm_train_timed(cfg, dev, batches, *, remat: str | None = None, ce_chunk: int = 0,
+                    profile: bool = False) -> dict:
+    """Host wall ms of `LM_TRAIN_TIMED` steps from a fresh state, each
+    ending in a device sync (the first 2 not counted), and the peak device
+    memory over them; with `profile`, a profiler pass over
+    `LM_TRAIN_PROFILED` more."""
+    from repro_torch.optim import adam, schedule
+    from repro_torch.train.step import init_state, make_train_step
+
+    cfg = dataclasses.replace(cfg, remat=remat or cfg.remat)
+    opt = adam.AdamConfig(lr=3e-4, grad_clip_norm=1.0,
+                          schedule=schedule.warmup_cosine(50, LM_TRAIN_CLI["steps"]))
+    step = make_train_step(cfg, opt, ce_chunk=ce_chunk)
+    state = init_state(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for i in range(LM_TRAIN_TIMED):
+        sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i % len(batches)])
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        require(bool(torch.isfinite(metrics["loss"])), "lm_train: a timed step's loss is not finite")
+    out = {"ms": ms, "ms_p50": statistics.median(ms[2:]), "remat": cfg.remat, "ce_chunk": ce_chunk,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None}
+    if profile and dev.type == "cuda":
+        prof = _profile(lambda: [step(state, batches[i % len(batches)]) for i in range(LM_TRAIN_PROFILED)],
+                        LM_TRAIN_PROFILED, "step")
+        out["profile"] = {k: v for k, v in prof.items() if not k.startswith("runtime_calls")}
+    return out
+
+
+def _lm_train_family(arch: str, gen: torch.Generator, dev) -> dict:
+    """One pattern period of the arch at full width, float32 (TF32 off),
+    QAT in the monitor phase: `train.step.value_and_grad` on the card
+    against the CPU on the same params (through `convert`) and the same
+    numpy batch — the loss, every gradient leaf and the new ranges."""
+    from repro_torch import convert, tree
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import value_and_grad
+
+    cfg = dataclasses.replace(_lm_config(arch), n_layers=LM_TRAIN_FAMILIES[arch], dtype="float32", qat=True)
+    host = convert.lm_params_to_numpy(T.init_params(torch.Generator(device=dev).manual_seed(_lm_seed(gen)), cfg,
+                                                    device=dev))
+    rng = np.random.default_rng(_lm_seed(gen))
+    b, s = LM_TRAIN_F32["batch"], LM_TRAIN_F32["seq"]
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        params = convert.lm_params_from_numpy(host, device=where)
+        t0 = time.perf_counter()
+        loss, extras, grads = value_and_grad(cfg, params, T.init_ranges(cfg, device=where),
+                                             {k: torch.from_numpy(v).to(where) for k, v in batch.items()},
+                                             torch.tensor(False, device=where))
+        out[where.type] = (float(loss), [g.cpu() for g in tree.leaves(grads)], tree.leaves(extras["ranges"]),
+                           time.perf_counter() - t0)
+        del params, grads, extras
+        gc.collect()
+        if where.type == "cuda":
+            torch.cuda.empty_cache()
+    (loss, grads, ranges, card_s), (want, want_grads, want_ranges, cpu_s) = out[dev.type], out["cpu"]
+    tol = LM_TRAIN_F32_TOL
+    require(abs(loss - want) <= tol * abs(want) + tol, f"{arch} train step: loss {loss} against the CPU's {want}")
+    worst, paths = 0.0, [p for p, _ in tree.flatten_with_path(host)]
+    for path, g, w in zip(paths, grads, want_grads):  # float32 differences: ≤ an ulp off, far below the bound
+        require(bool(torch.isfinite(g).all()), f"{arch} {path}: non-finite gradient")
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        require(err <= tol * scale + 1e-6, f"{arch} {path}: gradient max |Δ| {err} > {tol}·{scale} + 1e-6")
+        worst = max(worst, err / (tol * scale + 1e-6))
+    for r, w in zip(ranges, want_ranges):
+        compare(r.cpu().float(), w.float(), 2e-5, f"{arch} ranges")
+    return {"n_layers": cfg.n_layers, "params": sum(a.size for a in tree.leaves(host)), "loss": loss,
+            "loss_cpu": want, "grad_leaves": len(grads), "worst_grad_err_over_limit": worst,
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def _lm_train_learner(cfg, dev, host_batches: list) -> dict:
+    """`LEARNER_STEPS` demo-100m steps through `LearnerEngine(
+    learner_update_fns(...), pad_policy="exact")` against as many direct
+    calls of the same step on the same batches, from the same fresh state,
+    under deterministic algorithms: bitwise."""
+    from repro_torch.optim import adam
+    from repro_torch.runtime.engine import BatcherConfig
+    from repro_torch.train.learner import LearnerEngine
+    from repro_torch.train.step import init_state, learner_update_fns
+
+    fns = learner_update_fns(cfg, adam.AdamConfig(lr=3e-4, grad_clip_norm=1.0))
+    fresh = lambda: init_state(torch.Generator(device=dev).manual_seed(2), cfg, device=dev)  # noqa: E731
+    torch.use_deterministic_algorithms(True)
+    try:
+        eng = LearnerEngine(fresh(), fns, dims=[cfg.d_model, cfg.vocab_size], force_mode="jnp", pad_policy="exact",
+                            batcher=BatcherConfig(buckets=(LM_TRAIN_CLI["batch"],)))
+        streamed = [eng.run_update(b) for b in host_batches]
+        direct, losses = fresh(), []
+        for b in host_batches:
+            direct, m = fns["jnp"](direct, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        differ = _bitwise_trees(eng.state, direct)
+        eng.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require([m["loss"] for m in streamed] == losses, f"lm_train learner: losses {streamed} against {losses}")
+    require(not differ, f"lm_train learner: the streamed state differs from direct calls at {differ[:6]}")
+    return {"steps": len(host_batches), "bucket": LM_TRAIN_CLI["batch"], "state": "bitwise direct calls",
+            "losses": losses, "modes": sorted({m["mode"] for m in streamed})}
+
+
+def phase_lm_train(gen: torch.Generator, dev, dev_info: dict) -> dict:
+    """LM training at full width (module docstring): demo-100m through the
+    train CLI (70 steps, resumed from 60, deterministic), its step ms, tokens/s,
+    MFU, peak memory and a profiler pass, the ce_chunk and remat variants,
+    the learner path, and one float32 step per family card against CPU.
+    The six ported kernels' counts are set to 0 before and must read 0
+    after (the reference's LM training path calls no Pallas kernel)."""
+    from repro_torch import tree
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.models.config import ShapeConfig
+
+    _reset_counts()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    c = LM_TRAIN_CLI
+    cfg = _lm_train_config()
+    report = {"model": cfg.name, "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                                            "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+                                            "vocab_size": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat},
+              "batch": c["batch"], "seq": c["seq"], "qat_delay": c["qat_delay"]}
+    seconds = {}
+    t0 = time.perf_counter()
+    report["cli"], state = _lm_train_resume(dev)
+    seconds["cli"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree.leaves(state.params))
+    del state
+    shape = ShapeConfig("lm_train", "train", c["seq"], c["batch"])
+    host = [{k: v.numpy() for k, v in make_batch(DataConfig(seed=5), cfg, shape, i, device="cpu").items()}
+            for i in range(LM_TRAIN_LEARNER_STEPS)]
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in host]
+    t0 = time.perf_counter()
+    timed = _lm_train_timed(cfg, dev, batches, profile=True)
+    seconds["timed_and_profile"] = time.perf_counter() - t0
+    flops = _lm_train_flops(cfg, c["batch"], c["seq"], n_params)
+    tokens = c["batch"] * c["seq"]
+    report.update(params=n_params, model_flops_per_step=flops, step_ms_p50=timed["ms_p50"],
+                  tokens_per_s=tokens / timed["ms_p50"] * 1e3,
+                  mfu=flops / (timed["ms_p50"] / 1e3) / BF16_DENSE_PEAK, mfu_peak="989 TFLOP/s dense bf16",
+                  peak_memory_bytes=timed["peak_memory_bytes"], step_ms=timed["ms"], profile=timed.get("profile"),
+                  bound_ms_at_peak=flops / BF16_DENSE_PEAK * 1e3)
+    report["variants"] = {"default": {k: timed[k] for k in ("ms_p50", "peak_memory_bytes", "remat", "ce_chunk")}}
+    t0 = time.perf_counter()
+    for name, kw in LM_TRAIN_VARIANTS.items():
+        v = _lm_train_timed(cfg, dev, batches, **kw)
+        report["variants"][name] = {k: v[k] for k in ("ms", "ms_p50", "peak_memory_bytes", "remat", "ce_chunk")}
+    seconds["variants"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["learner"] = _lm_train_learner(cfg, dev, host)
+    seconds["learner"] = time.perf_counter() - t0
+    del batches
+    t0 = time.perf_counter()
+    report["families"] = {arch: _lm_train_family(arch, gen, dev) for arch in LM_TRAIN_FAMILIES}
+    seconds["families"] = time.perf_counter() - t0
+    report["seconds"] = seconds
+    launches = _lm_launches()
+    require(not any(launches.values()), f"lm_train: a ported kernel ran on the LM training path: {launches}")
+    report["launches"] = launches
+    emit("lm_train", nvidia_smi=dev_info["nvidia_smi"],
+         tolerance={"families_loss": f"{LM_TRAIN_F32_TOL}·|loss| + {LM_TRAIN_F32_TOL}",
+                    "families_grad_leaf": f"{LM_TRAIN_F32_TOL}·max|g_leaf| + 1e-6", "families_ranges": "2e-5",
+                    "resume": "bitwise", "learner": "bitwise", "ranges_after_delay": "bitwise"},
+         **report)
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every random weight and input")
@@ -2924,6 +3245,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
 
+    # cuBLAS reads its workspace setting once: a deterministic one from the
+    # start, so the lm_train phase can run under deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     t0 = time.perf_counter()
@@ -2948,6 +3272,7 @@ def main(argv=None) -> int:
     phase_engine_latency(gen, dev)
     phase_mesh(gen, dev)
     lm_launches = phase_lm(gen, dev, dev_info)["launches"]
+    lm_train_launches = phase_lm_train(gen, dev, dev_info)["launches"]
 
     host, device = fused["train_host"], fused["train_device"]
 
@@ -2966,8 +3291,9 @@ def main(argv=None) -> int:
         "ddpg_actor_step": {**fused_path("ddpg_actor_step"), "learner": learner["ddpg_actor_step"]},
         "fxp_monitor_quant": {"layer_monitor": layer["launches"]["fxp_monitor_quant"]},
     }
-    for name, paths in by_path.items():  # the LM zoo's path: none of the six (checked to be 0 there)
+    for name, paths in by_path.items():  # the LM zoo's paths: none of the six (checked to be 0 there)
         paths["lm"] = lm_launches[name]
+        paths["lm_train"] = lm_train_launches[name]
 
     def wrapper_count(paths: dict) -> int:
         return sum(v["wrapper_calls"] if isinstance(v, dict) else v for v in paths.values())

@@ -38,6 +38,7 @@ from repro_torch.core.ranges import (
     update_ema_scalar,
     update_minmax_scalar,
 )
+from repro_torch import tree
 from repro_torch.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
@@ -248,11 +249,12 @@ def freeze_quant(state: QATState, sites: list[str]) -> Optional[FrozenQuant]:
 
 
 def quantize_weights(params, enabled: bool = True):
-    """Project every weight of a ``{"l0": {"w", "b"}, ...}`` tree onto the
-    Q15.16 lattice (STE): FIXAR keeps weights fxp32 for the whole run."""
+    """Project every weight of a parameter tree (`repro_torch.tree`'s
+    walk) onto the Q15.16 lattice (STE): FIXAR keeps weights fxp32 for the
+    whole run."""
     if not enabled:
         return params
-    return {k: {n: fxp.fake_quant(t, fxp.FXP32) for n, t in layer.items()} for k, layer in params.items()}
+    return tree.tree_map(lambda t: fxp.fake_quant(t, fxp.FXP32), params)
 
 
 def quantize_grads(grads, enabled: bool = True):

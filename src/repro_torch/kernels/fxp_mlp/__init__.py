@@ -9,12 +9,14 @@ residuals, and the backward (`csrc/fxp_mlp_bwd.cu`) runs the whole
 dx/dW/db chain with the sites' straight-through masks.
 """
 
-from repro_torch.kernels.fxp_mlp.ops import fused_cost_hint, fxp_mlp_forward, fxp_mlp_infer, fxp_mlp_train
+from repro_torch.kernels.fxp_mlp.ops import (fused_cost_hint, fxp_mlp_forward, fxp_mlp_infer, fxp_mlp_train,
+                                             fxp_mlp_train_step)
 from repro_torch.kernels.fxp_mlp.ref import ref_fxp_mlp, ref_mlp_backward, ref_mlp_forward
 
 __all__ = [
     "fxp_mlp_forward",
     "fxp_mlp_train",
+    "fxp_mlp_train_step",
     "fxp_mlp_infer",
     "fused_cost_hint",
     "ref_fxp_mlp",

@@ -1,3 +1,4 @@
 """Launch-side helpers of the port (port of `repro.launch`): the mesh
-builders.  The reference's `specs`, `train` and `dryrun` are not ported
-(ROADMAP queue 1)."""
+builders (`mesh`), the input, state and cache shapes with their shardings
+(`specs`) and the LM training driver (`train`).  The reference's `dryrun`
+(XLA lowering over 512 forced host devices) is left out (ROADMAP queue 1)."""

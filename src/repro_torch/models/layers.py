@@ -114,6 +114,20 @@ class LayerQAT:
         self.stats[name] = _select(self._phase(stat.a_min), stat, cand)
 
 
+def carry_state(state: Optional[dict[str, Tensor]], new: dict[str, Tensor]) -> dict[str, Tensor]:
+    """A recurrent block's new state: written in place into the caller's
+    `state` tensors (serving: the per-layer caches are views of the stacked
+    tree, so a fresh dict would be dropped) and that dict returned; or,
+    when the block started from a fresh zero state (`state` None: a
+    training forward), `new` as it is — autograd saved the tensors the
+    block read, so nothing may be written into them."""
+    if state is None:
+        return new
+    for name, value in new.items():
+        state[name].copy_(value)
+    return state
+
+
 def init_site_ranges(sites: tuple[str, ...], n: int, *, device: torch.device) -> dict[str, RangeStat]:
     """Stacked (n,) range tree for n layers of one pattern slot."""
     mk = lambda v: torch.full((n,), v, dtype=torch.float32, device=device)  # noqa: E731
@@ -131,18 +145,22 @@ def _const(value: float, dtype: torch.dtype, device: torch.device) -> Tensor:
     """A 0-d tensor of `value` rounded to `dtype` (made once per device: a
     product or quotient by it is the reference's by a weak-typed constant,
     and on the card a quotient by a tensor is IEEE where one by a Python
-    number is not)."""
-    return torch.tensor(value, dtype=dtype).to(device)
+    number is not).  Made outside inference mode, whoever asks first: a
+    serving call under `torch.inference_mode` would otherwise cache an
+    inference tensor, which autograd cannot save for a training backward."""
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=dtype).to(device)
 
 
 @functools.lru_cache(maxsize=None)
 def rope_freqs(half: int, theta: float, device: torch.device) -> Tensor:
     """`theta ** (−arange(half) / half)` in float32, built once on the CPU
-    and copied, so every device holds the same table.  The reference's
-    float32 `pow` is XLA's: the two can differ by an ulp (held within
-    tolerance by the tests)."""
-    exps = -torch.arange(0, half, dtype=torch.float32) / half
-    return torch.pow(torch.tensor(theta, dtype=torch.float32), exps).to(device)
+    and copied, so every device holds the same table (outside inference
+    mode, as `_const`).  The reference's float32 `pow` is XLA's: the two
+    can differ by an ulp (held within tolerance by the tests)."""
+    with torch.inference_mode(False):
+        exps = -torch.arange(0, half, dtype=torch.float32) / half
+        return torch.pow(torch.tensor(theta, dtype=torch.float32), exps).to(device)
 
 
 # ---------------------------------------------------------------------------

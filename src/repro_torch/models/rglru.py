@@ -22,7 +22,10 @@ take the compute dtype); softplus is `logaddexp(x, 0)`; the square root is
 `numerics.sqrt_rn` (PyTorch's CPU float32 sqrt is not correctly rounded);
 gelu is the tanh form; the forward's carried h is the compute-dtype h of
 the last position, decode's stays float32.  The state (h, the conv
-history) is float32 and written in place into the given tensors.
+history) is float32 and written in place into the given tensors; the
+forward also takes `state=None`, a training forward's fresh zero state, and
+then returns its new state as a new dict, writing nothing
+(`layers.carry_state`), so autograd can differentiate it.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 
 from repro_torch.core.parallelism import Logical, ShardingRules, constrain
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import LayerQAT, _act, _uniform
+from repro_torch.models.layers import LayerQAT, _act, _uniform, carry_state
 from repro_torch.numerics import sqrt_rn
 
 Tensor = torch.Tensor
@@ -129,25 +132,26 @@ def linear_scan(a: Tensor, b: Tensor) -> Tensor:
     return b
 
 
-def rglru_forward(x: Tensor, p: Params, cfg: ModelConfig, state: dict[str, Tensor],
+def rglru_forward(x: Tensor, p: Params, cfg: ModelConfig, state: Optional[dict[str, Tensor]],
                   rules: Optional[ShardingRules], qat: LayerQAT) -> tuple[Tensor, dict[str, Tensor]]:
     """Full-sequence recurrent block. x: (B, S, d).  Writes the new "h" and
-    "conv" into `state`."""
+    "conv" into `state`, or returns them as a new dict when `state` is None
+    (a fresh zero state)."""
     dt = cfg.compute_dtype
+    src = state if state is not None else init_state(cfg, x.shape[0], x.device)
     x = qat.site("rnn_in", x)
     gate = _act(x @ p["wg"].to(dt), "gelu")
     xr = constrain(x @ p["wx"].to(dt), rules, "batch", "seq", "state")
-    xc, new_hist = _causal_conv(xr, p, state["conv"])
+    xc, new_hist = _causal_conv(xr, p, src["conv"])
 
     a, gin = _gates(xc, p)
     # seed the scan with the carried state: h_t = a·h + gin, over S steps
-    gin = torch.cat([gin[:, :1] + a[:, :1] * state["h"][:, None], gin[:, 1:]], dim=1)
+    gin = torch.cat([gin[:, :1] + a[:, :1] * src["h"][:, None], gin[:, 1:]], dim=1)
     h = constrain(linear_scan(a, gin).to(dt), rules, "batch", "seq", "state")
 
     y = (gate * h) @ p["wo"].to(dt)
-    state["h"].copy_(h[:, -1, :])
-    state["conv"].copy_(new_hist)
-    return constrain(y, rules, "batch", "seq", "embed"), state
+    new = carry_state(state, {"h": h[:, -1, :], "conv": new_hist})
+    return constrain(y, rules, "batch", "seq", "embed"), new
 
 
 def decode_step(x: Tensor, p: Params, cfg: ModelConfig, state: dict[str, Tensor],

@@ -23,7 +23,10 @@ in the compute dtype.
 State in place: `time_mix`, `channel_mix` and `decode_step` write the new
 state into the tensors of the `state` dict they are given (`copy_`) and
 return that dict, as attention blocks write their KV caches: the per-layer
-caches are views of the stacked cache tree.
+caches are views of the stacked cache tree.  `time_mix` and `channel_mix`
+also take `state=None`, a training forward's fresh zero state: they then
+start from zeros and return their new state as a new dict, writing nothing
+(`layers.carry_state`), so autograd can differentiate them.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.parallelism import Logical, ShardingRules, constrain
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import LayerQAT, _uniform, group_norm_heads
+from repro_torch.models.layers import LayerQAT, _uniform, carry_state, group_norm_heads
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -132,10 +135,12 @@ def _wkv_chunk(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, s0: Ten
     """One chunk of the WKV recurrence.
 
     r,k,v: (B,c,H,n); logw: (B,c,H,n) (negative); u: (H,n);
-    s0: (B,H,n,n) f32.  Returns (o: (B,c,H,n), s_next)."""
+    s0: (B,H,n,n), the state's dtype (float32 in the model) is the
+    arithmetic's.  Returns (o: (B,c,H,n), s_next)."""
     c = r.shape[1]
-    rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
-    lw = logw.to(torch.float32)
+    ft = s0.dtype
+    rf, kf, vf = (t.to(ft) for t in (r, k, v))
+    lw = logw.to(ft)
     lx = torch.cumsum(lw, dim=1)  # inclusive: Lx_{t+1} in the notation
     lx_excl = lx - lw  # exclusive: Lx_t
 
@@ -146,7 +151,7 @@ def _wkv_chunk(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, s0: Ten
     o_inter = torch.einsum("bchn,bhnm->bchm", r_dec, s0)
     # intra-chunk: strictly-lower-triangular scores
     scores = torch.einsum("bchn,bdhn->bhcd", r_dec, k_dec)
-    tri = torch.tril(torch.ones((c, c), dtype=torch.float32, device=r.device), diagonal=-1)
+    tri = torch.tril(torch.ones((c, c), dtype=ft, device=r.device), diagonal=-1)
     o_intra = torch.einsum("bhcd,bdhn->bchn", scores * tri, vf)
     # diagonal bonus term
     o_diag = (rf * u[None, None] * kf).sum(-1, keepdim=True) * vf
@@ -165,10 +170,15 @@ def _decay_log(xw: Tensor, p: Params) -> Tensor:
     return -torch.exp(p["w0"].to(torch.float32) + (xw.to(torch.float32) @ p["wA"]) @ p["wB"])
 
 
-def time_mix(x: Tensor, p: Params, cfg: ModelConfig, state: dict[str, Tensor],
+def _zeros(*shape, like: Tensor) -> Tensor:
+    return torch.zeros(shape, dtype=torch.float32, device=like.device)
+
+
+def time_mix(x: Tensor, p: Params, cfg: ModelConfig, state: Optional[dict[str, Tensor]],
              rules: Optional[ShardingRules], qat: LayerQAT) -> tuple[Tensor, dict[str, Tensor]]:
-    """Full-sequence (prefill) time-mix. x: (B, S, d).  Writes the new
-    "wkv" and "x_tm" into `state`."""
+    """Full-sequence time-mix. x: (B, S, d).  Writes the new "wkv" and
+    "x_tm" into `state`, or returns them as a new dict when `state` is None
+    (a fresh zero state)."""
     b, s, d = x.shape
     h, n = _n_heads(cfg), cfg.rwkv_head_dim
     dt = cfg.compute_dtype
@@ -178,7 +188,8 @@ def time_mix(x: Tensor, p: Params, cfg: ModelConfig, state: dict[str, Tensor],
                          f"must be a multiple of {CHUNK}")
 
     x = qat.site("tmix_in", x)
-    xm = _ddlerp(x, _shift(x, state["x_tm"].to(x.dtype)), p, dt)
+    x_last = state["x_tm"] if state is not None else _zeros(b, d, like=x)
+    xm = _ddlerp(x, _shift(x, x_last.to(x.dtype)), p, dt)
     xr, xk, xv, xw, xg = xm.unbind(-2)
 
     r = (xr @ p["wr"].to(dt)).reshape(b, s, h, n)
@@ -188,7 +199,7 @@ def time_mix(x: Tensor, p: Params, cfg: ModelConfig, state: dict[str, Tensor],
     logw = _decay_log(xw, p).reshape(b, s, h, n)
 
     u = p["u"].to(torch.float32)
-    s_cur, outs = state["wkv"], []
+    s_cur, outs = state["wkv"] if state is not None else _zeros(b, h, n, n, like=x), []
     for i in range(s // c):
         sl = slice(i * c, (i + 1) * c)
         oc, s_cur = _wkv_chunk(r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u, s_cur)
@@ -197,26 +208,27 @@ def time_mix(x: Tensor, p: Params, cfg: ModelConfig, state: dict[str, Tensor],
 
     o = group_norm_heads(o.to(dt), p["gn_scale"], p["gn_bias"], h)
     y = (o * g) @ p["wo"].to(dt)
-    state["wkv"].copy_(s_cur)
-    state["x_tm"].copy_(x[:, -1, :])
-    return constrain(y, rules, "batch", "seq", "embed"), state
+    new = carry_state(state, {"wkv": s_cur, "x_tm": x[:, -1, :]})
+    return constrain(y, rules, "batch", "seq", "embed"), new
 
 
-def channel_mix(x: Tensor, p: Params, cfg: ModelConfig, state: dict[str, Tensor],
+def channel_mix(x: Tensor, p: Params, cfg: ModelConfig, state: Optional[dict[str, Tensor]],
                 rules: Optional[ShardingRules], qat: LayerQAT) -> tuple[Tensor, dict[str, Tensor]]:
     """Channel-mix (squared-ReLU FFN on a token-shifted input).  Writes the
-    new "x_cm" into `state`."""
+    new "x_cm" into `state`, or returns it as a new dict when `state` is
+    None (a fresh zero state)."""
     dt = cfg.compute_dtype
     x = qat.site("cmix_in", x)
-    xp = _shift(x, state["x_cm"].to(x.dtype))
+    x_last = state["x_cm"] if state is not None else _zeros(x.shape[0], x.shape[2], like=x)
+    xp = _shift(x, x_last.to(x.dtype))
     xk = x + (xp - x) * p["cm_mu_k"].to(dt)
     xr = x + (xp - x) * p["cm_mu_r"].to(dt)
     kk = torch.square(torch.relu(xk @ p["cm_wk"].to(dt)))
     kk = constrain(kk, rules, "batch", "seq", "mlp")
     v = kk @ p["cm_wv"].to(dt)
     y = torch.sigmoid(xr @ p["cm_wr"].to(dt)) * v
-    state["x_cm"].copy_(x[:, -1, :])
-    return constrain(y, rules, "batch", "seq", "embed"), state
+    new = carry_state(state, {"x_cm": x[:, -1, :]})
+    return constrain(y, rules, "batch", "seq", "embed"), new
 
 
 def decode_step(x: Tensor, p: Params, cfg: ModelConfig, state: dict[str, Tensor],

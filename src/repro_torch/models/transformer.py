@@ -16,7 +16,8 @@ Public API
   param_specs(cfg)                             matching Logical tree
   init_ranges(cfg, device=)                    stacked QAT range tree
   ranges_specs(cfg)                            its Logical tree
-  forward(params, batch, cfg, ...)             logits (prefill path)
+  forward(params, batch, cfg, ...)             logits (train / prefill path)
+  loss_fn(params, batch, cfg, ...)             scalar loss + extras
   init_cache(cfg, batch, max_seq, device=)     decode KV caches / recurrent states
   cache_specs(cfg)                             Logical tree for caches
   decode_step(params, tokens, cache, pos, ...) one-token serve step
@@ -25,18 +26,21 @@ Public API
 
 Blocks: `ATTN_GLOBAL` and `ATTN_LOCAL` with a dense MLP or the MoE FFN
 (`models.moe`, the dense dispatch), `RWKV6` (`models.rwkv6`) and `RGLRU`
-with a dense MLP (`models.rglru`).  `loss_fn`'s training path is not here
-(ROADMAP queue 1).  KV caches and recurrent states are written in place:
-a prefill with a cache or a decode step leaves the cache it was given
-updated (the per-layer caches are views of the stacked tree), ready for
-the next step.
+with a dense MLP (`models.rglru`).  KV caches and recurrent states are
+written in place: a prefill with a cache or a decode step leaves the cache
+it was given updated (the per-layer caches are views of the stacked tree),
+ready for the next step.  `loss_fn` is the training path: remat per
+pattern period, the chunked cross-entropy, fresh recurrent states that the
+blocks return rather than write.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional, Union
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import tree
 from repro_torch.core.parallelism import Logical, ShardingRules, constrain, map_logical
@@ -225,13 +229,11 @@ def serving_params(params: Params, cfg: ModelConfig) -> Params:
 def block_forward(x: Tensor, bp: Params, cfg: ModelConfig, bt: str, *, positions: Tensor,
                   rules: Optional[ShardingRules], qat: L.LayerQAT, state: Optional[dict] = None,
                   attn_chunk: int = 0) -> tuple[Tensor, Optional[dict], Optional[Tensor]]:
-    """Returns (x_out, state, aux_loss): the state given, updated in place
-    (a fresh zero recurrent state when none was given), and the MoE
+    """Returns (x_out, state, aux_loss): the state given, updated in place,
+    or for a recurrent block given none (a training forward or a stateless
+    prefill: a fresh zero state) its new state as a new dict; and the MoE
     balance loss (None for other blocks)."""
     aux = None
-    if state is None and bt in (RWKV6, RGLRU):
-        # stateless prefill: fresh zero recurrent state
-        state = _block_state_init(cfg, bt, x.shape[0], 0, x.device)
     if bt in ATTN:
         h = L.apply_norm(x, bp["ln1"], cfg)
         h, state = L.attn_forward(h, bp["attn"], cfg, local=(bt == ATTN_LOCAL), positions=positions,
@@ -245,11 +247,11 @@ def block_forward(x: Tensor, bp: Params, cfg: ModelConfig, bt: str, *, positions
         return x + h, state, aux
     if bt == RWKV6:
         h = L.apply_norm(x, bp["ln1"], cfg)
-        h, state = rwkv_mod.time_mix(h, bp["rwkv"], cfg, state, rules, qat)
+        h, tm = rwkv_mod.time_mix(h, bp["rwkv"], cfg, state, rules, qat)
         x = x + h
         h = L.apply_norm(x, bp["ln2"], cfg)
-        h, state = rwkv_mod.channel_mix(h, bp["rwkv"], cfg, state, rules, qat)
-        return x + h, state, aux
+        h, cm = rwkv_mod.channel_mix(h, bp["rwkv"], cfg, state, rules, qat)
+        return x + h, state if state is not None else {**tm, **cm}, aux
     if bt == RGLRU:
         h = L.apply_norm(x, bp["ln1"], cfg)
         h, state = rglru_mod.rglru_forward(h, bp["rnn"], cfg, state, rules, qat)
@@ -283,14 +285,53 @@ def _block_state_specs(cfg: ModelConfig, bt: str):
 
 
 # ---------------------------------------------------------------------------
-# full forward (prefill)
+# full forward (train / prefill)
 # ---------------------------------------------------------------------------
+
+
+def _unbind(node, n: int) -> list:
+    """The tree split into its `n` slices along the leading axis: one
+    `unbind` per leaf, whose backward stacks the slices' gradients in one
+    op (a per-slice index would scatter each into a zero tensor of the
+    whole stack)."""
+    if isinstance(node, Tensor):
+        return list(torch.unbind(node, 0))
+    if isinstance(node, dict):
+        parts = {k: _unbind(v, n) for k, v in node.items()}
+        return [{k: parts[k][i] for k in node} for i in range(n)]
+    raise TypeError(f"not a tree node: {type(node).__name__}")
+
+
+_MATMUL_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+                         torch.ops.aten.baddbmm.default})
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep every matrix product's output, recompute the
+    rest in the backward (`jax.checkpoint_policies.checkpoint_dots`)."""
+    return CheckpointPolicy.MUST_SAVE if op in _MATMUL_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg: ModelConfig, enable: bool):
+    """`fn` under `torch.utils.checkpoint` per `cfg.remat` ("full": keep
+    only its inputs; "dots": also the matrix products' outputs; "none": as
+    it is).  The wrapped period builds its QAT contexts from its inputs and
+    returns the ranges it collected, so the backward's recompute leaves the
+    range tree as it is; the forward draws no random numbers, so no RNG
+    state is stashed."""
+    if not enable or cfg.remat == "none":
+        return fn
+    kw = {"use_reentrant": False, "preserve_rng_state": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_matmuls)
+    return lambda *args: checkpoint(fn, *args, **kw)
 
 
 def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
             rules: Optional[ShardingRules] = None, ranges: Optional[Params] = None,
             quant_phase: Optional[Tensor] = None, states: Optional[Params] = None,
-            attn_chunk: int = 0) -> tuple[Tensor, dict[str, Any]]:
+            remat: bool = False, attn_chunk: int = 0, unroll: bool = False,
+            skip_head: bool = False) -> tuple[Tensor, dict[str, Any]]:
     """Full-sequence forward. Returns (logits, {"ranges", "states", "aux"}).
 
     `ranges` (with `quant_phase`, a bool tensor) turns the QAT sites on and
@@ -298,7 +339,13 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
     `init_cache` — attention blocks write the prompt's K/V into it and
     recurrent blocks consume its states and write their new ones, in
     place; it comes back as "states".  "aux" is the MoE balance loss summed
-    over the layers (zero for other archs)."""
+    over the layers (zero for other archs).  `remat` checkpoints each
+    pattern period per `cfg.remat` (`_remat_wrap`).  `unroll` is accepted
+    for the reference's signature and changes nothing: the periods are
+    walked in a Python loop either way.  `skip_head` returns the final
+    norm's output through the head's QAT site instead of logits (the
+    chunked cross-entropy of `loss_fn`)."""
+    del unroll
     qat_on = ranges is not None
     if "tokens" in batch:
         x = L.embed_tokens(batch["tokens"], params["embed"], cfg, rules)
@@ -312,21 +359,29 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
     new_ranges = {"scan": [], "tail": []} if qat_on else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    # ---- stacked periods -----------------------------------------------------
-    slot_ranges = [[] for _ in cfg.block_pattern]
-    for i in range(cfg.n_periods):
+    def period(x, aux, bps, rngs, sts):
+        new_rngs = []
         for si, bt in enumerate(cfg.block_pattern):
-            qat = L.LayerQAT(_at(ranges["scan"][si], i) if qat_on else None, quant_phase, cfg.qat_bits)
-            st = _at(states["scan"][si], i) if has_states else None
-            x, _, aux = block_forward(x, _at(params["scan"][si], i), cfg, bt, positions=positions, rules=rules,
-                                      qat=qat, state=st, attn_chunk=attn_chunk)
-            if aux is not None:
-                aux_total = aux_total + aux
-            if qat_on:
-                slot_ranges[si].append(qat.collect())
-        x = constrain(x, rules, "batch", "seq", "embed")
-    if qat_on and cfg.n_periods > 0:
-        new_ranges["scan"] = [_stack(r) for r in slot_ranges]
+            qat = L.LayerQAT(rngs[si], quant_phase, cfg.qat_bits)
+            x, _, a = block_forward(x, bps[si], cfg, bt, positions=positions, rules=rules, qat=qat,
+                                    state=sts[si], attn_chunk=attn_chunk)
+            if a is not None:
+                aux = aux + a
+            new_rngs.append(qat.collect())
+        return constrain(x, rules, "batch", "seq", "embed"), aux, new_rngs
+
+    # ---- stacked periods -----------------------------------------------------
+    if cfg.n_periods > 0:
+        run = _remat_wrap(period, cfg, remat)
+        slot_params = [_unbind(p, cfg.n_periods) for p in params["scan"]]
+        slot_ranges = []
+        for i in range(cfg.n_periods):
+            rngs = [_at(r, i) for r in ranges["scan"]] if qat_on else [None] * len(cfg.block_pattern)
+            sts = [_at(c, i) for c in states["scan"]] if has_states else [None] * len(cfg.block_pattern)
+            x, aux_total, got = run(x, aux_total, [p[i] for p in slot_params], rngs, sts)
+            slot_ranges.append(got)
+        if qat_on:
+            new_ranges["scan"] = [_stack([got[si] for got in slot_ranges]) for si in range(len(cfg.block_pattern))]
 
     # ---- tail layers ---------------------------------------------------------
     for i in range(cfg.n_tail):
@@ -343,10 +398,72 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
     # ---- head ----------------------------------------------------------------
     x = L.apply_norm(x, params["final_norm"], cfg)
     qat = L.LayerQAT(_at(ranges["head"], 0) if qat_on else None, quant_phase, cfg.qat_bits)
-    logits = L.lm_head(x, params["embed"], cfg, rules, qat)
+    if skip_head:
+        # the chunked cross-entropy fuses the head product and the loss per
+        # sequence chunk; the head's QAT site still applies here
+        out = qat.site("head_in", x)
+    else:
+        out = L.lm_head(x, params["embed"], cfg, rules, qat)
     if qat_on:
         new_ranges["head"] = _lead(qat.collect())
-    return logits, {"ranges": new_ranges, "states": states, "aux": aux_total}
+    return out, {"ranges": new_ranges, "states": states, "aux": aux_total}
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def _nll_sums(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
+    """(Σ NLL over the labelled positions, their count), float32; labels
+    < 0 are masked."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    target = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    valid = (labels >= 0).to(torch.float32)
+    return torch.sum((lse - target) * valid), torch.sum(valid)
+
+
+def _chunk_nll(x: Tensor, w: Tensor, labels: Tensor, rules: Optional[ShardingRules]) -> tuple[Tensor, Tensor]:
+    return _nll_sums(constrain(x @ w, rules, "batch", "seq", "vocab"), labels)
+
+
+def loss_fn(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
+            rules: Optional[ShardingRules] = None, ranges: Optional[Params] = None,
+            quant_phase: Optional[Tensor] = None, remat: bool = True, attn_chunk: int = 0,
+            aux_coef: float = 0.01, unroll: bool = False, ce_chunk: int = 0) -> tuple[Tensor, dict[str, Any]]:
+    """Masked mean next-token NLL in float32 (labels < 0 masked), plus
+    `aux_coef`·aux / n_layers for MoE archs.  Returns (loss, forward's
+    extras).
+
+    `ce_chunk > 0` (with S a multiple of it) fuses the head product and the
+    cross-entropy per sequence chunk: each chunk runs under
+    `torch.utils.checkpoint`, so its (B, chunk, V) logits exist in the
+    forward and again in the backward, one chunk at a time, never the
+    (B, S, V) whole.  Every quotient has a tensor divisor (on the card a
+    division by a Python number multiplies by its rounded reciprocal)."""
+    labels = batch["labels"]
+    s = labels.shape[1]
+    one = torch.ones((), dtype=torch.float32, device=labels.device)
+    if ce_chunk and s > ce_chunk and s % ce_chunk == 0:
+        hidden, extras = forward(params, batch, cfg, rules=rules, ranges=ranges, quant_phase=quant_phase,
+                                 remat=remat, attn_chunk=attn_chunk, skip_head=True)
+        w = (params["embed"]["embedding"].T if cfg.tie_embeddings else params["embed"]["head"]).to(cfg.compute_dtype)
+        nll_sum = v_sum = torch.zeros((), dtype=torch.float32, device=labels.device)
+        for c in range(s // ce_chunk):
+            sl = slice(c * ce_chunk, (c + 1) * ce_chunk)
+            nll, v = checkpoint(_chunk_nll, hidden[:, sl], w, labels[:, sl], rules, use_reentrant=False,
+                                preserve_rng_state=False)
+            nll_sum, v_sum = nll_sum + nll, v_sum + v
+        loss = nll_sum / torch.maximum(v_sum, one)
+    else:
+        logits, extras = forward(params, batch, cfg, rules=rules, ranges=ranges, quant_phase=quant_phase,
+                                 remat=remat, attn_chunk=attn_chunk)
+        nll_sum, v_sum = _nll_sums(logits, labels)
+        loss = nll_sum / torch.maximum(v_sum, one)
+    if cfg.is_moe:
+        loss = loss + aux_coef * extras["aux"] / torch.full((), float(max(cfg.n_layers, 1)), device=loss.device)
+    return loss, extras
 
 
 # ---------------------------------------------------------------------------
@@ -441,5 +558,5 @@ def prefill(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
     return last if cache is None else (last, extras["states"])
 
 
-__all__ = ["init_params", "param_specs", "init_ranges", "ranges_specs", "serving_params", "forward",
+__all__ = ["init_params", "param_specs", "init_ranges", "ranges_specs", "serving_params", "forward", "loss_fn",
            "init_cache", "cache_specs", "decode_step", "prefill", "block_sites"]

@@ -1,7 +1,9 @@
 """Adam/AdamW on parameter trees (port of `repro.optim.adam`).
 
-A parameter tree here is the port's ``{"l0": {"w": ..., "b": ...}, ...}``
-dict of tensors.  `leaf_update` is the flat per-leaf form against
+A parameter tree here is any tree `repro_torch.tree` walks: the port's
+``{"l0": {"w": ..., "b": ...}, ...}`` actor and critic, or an LM's
+``{"embed", ..., "scan": [...], "tail": [...]}``.  `leaf_update` is the
+flat per-leaf form against
 precomputed `StepConstants`, shared by `update` and (in the reference) the
 fused training-step kernel's epilogue.  Everything runs under
 `torch.no_grad`: the optimizer is not differentiated.
@@ -14,6 +16,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import tree
 from repro_torch.numerics import sqrt_rn
 
 Tensor = torch.Tensor
@@ -21,18 +24,14 @@ Tree = dict[str, Any]
 
 
 def tree_map(fn, *trees: Tree) -> Tree:
-    """`fn` over the leaves of equally shaped nested dicts."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
-    return fn(*trees)
+    """`fn` over the leaves of equally shaped trees, in `repro_torch.tree`'s
+    order; the result has the first tree's structure."""
+    return tree.unflatten(trees[0], [fn(*xs) for xs in zip(*map(tree.leaves, trees), strict=True)])
 
 
-def tree_leaves(tree: Tree) -> list[Tensor]:
-    """Leaves in key order (the order `jax.tree.leaves` gives a dict)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
+def tree_leaves(t: Tree) -> list[Tensor]:
+    """Leaves in the order `jax.tree.leaves` gives (`repro_torch.tree.leaves`)."""
+    return tree.leaves(t)
 
 
 @dataclasses.dataclass
@@ -142,8 +141,9 @@ def _apply(cfg: AdamConfig, grads: Tree, state: AdamState, params: Tree, leaf_fn
         step = state.step + 1
         c = step_constants(cfg, step)
         metrics["lr"] = c.lr
-        out = tree_map(lambda p, g, m, v: leaf_fn(p, g, m, v, c), params, grads, state.mu, state.nu)
-        pick = lambda i: tree_map(lambda o: o[i], out)  # noqa: E731
+        out = [leaf_fn(p, g, m, v, c)
+               for p, g, m, v in zip(*map(tree.leaves, (params, grads, state.mu, state.nu)), strict=True)]
+        pick = lambda i: tree.unflatten(params, [o[i] for o in out])  # noqa: E731
         return pick(0), AdamState(step=step, mu=pick(1), nu=pick(2)), metrics
 
 

@@ -68,6 +68,11 @@ class TrainConfig:
     noise_sigma: Optional[float] = None  # None -> dcfg.exploration_sigma
 
 
+# Deprecated alias (pre-redesign name), kept as the reference keeps it: the
+# same class, so old constructor kwargs work and isinstance checks hold.
+LoopConfig = TrainConfig
+
+
 def as_train_config(cfg=None, **overrides) -> TrainConfig:
     """Normalize onto `TrainConfig`: pass-through for a `TrainConfig`,
     a copy of its fields for a duck-typed config object (the reference's
@@ -408,6 +413,7 @@ def evaluate(env, agent: ddpg.DDPGState, dcfg: ddpg.DDPGConfig, generator: torch
 
 __all__ = [
     "TrainConfig",
+    "LoopConfig",
     "as_train_config",
     "TrainState",
     "init_train_state",

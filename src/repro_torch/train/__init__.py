@@ -1,3 +1,3 @@
-"""Training-side engines (port of `repro.train`): `train.learner`, the
-learner engine.  `train/step.py` (the LM train step) belongs to the LM zoo
-and is not ported yet."""
+"""Training-side engines (port of `repro.train`): `train.step`, the LM
+train step (QAT, microbatches, Adam), and `train.learner`, the learner
+engine."""

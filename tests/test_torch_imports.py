@@ -44,14 +44,16 @@ LM_SLICE_MODULES = (
     "repro_torch.core.parallelism", "repro_torch.launch.mesh", "repro_torch.models.config",
     "repro_torch.models.layers", "repro_torch.models.frontend", "repro_torch.models.transformer",
     "repro_torch.configs.registry", "repro_torch.serve.engine", "repro_torch.serve.lm.engine",
+    "repro_torch.data.synthetic", "repro_torch.train.step", "repro_torch.launch.specs", "repro_torch.launch.train",
 ) + tuple(f"repro_torch.configs.{m}" for m in (
     "dbrx_132b", "deepseek_7b", "demo_100m", "gemma3_1b", "hubert_xlarge", "internlm2_1_8b",
     "moonshot_v1_16b_a3b", "phi3_vision_4_2b", "qwen2_0_5b", "recurrentgemma_2b", "rwkv6_1_6b", "fixar_ddpg"))
 
 
 def test_lm_slice_modules_are_walked_and_import_alone():
-    """The mesh, the rules and the LM zoo's modules are among those the
-    walk above imports, and each imports in a fresh interpreter with
+    """The mesh, the rules, the LM zoo's modules and its training path
+    (data, train step, specs, the train CLI) are among those the walk above
+    imports, and each imports in a fresh interpreter with
     neither jax nor repro loaded."""
     code = (
         "import importlib, pkgutil, sys\n"

@@ -39,7 +39,7 @@ def _to_jax(tree):
 
 
 def _to_torch(tree):
-    return padam.tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+    return jax.tree.map(lambda a: torch.from_numpy(np.array(a)), tree)
 
 
 def _assert_tree_equal(got, want, what, **tol):
