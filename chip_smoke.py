@@ -12,8 +12,9 @@ monitor + quantizer at each site (slice 4), the learner engine that
 coalesces update requests into bucket-padded batches (slice 8), policy
 serving over a device mesh and the LM zoo's attention-family serving path
 at full width (slice 9), and the LM zoo's MoE, RWKV-6 and RG-LRU serving
-paths at full width (slice 10), and LM training with QAT at full width
-(slice 11).  Phases, each printing one JSON line (`lm` one per model),
+paths at full width (slice 10), LM training with QAT at full width
+(slice 11), and the sharded LM code (DTensor rules, the expert-parallel
+MoE dispatch) at world size 1 (slice 12).  Phases, each printing one JSON line (`lm` one per model),
 each line with its wall seconds since the line before:
 
   1. device   — the card's name and power limit (nvidia-smi), CUDA version,
@@ -224,7 +225,25 @@ each line with its wall seconds since the line before:
                 and batch: qwen2-0.5b (1 layer), moonshot-v1-16b-a3b (1
                 layer, 64 experts), rwkv6-1.6b (1), recurrentgemma-2b (3).
                 The six kernels' counts are set to 0 before and must read
-                0 after.
+                0 after;
+ 23. dist     — the sharded code (slice 12: the rules through DTensor,
+                the expert-parallel MoE dispatch) at world size 1: a
+                one-rank NCCL group (a `HashStore`, no network) and a
+                (1, 1) ("data", "model") `DeviceMesh` on the card, every
+                tensor a DTensor laid out by the rules.  demo-100m: 3
+                train steps at B = 8, S = 1024 with QAT (the quant phase
+                from step 2) against the plain step on the same batches,
+                both under deterministic algorithms: losses, grad norms and
+                the whole state bitwise; qwen2-0.5b (bf16 serving tree): a
+                1024-token prefill into a cache and 16 greedy decode steps
+                against the plain path, logits bitwise; moonshot-v1-16b-a3b
+                cut to 2 layers: a prefill of 64 × 1024 = 65,536 tokens,
+                which selects the expert-parallel path at model = 1 (its
+                calls counted), against the plain dense dispatch within the
+                bf16 serving contract 0.05·scale + 0.05.  The mesh path's
+                and the plain path's train step ms and kernels per step
+                (DTensor's host cost at one rank).  The group is destroyed
+                when the phase ends; the six kernels' counts must read 0.
 
 The LM path runs no kernel of the port's own: the reference computes its
 attention, MoE dispatch, recurrences and products in jnp, outside any
@@ -3230,6 +3249,231 @@ def phase_lm_train(gen: torch.Generator, dev, dev_info: dict) -> dict:
     return report
 
 
+DIST_TRAIN = dict(batch=8, seq=1024, qat_delay=2, steps=3)
+DIST_SERVE = dict(arch="qwen2_0_5b", batch=2, prompt=1024, new=16)
+DIST_MOE = dict(arch="moonshot_v1_16b_a3b", n_layers=2, batch=64, seq=1024)  # 65,536 tokens
+DIST_TIMED = 4  # steps timed per path (the first not counted)
+
+
+def _dist_group(dev):
+    """A one-rank process group on `dev` (NCCL on the card, gloo on the
+    CPU) and the (1, 1) mesh over it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+
+    init_distributed(dev, store=dist.HashStore(), rank=0, world_size=1)
+    return make_debug_mesh(n_data=1, n_model=1)
+
+
+def _dist_train(dev, mesh) -> dict:
+    """demo-100m train steps: the mesh path against the plain one, bitwise,
+    under deterministic algorithms; then both paths timed and profiled."""
+    from repro_torch import tree
+    from repro_torch.core.parallelism import distribute_tree, gather_tree, rules_for
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adam
+    from repro_torch.train.step import init_state, make_train_step
+
+    c = DIST_TRAIN
+    cfg = dataclasses.replace(_lm_train_config(), qat_delay=c["qat_delay"])
+    shape = ShapeConfig("dist_train", "train", c["seq"], c["batch"])
+    rules = rules_for(mesh, "train")
+    st_sh, b_sh = specs.train_shardings(cfg, shape, mesh, rules)
+    opt = adam.AdamConfig(lr=1e-4, grad_clip_norm=1.0)
+    plain, sharded = make_train_step(cfg, opt), make_train_step(cfg, opt, rules=rules)
+    batches = [make_batch(DataConfig(seed=7), cfg, shape, i, device=dev) for i in range(c["steps"])]
+    fresh = lambda: init_state(torch.Generator(device=dev).manual_seed(3), cfg, device=dev)  # noqa: E731
+    torch.use_deterministic_algorithms(True)
+    try:
+        state, losses, norms = fresh(), [], []
+        for b in batches:
+            state, m = plain(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        dstate, dlosses, dnorms = distribute_tree(fresh(), st_sh), [], []
+        with mesh_context(mesh):
+            for b in batches:
+                dstate, m = sharded(dstate, distribute_tree(b, b_sh))
+                dlosses.append(float(m["loss"].full_tensor()))
+                dnorms.append(float(m["grad_norm"]))
+        differ = _bitwise_trees(gather_tree(dstate), state)
+        placements = sorted({str(t.placements) for t in tree.leaves(dstate)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(dlosses == losses, f"dist train: losses {dlosses} against the plain step's {losses}")
+    require(dnorms == norms, f"dist train: grad norms {dnorms} against {norms}")
+    require(not differ, f"dist train: the mesh path's state differs from the plain one at {differ[:6]}")
+    del state, dstate
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    def timed(step, state, place):
+        ms = []
+        for i in range(DIST_TIMED):
+            sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, place(batches[i % len(batches)]))
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        prof = _profile(lambda: step(state, place(batches[0])), 1, "step") if dev.type == "cuda" else {}
+        return {"ms": ms, "ms_p50": statistics.median(ms[1:]),
+                **{k: v for k, v in prof.items() if not k.startswith(("runtime_calls", "top_"))}}
+
+    times = {"plain": timed(plain, fresh(), lambda b: b)}
+    with mesh_context(mesh):
+        times["mesh"] = timed(sharded, distribute_tree(fresh(), st_sh), lambda b: distribute_tree(b, b_sh))
+    return {"model": cfg.name, "batch": c["batch"], "seq": c["seq"], "qat_delay": c["qat_delay"],
+            "losses": losses, "grad_norms": norms, "state": "bitwise the plain step's",
+            "placements": placements, "deterministic_algorithms": True, "times": times}
+
+
+def _dist_serve(dev, mesh, gen) -> dict:
+    """qwen2-0.5b's bf16 serving tree: a prefill into a cache and greedy
+    decode steps on the mesh path against the plain path, bitwise."""
+    from repro_torch.core.parallelism import NamedSharding, distribute_tree, rules_for
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import _serve_layout_hints
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+
+    c = DIST_SERVE
+    cfg = _lm_config(c["arch"])
+    b, s, new = c["batch"], c["prompt"], c["new"]
+    params = T.serving_params(T.init_params(torch.Generator(device=dev).manual_seed(_lm_seed(gen)), cfg,
+                                            device=dev), cfg)
+    rules = rules_for(mesh, "serve", **_serve_layout_hints(cfg, mesh))
+    shape = ShapeConfig("dist_decode", "decode", s + new, b)
+    p_sh, b_sh, c_sh = specs.serve_shardings(cfg, shape, mesh, rules)
+    dparams = distribute_tree(params, p_sh)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator(device=dev).manual_seed(9),
+                           device=dev, dtype=torch.int32)
+    tok_sh = NamedSharding(mesh, rules.mesh_axes(("batch", "seq"), (b, s), mesh))
+    with torch.no_grad():  # DTensor views refuse inference mode
+        cache = T.init_cache(cfg, b, s + new, device=dev)
+        dcache = distribute_tree(T.init_cache(cfg, b, s + new, device=dev), c_sh)
+        want, cache = T.prefill(params, {"tokens": prompt}, cfg, cache=cache)
+        with mesh_context(mesh):
+            got, dcache = T.prefill(dparams, {"tokens": distribute_tree(prompt, tok_sh)}, cfg, rules=rules,
+                                    cache=dcache)
+        steps = [bool(torch.equal(got.full_tensor(), want))]
+        for i in range(new):
+            tok = want.argmax(-1)[:, None].to(torch.int32)
+            want, cache = T.decode_step(params, tok, cache, s + i, cfg)
+            with mesh_context(mesh):
+                got, dcache = T.decode_step(dparams, distribute_tree({"tokens": tok}, b_sh)["tokens"], dcache,
+                                            s + i, cfg, rules=rules)
+            steps.append(bool(torch.equal(got.full_tensor(), want)))
+            want = want[:, -1]
+    require(all(steps), f"dist serve: logits differ from the plain path at steps {[i for i, ok in enumerate(steps) if not ok]}")
+    del params, dparams, cache, dcache
+    return {"model": cfg.name, "batch": b, "prompt": s, "decode_steps": new, "logits": "bitwise the plain path's"}
+
+
+def _dist_moe(dev, mesh, gen) -> dict:
+    """moonshot-v1-16b-a3b cut to 2 layers, bf16 serving tree: a prefill at
+    65,536 tokens takes the expert-parallel path at model = 1 (counted);
+    against the plain dense dispatch within the bf16 serving contract."""
+    from repro_torch.core.parallelism import NamedSharding, distribute_tree, rules_for
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import _serve_layout_hints
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+
+    c = DIST_MOE
+    cfg = dataclasses.replace(_lm_config(c["arch"]), n_layers=c["n_layers"])
+    b, s = c["batch"], c["seq"]
+    require(b * s >= moe.SHARDED_MIN_TOKENS, "dist moe: below the expert-parallel threshold")
+    params = T.serving_params(T.init_params(torch.Generator(device=dev).manual_seed(_lm_seed(gen)), cfg,
+                                            device=dev), cfg)
+    rules = rules_for(mesh, "serve", **_serve_layout_hints(cfg, mesh))
+    p_sh, _, _ = specs.serve_shardings(cfg, ShapeConfig("dist_moe", "prefill", s, b), mesh, rules)
+    dparams = distribute_tree(params, p_sh)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator(device=dev).manual_seed(11),
+                           device=dev, dtype=torch.int32)
+    calls = [0]
+    body = moe._moe_forward_sharded
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return body(*a, **k)
+
+    cap = moe.capacity(b * s, cfg)
+    with torch.no_grad():  # DTensor views refuse inference mode
+        want = T.prefill(params, {"tokens": tokens}, cfg).clone()  # the last position: the rest freed
+        sync(dev)
+        moe._moe_forward_sharded = counted
+        try:
+            t0 = time.perf_counter()
+            with mesh_context(mesh):
+                got = T.prefill(dparams, {"tokens": distribute_tree(tokens, NamedSharding(
+                    mesh, rules.mesh_axes(("batch", "seq"), (b, s), mesh)))}, cfg, rules=rules)
+                got = got.full_tensor().clone()
+            sync(dev)
+            mesh_s = time.perf_counter() - t0
+        finally:
+            moe._moe_forward_sharded = body
+    require(calls[0] == cfg.n_layers, f"dist moe: the expert-parallel path ran {calls[0]} times, not {cfg.n_layers}")
+    err = compare(got.float(), want.float(), LM_TOL, "dist moe: expert-parallel prefill against the dense dispatch")
+    out = {"model": cfg.name, "n_layers": cfg.n_layers, "tokens": b * s, "batch": b, "seq": s,
+           "expert_parallel_calls": calls[0], "capacity": cap, "bitwise": bool(torch.equal(got, want)),
+           "max_abs_err": err["max_abs"], "mesh_prefill_s": mesh_s,
+           "buffer_bytes": {"dispatch (E, C+1, d)": cfg.n_experts * (cap + 1) * cfg.d_model * 2,
+                            "hidden (E, C, f)": cfg.n_experts * cap * cfg.d_ff * 2,
+                            "logits (B, S, V)": b * s * cfg.vocab_size * 2}}
+    if dev.type == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del params, dparams
+    return out
+
+
+def phase_dist(gen: torch.Generator, dev, dev_info: dict) -> dict:
+    """The sharded code at world size 1 on the card (module docstring).
+    The six ported kernels' counts are set to 0 before and must read 0
+    after (the LM paths run no kernel of the port's own)."""
+    import torch.distributed as dist
+
+    _reset_counts()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    seconds = {}
+    mesh = _dist_group(dev)
+    try:
+        t0 = time.perf_counter()
+        train = _dist_train(dev, mesh)
+        seconds["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve = _dist_serve(dev, mesh, gen)
+        seconds["serve"] = time.perf_counter() - t0
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        moe_report = _dist_moe(dev, mesh, gen)
+        seconds["moe"] = time.perf_counter() - t0
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    launches = _lm_launches()
+    require(not any(launches.values()), f"dist: a ported kernel ran on the sharded LM path: {launches}")
+    report = {"world_size": 1, "backend": backend, "mesh": mesh.shape, "train": train, "serve": serve,
+              "moe": moe_report, "seconds": seconds, "launches": launches}
+    emit("dist", nvidia_smi=dev_info["nvidia_smi"],
+         tolerance={"train": "bitwise (deterministic algorithms)", "serve": "bitwise",
+                    "moe": f"{LM_TOL}·scale + {LM_TOL}"}, **report)
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every random weight and input")
@@ -3273,6 +3517,7 @@ def main(argv=None) -> int:
     phase_mesh(gen, dev)
     lm_launches = phase_lm(gen, dev, dev_info)["launches"]
     lm_train_launches = phase_lm_train(gen, dev, dev_info)["launches"]
+    dist_launches = phase_dist(gen, dev, dev_info)["launches"]
 
     host, device = fused["train_host"], fused["train_device"]
 
@@ -3294,6 +3539,7 @@ def main(argv=None) -> int:
     for name, paths in by_path.items():  # the LM zoo's paths: none of the six (checked to be 0 there)
         paths["lm"] = lm_launches[name]
         paths["lm_train"] = lm_train_launches[name]
+        paths["dist"] = dist_launches[name]
 
     def wrapper_count(paths: dict) -> int:
         return sum(v["wrapper_calls"] if isinstance(v, dict) else v for v in paths.values())

@@ -16,9 +16,13 @@ either package restores in the other, bitwise.
     checkpoint is never visible;
   * `restore` fills a template's structure and puts every leaf on
     `device` (default: the device of the template's leaf; numpy template
-    leaves stay numpy).  It replaces the reference's `shardings=`: a
-    sharded restore waits for the port's mesh (`core/parallelism`, not
-    ported yet);
+    leaves stay numpy), or, given `shardings=` (a tree of
+    `core.parallelism.NamedSharding`s, as `launch.specs` builds them),
+    lays each leaf out as a DTensor on its mesh — the reference's elastic
+    restore: a state saved from any number of ranks restores onto any
+    other, since a checkpoint holds whole tensors;
+  * a tree of DTensor leaves (a sharded run) is gathered whole on save,
+    every rank taking part, and written once, by rank 0;
   * `AsyncCheckpointer` copies to the host on the caller's thread and
     writes on a writer thread, so training does not wait on the disk.
 
@@ -39,21 +43,44 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.core.parallelism import is_dtensor, place, sharding_leaves
 from repro_torch.device import DeviceLike, resolve_device
 
 PyTree = Any
 
 
 def _host(leaf) -> np.ndarray:
+    if is_dtensor(leaf):  # a collective: every rank of its mesh gathers
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
+def _writer(tree: PyTree) -> bool:
+    """Whether this process writes `tree`'s checkpoint: always, unless the
+    tree is sharded (DTensor leaves) and this is not rank 0."""
+    if not any(is_dtensor(leaf) for leaf in tree_util.leaves(tree)):
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
 def save(directory: str | pathlib.Path, step: int, tree: PyTree, extra: Optional[dict] = None) -> pathlib.Path:
-    """Synchronous checkpoint write.  Returns the step directory."""
+    """Synchronous checkpoint write.  Returns the step directory.  A
+    sharded tree is gathered on every rank and written by rank 0; the
+    ranks then wait for one another, so the checkpoint is visible to all
+    when `save` returns."""
     directory = pathlib.Path(directory)
     final = directory / f"step_{step:08d}"
+    if not _writer(tree):
+        tree_util.tree_map(_host, tree)  # take part in the gathers
+        import torch.distributed as dist
+
+        dist.barrier()
+        return final
+    sharded = any(is_dtensor(leaf) for leaf in tree_util.leaves(tree))
     tmp = directory / f".tmp_step_{step:08d}"
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -76,6 +103,10 @@ def save(directory: str | pathlib.Path, step: int, tree: PyTree, extra: Optional
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)  # atomic publish: partial checkpoints never visible
+    if sharded:
+        import torch.distributed as dist
+
+        dist.barrier()
     return final
 
 
@@ -88,9 +119,12 @@ def latest_step(directory: str | pathlib.Path) -> Optional[int]:
 
 
 def restore(directory: str | pathlib.Path, template: PyTree, step: Optional[int] = None,
-            device: DeviceLike = None) -> tuple[PyTree, int, dict]:
+            device: DeviceLike = None, shardings: Optional[PyTree] = None) -> tuple[PyTree, int, dict]:
     """Restore into `template`'s structure (module docstring); returns
-    (tree, step, extra).  `step=None` takes the latest."""
+    (tree, step, extra).  `step=None` takes the latest.  With `shardings`
+    (the same structure, `NamedSharding` leaves) every leaf becomes a
+    DTensor laid out per its sharding, on the device its mesh runs on;
+    each rank reads the whole file and keeps its shard (no collective)."""
     directory = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -104,12 +138,18 @@ def restore(directory: str | pathlib.Path, template: PyTree, step: Optional[int]
         raise ValueError(
             f"checkpoint has {len(manifest['leaves'])} leaves, template has {len(leaves)} — structure changed?")
     dev = None if device is None else resolve_device(device)
+    sh_leaves = None if shardings is None else sharding_leaves(shardings)
+    if sh_leaves is not None and len(sh_leaves) != len(leaves):
+        raise ValueError(f"{len(sh_leaves)} shardings for a template of {len(leaves)} leaves")
     out_leaves = []
     for i, (meta, tmpl) in enumerate(zip(manifest["leaves"], leaves)):
         arr = np.load(d / meta["file"])
-        if tuple(arr.shape) != tuple(np.shape(tmpl)):
-            raise ValueError(f"leaf {i} shape {arr.shape} != template {tuple(np.shape(tmpl))}")
-        if dev is None and not isinstance(tmpl, torch.Tensor):
+        shape = tuple(tmpl.shape) if hasattr(tmpl, "shape") else tuple(np.shape(tmpl))
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"leaf {i} shape {arr.shape} != template {shape}")
+        if sh_leaves is not None:
+            out_leaves.append(place(torch.from_numpy(arr), sh_leaves[i], src_data_rank=None))
+        elif dev is None and not isinstance(tmpl, torch.Tensor):
             out_leaves.append(arr)
         else:
             out_leaves.append(torch.from_numpy(arr).to(dev or tmpl.device))
@@ -150,8 +190,11 @@ class AsyncCheckpointer:
         if self._err is not None:
             raise RuntimeError("async checkpoint failed") from self._err
         # the copy to the host happens on the caller's thread (it waits for
-        # the device), the file IO on the writer thread
-        self._q.put((step, tree_util.tree_map(_host, tree), extra))
+        # the device; a sharded tree is gathered there, every rank taking
+        # part), the file IO on the writer thread, of rank 0 only
+        host = tree_util.tree_map(_host, tree)
+        if _writer(tree):
+            self._q.put((step, host, extra))
 
     def close(self):
         self._q.put(None)

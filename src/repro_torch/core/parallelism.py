@@ -37,21 +37,33 @@ Logical axes used across the framework
   layers     stacked-layer dimension (never sharded)
   state      recurrent state channels (rwkv/rg-lru)
 
-What the port does with a rule on a real mesh: `constrain` is a no-op
-without rules, outside a mesh or on a one-device mesh (one H100 shards
-nothing), and raises `NotImplementedError` on a mesh of more than one
-device — moving a tensor across cards is the multi-card step (ROADMAP
-queue 1), never silently skipped.
+What the port does with a rule on a real mesh: a `Mesh` built while a
+process group of its size is up (`launch.mesh.init_distributed`) carries a
+`torch.distributed` `DeviceMesh`, and a `NamedSharding` on it yields
+DTensor placements (`NamedSharding.placements`): a spec entry of None is
+`Replicate()`, a mesh axis that shards tensor dim d is `Shard(d)` on that
+mesh dim, and an axis tuple such as ("pod", "data") is `Shard(d)` on each
+of its mesh dims, pod-major as in JAX.  `constrain` redistributes a DTensor
+to the placements of its logical axes — the counterpart of
+`with_sharding_constraint` — and `distribute_tree` lays a whole tree out.
+`constrain` is a no-op without rules, outside a mesh, on a plain tensor, or
+on a one-device mesh without a process group (one card, nothing to
+shard); a mesh of more than one device with no process group behind it (a
+layout only, or CUDA devices without a group) raises when asked to run:
+no sharded path quietly runs unsharded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 import math
 from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
+
+from repro_torch import tree as tree_util
 
 MeshAxes = Union[None, str, tuple[str, ...]]
 Spec = tuple  # one MeshAxes entry per tensor dim
@@ -64,10 +76,12 @@ class Mesh:
     `shape` maps each axis name to its size, in axis order, as a JAX mesh's
     `.shape` does.  `devices` is the flat, row-major list of
     `torch.device`s the mesh spans, or None for a layout only (a mesh the
-    rules can be asked about but nothing can run on)."""
+    rules can be asked about but nothing can run on).  `device_mesh` is
+    the `torch.distributed` `DeviceMesh` of a mesh built over a live
+    process group (`launch.mesh`), the one sharded code runs on."""
 
     def __init__(self, axis_sizes: Sequence[int], axis_names: Sequence[str],
-                 devices: Optional[Sequence[torch.device]] = None):
+                 devices: Optional[Sequence[torch.device]] = None, device_mesh: Any = None):
         axis_sizes, axis_names = tuple(int(n) for n in axis_sizes), tuple(axis_names)
         if len(axis_sizes) != len(axis_names):
             raise ValueError(f"{len(axis_sizes)} axis sizes for {len(axis_names)} axis names")
@@ -84,13 +98,27 @@ class Mesh:
             if len(devices) != self.size:
                 raise ValueError(f"a mesh of shape {axis_sizes} needs {self.size} devices, got {len(devices)}")
         self.devices = devices
+        if device_mesh is not None and tuple(device_mesh.mesh.shape) != axis_sizes:
+            raise ValueError(f"a DeviceMesh of shape {tuple(device_mesh.mesh.shape)} for a mesh of shape {axis_sizes}")
+        self.device_mesh = device_mesh
 
     @property
     def is_layout_only(self) -> bool:
         return self.devices is None
 
+    def runnable(self) -> Any:
+        """The `DeviceMesh` this mesh runs on; raises for a mesh that
+        cannot run sharded code (no process group of its size behind it)."""
+        if self.device_mesh is None:
+            raise RuntimeError(
+                f"{self!r} has no process group behind it: a sharded run needs "
+                "launch.mesh.init_distributed with a world of its size")
+        return self.device_mesh
+
     def __repr__(self) -> str:
         where = "layout only" if self.devices is None else ", ".join(str(d) for d in self.devices)
+        if self.device_mesh is not None:
+            where += ", process group"
         return f"Mesh({self.shape}; {where})"
 
 
@@ -100,6 +128,18 @@ class NamedSharding:
 
     mesh: Mesh
     spec: Spec
+
+    def placements(self) -> tuple:
+        """DTensor placements, one per mesh dim: `Shard(d)` on each mesh
+        axis that shards tensor dim d (an axis tuple shards d on each of its
+        axes, in order), `Replicate()` elsewhere."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        dim_of = {}
+        for d, entry in enumerate(self.spec):
+            for name in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
+                dim_of[name] = d
+        return tuple(Shard(dim_of[n]) if n in dim_of else Replicate() for n in self.mesh.axis_names)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,23 +339,111 @@ def ambient_mesh() -> Optional[Mesh]:
 
 
 def constrain(x: torch.Tensor, rules: Optional[ShardingRules], *logical: Optional[str]) -> torch.Tensor:
-    """Lay `x` out along its logical axes on the ambient mesh.
+    """Lay `x` out along its logical axes on the ambient mesh: a DTensor is
+    redistributed to the placements its shape-checked spec gives.
 
-    Returns `x` unchanged when `rules` is None, when no mesh is in scope, or
-    when the mesh has one device — the case of one card, where every spec
-    places the whole tensor on it.  On a mesh of more than one device the
-    tensor would have to move across devices: that is the multi-card step
-    (ROADMAP queue 1), so it raises rather than ignore the mesh."""
+    Returns `x` unchanged when `rules` is None, when no mesh is in scope,
+    when `x` is a plain tensor, or when the mesh has one device and no
+    process group — the case of one card, where every spec places the
+    whole tensor on it.  A mesh of more than one device with no process
+    group behind it raises (`Mesh.runnable`)."""
     if rules is None:
         return x
     mesh = ambient_mesh()
-    if mesh is None or mesh.size <= 1:
+    if mesh is None or (mesh.device_mesh is None and mesh.size <= 1):
         return x
-    spec = rules.mesh_axes(logical, tuple(x.shape), mesh)
-    raise NotImplementedError(
-        f"constrain to {spec} on {mesh!r}: laying a tensor out across more than one device is not "
-        "ported (ROADMAP queue 1, multi-card DTensor)")
+    dm = mesh.runnable()
+    if not is_dtensor(x):
+        return x
+    return x.redistribute(dm, placements_for(mesh, rules, tuple(x.shape), logical))
+
+
+@contextlib.contextmanager
+def sharded_scope():
+    """The context a sharded run's ops execute in: under a mesh with a
+    process group, DTensor's implicit replication — a plain tensor that
+    meets a DTensor (a position `arange`, a mask, a constant: values every
+    rank builds whole) counts as replicated; otherwise nothing.  Unlike
+    `implicit_replication`, it nests (the flag is restored, not cleared,
+    on exit); the flag is thread-local and carried into the autograd
+    engine's threads with the rest of the thread-local state."""
+    mesh = ambient_mesh()
+    if mesh is None or mesh.device_mesh is None:
+        yield
+        return
+    before = torch._C._get_dtensor_allow_implicit_replication()
+    torch._C._set_dtensor_allow_implicit_replication(True)
+    try:
+        yield
+    finally:
+        torch._C._set_dtensor_allow_implicit_replication(before)
+
+
+def placements_for(mesh: Mesh, rules: ShardingRules, shape: Sequence[int], logical: Sequence[Optional[str]]):
+    """The placements of a tensor of `shape` with these logical axes."""
+    return NamedSharding(mesh, rules.mesh_axes(tuple(logical), tuple(shape), mesh)).placements()
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def replicated(x: torch.Tensor, device_mesh):
+    """`x` as a DTensor replicated on `device_mesh`: a plain tensor that
+    holds the same whole value on every rank is wrapped with no collective;
+    a DTensor is returned as it is."""
+    if is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(x, device_mesh, [Replicate()] * device_mesh.ndim, run_check=False)
+
+
+def sharding_leaves(shardings) -> list:
+    """The `NamedSharding`s of a shardings tree (`tree_shardings`' output)
+    in `repro_torch.tree`'s leaf order (dict keys sorted, sequences and
+    dataclass fields in order): the order of the tree they lay out."""
+    if isinstance(shardings, NamedSharding):
+        return [shardings]
+    if isinstance(shardings, dict):
+        return [s for k in sorted(shardings) for s in sharding_leaves(shardings[k])]
+    if isinstance(shardings, (list, tuple)):
+        return [s for v in shardings for s in sharding_leaves(v)]
+    if dataclasses.is_dataclass(shardings) and not isinstance(shardings, type):
+        return [s for f in dataclasses.fields(shardings) for s in sharding_leaves(getattr(shardings, f.name))]
+    raise TypeError(f"not a shardings tree node: {type(shardings).__name__}")
+
+
+def place(leaf: torch.Tensor, sh: NamedSharding, *, src_data_rank: Optional[int] = 0):
+    """`leaf` as a DTensor laid out per `sh`: a DTensor is redistributed; a
+    plain tensor, the same whole tensor on every rank, is cut into shards
+    (rank 0's copy scattered, or with `src_data_rank=None` each rank's own
+    copy cut with no collective)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    dm = sh.mesh.runnable()
+    if is_dtensor(leaf):
+        return leaf.redistribute(dm, sh.placements())
+    return distribute_tensor(leaf.to(sh.mesh.devices[0]), dm, sh.placements(), src_data_rank=src_data_rank)
+
+
+def distribute_tree(tree, shardings):
+    """Every tensor leaf of `tree` laid out per the `NamedSharding` at the
+    same place of `shardings` (`tree_shardings`' output), as a DTensor on
+    the sharding's mesh.  Every rank passes the same full tensors."""
+    return tree_util.unflatten(tree, [place(leaf, sh) for leaf, sh in
+                                      zip(tree_util.leaves(tree), sharding_leaves(shardings), strict=True)])
+
+
+def gather_tree(tree):
+    """Every DTensor leaf of `tree` as the full plain tensor (a collective:
+    every rank calls it); other leaves as they are."""
+    return tree_util.tree_map(lambda leaf: leaf.full_tensor() if is_dtensor(leaf) else leaf, tree)
 
 
 __all__ = ["Mesh", "NamedSharding", "ShardingRules", "Logical", "train_rules", "serve_rules",
-           "rules_for", "map_logical", "tree_shardings", "tree_pspecs", "constrain", "ambient_mesh"]
+           "rules_for", "map_logical", "tree_shardings", "tree_pspecs", "constrain", "placements_for",
+           "sharded_scope", "is_dtensor", "replicated", "sharding_leaves", "place", "distribute_tree", "gather_tree",
+           "ambient_mesh"]

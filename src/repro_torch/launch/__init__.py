@@ -1,4 +1,5 @@
 """Launch-side helpers of the port (port of `repro.launch`): the mesh
-builders (`mesh`), the input, state and cache shapes with their shardings
-(`specs`) and the LM training driver (`train`).  The reference's `dryrun`
-(XLA lowering over 512 forced host devices) is left out (ROADMAP queue 1)."""
+builders and the process group (`mesh`), the input, state and cache shapes
+with their shardings (`specs`), the LM training driver (`train`) and the
+dry-run cells (`dryrun`: each cell run once on the live process group,
+where the reference lowers it for 256 or 512 forced host devices)."""

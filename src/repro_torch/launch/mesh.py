@@ -1,19 +1,34 @@
 """Mesh builders (port of `repro.launch.mesh`).
 
 Defined as functions, not module constants, so importing this module never
-touches device state.  A mesh spans real devices when there are enough of
-them and is a layout only (`Mesh.devices is None`) otherwise: the rules of
-`core.parallelism` need only the axis sizes, so a layout is enough to ask
-which tensor dims a production mesh would shard.
+touches device state.  When a process group is up (`init_distributed`),
+`make_auto_mesh` and `make_debug_mesh` build a `torch.distributed`
+`DeviceMesh` over its ranks, one device per rank, and the world must have
+the mesh's size.  Without one, a mesh spans real devices when there are
+enough of them and is a layout only (`Mesh.devices is None`) otherwise:
+the rules of `core.parallelism` need only the axis sizes, so a layout is
+enough to ask which tensor dims a production mesh would shard.  The
+production layouts (256 and 512 devices) are always layouts: asked to
+run, they raise.
+
+One process per rank, as `torch.distributed.run` starts them:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 8 \
+      -m repro_torch.launch.train --smoke --device cpu --mesh debug
+
+Rank r computes on `cuda:(r % local world)` on the card (backend `nccl`)
+and on the CPU under `device="cpu"` (backend `gloo`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterator, Optional, Sequence
+import os
+from typing import Any, Iterator, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.parallelism import _AMBIENT, Mesh
 from repro_torch.device import DeviceLike, resolve_device
@@ -26,10 +41,71 @@ def _cuda_devices(n: int) -> Optional[list[torch.device]]:
     return None
 
 
+def init_distributed(device: DeviceLike = None, *, store: Any = None, rank: Optional[int] = None,
+                     world_size: Optional[int] = None) -> torch.device:
+    """Join this process to its process group and return the device it
+    computes on.
+
+    With `store` (a `torch.distributed.Store`: a `FileStore` in the tests, a
+    `HashStore` for a world of one) `rank` and `world_size` are given;
+    without one they come from the launcher's environment (`RANK`,
+    `WORLD_SIZE`, `MASTER_ADDR`, `MASTER_PORT`, as `torch.distributed.run`
+    sets them).  The backend is `nccl` on the card, rank r on
+    `cuda:(r % local world)`, and `gloo` on the CPU.  A group already up is
+    kept (its backend must match)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", torch.cuda.device_count()))
+        r = rank if rank is not None else int(os.environ.get("RANK", 0))
+        dev = torch.device("cuda", r % local)
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise RuntimeError(f"a {dist.get_backend()} process group is up; {dev} needs {backend}")
+        return dev
+    if store is not None:
+        if rank is None or world_size is None:
+            raise ValueError("a store needs rank= and world_size=")
+        dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
+    else:
+        missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT") if k not in os.environ]
+        if missing:
+            raise RuntimeError(f"no process group to join: {', '.join(missing)} unset (start one process per "
+                               "rank with python -m torch.distributed.run, or pass store=)")
+        dist.init_process_group(backend, init_method="env://")
+    return dev
+
+
+def _device_mesh(shape: tuple, axes: tuple):
+    """A `DeviceMesh` of `shape` over the live process group, or None when
+    no group is up; raises when the world's size is not the mesh's."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(f"a mesh of shape {shape} needs a world of {math.prod(shape)} ranks, got {world}")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
 def make_auto_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
-    """A mesh of `shape` over `axes`: on the first visible CUDA devices when
-    there are enough, else a layout only."""
+    """A mesh of `shape` over `axes`: over the process group's ranks when
+    one is up (its world must have the mesh's size), else on the first
+    visible CUDA devices when there are enough, else a layout only."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    dm = _device_mesh(shape, axes)
+    if dm is not None:
+        return Mesh(shape, axes, [_rank_device(dm)] * math.prod(shape), device_mesh=dm)
     return Mesh(shape, axes, _cuda_devices(math.prod(shape)))
+
+
+def _rank_device(dm) -> torch.device:
+    if dm.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 @contextlib.contextmanager
@@ -52,7 +128,7 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     hold the rules' shardings to the reference's."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_auto_mesh(shape, axes)
+    return Mesh(shape, axes, _cuda_devices(math.prod(shape)))
 
 
 def make_serve_mesh(n_data: Optional[int] = None, *, device: DeviceLike = None) -> Mesh:
@@ -78,7 +154,8 @@ def make_serve_mesh(n_data: Optional[int] = None, *, device: DeviceLike = None) 
 
 def make_debug_mesh(n_data: int = 2, n_model: int = 4, *, multi_pod: bool = False) -> Mesh:
     """Small mesh for sharding tests: (data, model), or (pod=2, data,
-    model) — a layout only unless that many CUDA devices are visible."""
+    model) — over the process group when one is up (`make_auto_mesh`), else
+    a layout only unless that many CUDA devices are visible."""
     if multi_pod:
         shape, axes = (2, n_data, n_model), ("pod", "data", "model")
     else:
@@ -86,4 +163,4 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 4, *, multi_pod: bool = Fals
     return make_auto_mesh(shape, axes)
 
 
-__all__ = ["make_auto_mesh", "mesh_context", "make_production_mesh", "make_serve_mesh", "make_debug_mesh"]
+__all__ = ["init_distributed", "make_auto_mesh", "mesh_context", "make_production_mesh", "make_serve_mesh", "make_debug_mesh"]

@@ -12,13 +12,22 @@ On the CPU, at the smoke config:
   PYTHONPATH=src python -m repro_torch.launch.train --arch demo_100m --smoke --device cpu \\
       --steps 30 --batch 2 --seq 64 --qat --qat-delay 10
 
+Sharded, one process per rank (`--mesh debug`: data 2 × model 4, the
+reference's debug layout; here on 8 CPU ranks):
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 8 \
+      -m repro_torch.launch.train --arch demo_100m --smoke --device cpu --mesh debug --steps 3
+
 It prints the reference's log lines (one JSON object per `--log-every`
 steps: step, loss, lr, grad_norm, quant_phase, s_per_step, tokens_per_s;
 the card is synchronized before the clock is read) and returns the final
 `TrainState` and those records.  `--mesh debug|pod16x16` builds the
-reference's layout and its train rules: a mesh of more than one device
-raises at the first layout constraint (`core.parallelism.constrain`; the
-multi-card step is not ported), it never falls back to one device.
+reference's layout and its train rules, joins the launcher's process group
+(`launch.mesh.init_distributed`: `nccl` on the card, rank r on cuda:r,
+`gloo` on the CPU) and lays the state and every batch out as DTensors;
+rank 0 logs and writes the checkpoints, which every rank gathers, and a
+resume restores onto the run's own layout.  A world whose size is not the
+mesh's raises, and so does `pod16x16` (256 devices, a layout only): a
+sharded run never falls back to one device.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import torch
 from repro_torch import tree
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import registry
-from repro_torch.core.parallelism import rules_for
+from repro_torch.core.parallelism import distribute_tree, is_dtensor, rules_for
 from repro_torch.data.synthetic import DataConfig, DataIterator
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ShapeConfig
@@ -70,26 +79,41 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, qat=True, qat_delay=args.qat_delay)
     shape = ShapeConfig("train_cli", "train", args.seq, args.batch)
 
-    rules = None
+    rules = st_sh = b_sh = None
+    rank = 0
     with contextlib.ExitStack() as scope:
         if args.mesh != "none":
-            from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh, mesh_context
+            import torch.distributed as dist
 
-            mesh = make_debug_mesh() if args.mesh == "debug" else make_production_mesh()
+            from repro_torch.launch import specs
+            from repro_torch.launch.mesh import init_distributed, make_debug_mesh, make_production_mesh, mesh_context
+
+            if args.mesh == "pod16x16":
+                make_production_mesh().runnable()  # raises: 256 devices, a layout only
+            started = not dist.is_initialized()
+            dev = init_distributed(dev)
+            if started:
+                scope.callback(dist.destroy_process_group)
+            rank = dist.get_rank()
+            mesh = make_debug_mesh()
             rules = rules_for(mesh, "train")
             scope.enter_context(mesh_context(mesh))
+            st_sh, b_sh = specs.train_shardings(cfg, shape, mesh, rules)
 
         opt_cfg = adam.AdamConfig(lr=args.lr, grad_clip_norm=1.0,
                                   schedule=schedule.warmup_cosine(args.warmup, args.steps))
         step_fn = make_train_step(cfg, opt_cfg, rules=rules, n_microbatches=args.microbatches)
 
         state = init_state(torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
+        if st_sh is not None:
+            state = distribute_tree(state, st_sh)
         start_step = 0
         if args.resume and args.ckpt_dir:
             latest = ckpt.latest_step(args.ckpt_dir)
             if latest is not None:
-                state, start_step, _ = ckpt.restore(args.ckpt_dir, state)
-                print(f"resumed from step {start_step}")
+                state, start_step, _ = ckpt.restore(args.ckpt_dir, state, shardings=st_sh)
+                if rank == 0:
+                    print(f"resumed from step {start_step}")
 
         data = DataIterator(DataConfig(seed=args.seed), cfg, shape, start_step=start_step, device=dev)
         writer = ckpt.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
@@ -97,13 +121,16 @@ def main(argv=None):
                                         devices_per_host=torch.cuda.device_count() if dev.type == "cuda" else 1)
 
         n_params = sum(t.numel() for t in tree.leaves(state.params))
-        print(f"arch={cfg.name} params={n_params / 1e6:.1f}M qat={cfg.qat} "
-              f"delay={cfg.qat_delay} steps={args.steps}")
+        if rank == 0:
+            print(f"arch={cfg.name} params={n_params / 1e6:.1f}M qat={cfg.qat} "
+                  f"delay={cfg.qat_delay} steps={args.steps}")
 
         records = []
         t_last = time.perf_counter()
         for step in range(start_step, args.steps):
             batch = next(data)
+            if b_sh is not None:
+                batch = distribute_tree(batch, b_sh)
             state, metrics = step_fn(state, batch)
             if (step + 1) % args.log_every == 0 or step == args.steps - 1:
                 if dev.type == "cuda":
@@ -112,20 +139,23 @@ def main(argv=None):
                 dt = (now - t_last) / args.log_every
                 t_last = now
                 supervisor.step_report(0, dt)
+                m = {k: v.full_tensor() if is_dtensor(v) else v for k, v in metrics.items()}
                 records.append({
-                    "step": step + 1, "loss": round(float(metrics["loss"]), 4),
-                    "lr": float(metrics["lr"]),
-                    "grad_norm": round(float(metrics.get("grad_norm", 0)), 3),
-                    "quant_phase": int(metrics.get("quant_phase", 0)),
+                    "step": step + 1, "loss": round(float(m["loss"]), 4),
+                    "lr": float(m["lr"]),
+                    "grad_norm": round(float(m.get("grad_norm", 0)), 3),
+                    "quant_phase": int(m.get("quant_phase", 0)),
                     "s_per_step": round(dt, 3),
                     "tokens_per_s": round(args.batch * args.seq / dt, 1)})
-                print(json.dumps(records[-1]), flush=True)
+                if rank == 0:
+                    print(json.dumps(records[-1]), flush=True)
             if writer and (step + 1) % args.ckpt_every == 0:
                 writer.save(step + 1, state, extra={"arch": cfg.name})
         if writer:
             writer.save(args.steps, state, extra={"arch": cfg.name})
             writer.close()
-    print("done")
+    if rank == 0:
+        print("done")
     return state, records
 
 

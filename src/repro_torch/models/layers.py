@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import fixedpoint as fxp
-from repro_torch.core.parallelism import Logical, ShardingRules, constrain
+from repro_torch.core.parallelism import Logical, ShardingRules, constrain, is_dtensor, replicated
 from repro_torch.core.ranges import RangeStat, finalized, update_minmax
 from repro_torch.models.config import ModelConfig
 
@@ -313,6 +313,8 @@ def _scale_scores(scores: Tensor, hd: int) -> Tensor:
 def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, cfg: ModelConfig, rules) -> Tensor:
     """Grouped scaled-dot-product attention.
     q: (B,Sq,Hq,hd), k/v: (B,Sk,Hk,hd), mask: (B,Sq,Sk) or (Sq,Sk)."""
+    if is_dtensor(q):
+        return _attend(lambda q, k, v, m: _sdpa(q, k, v, m, cfg, rules), q, k, v, mask)
     b, sq, hq, hd = q.shape
     hk = k.shape[2]
     g = hq // hk
@@ -326,10 +328,37 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, cfg: ModelConfig, rules
     return out.reshape(b, sq, hq, hd)
 
 
+def _attend(fn, q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]) -> Tensor:
+    """`fn(q, k, v, mask)` (grouped attention on (B, S, H, hd) operands) for
+    DTensor operands: each rank runs it on its own (batch, head) shards.
+    The mesh dims that shard the batch, or the heads, of q and of k alike
+    keep that sharding (a rank's q heads then hold whole kv groups); every
+    other placement is made `Replicate()` first (a sharded sequence or
+    head_dim, or heads sharded on one side only: an explicit site, since
+    DTensor's einsum rules cannot split the heads into kv groups, and on a
+    three-axis mesh its planner stalls on the merged batch dims).  A mask
+    with a batch dim is cut to the rank's rows; the output is laid out as
+    the operands were."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    dm = q.device_mesh
+    k, v = replicated(k, dm), replicated(v, dm)
+    place = tuple(pq if pq == pk and isinstance(pq, Shard) and pq.dim in (0, 2) else Replicate()
+                  for pq, pk in zip(q.placements, k.placements))
+    q, k, v = (t.redistribute(dm, place) for t in (q, k, v))
+    if mask is not None and mask.ndim == 3 and mask.shape[0] > 1:  # per-row mask: the rank's rows
+        rows = tuple(Shard(0) if p == Shard(0) else Replicate() for p in place)
+        mask = distribute_tensor(mask, dm, rows, src_data_rank=None).to_local()
+    out = fn(q.to_local(), k.to_local(), v.to_local(), mask)
+    return DTensor.from_local(out, dm, place, run_check=False)
+
+
 def _banded_local_sdpa(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig) -> Tensor:
     """Sliding-window attention over (prev, self) key chunks — O(S·2w)
     scores instead of O(S²).  Exactly the full-score band mask for window
     w = chunk width.  q: (B,S,Hq,hd), k/v: (B,S,Hk,hd)."""
+    if is_dtensor(q):
+        return _attend(lambda q, k, v, _: _banded_local_sdpa(q, k, v, cfg), q, k, v, None)
     w = cfg.window
     b, s, hq, hd = q.shape
     hk = k.shape[2]
@@ -386,8 +415,8 @@ def attn_forward(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, positio
             raise ValueError(
                 f"prompt length {s_all} exceeds the KV cache length {t}; "
                 "init_cache with max_seq >= prompt + max_new")
-        cache["k"][:, slots] = k[:, s_all - keep:].to(cache["k"].dtype)
-        cache["v"][:, slots] = v[:, s_all - keep:].to(cache["v"].dtype)
+        _cache_write(cache["k"], slots, k[:, s_all - keep:])
+        _cache_write(cache["v"], slots, v[:, s_all - keep:])
 
     b, s = x.shape[0], x.shape[1]
     if local and s >= 2 * cfg.window and s % cfg.window == 0 and positions.ndim == 1:
@@ -408,6 +437,33 @@ def attn_forward(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, positio
     out = qat.site("attn_o_in", out.reshape(b, s, -1))
     y = _out_proj(out, p, cfg)
     return constrain(y, rules, "batch", "seq", "embed"), cache
+
+
+def _cache_write(cache: Tensor, slots, values: Tensor) -> None:
+    """`cache[:, slots] = values` in place (slots: a slice or an index
+    tensor along the sequence dim).  A DTensor cache is written shard by
+    shard — an explicit site: DTensor's rules for `index_put_` and for a
+    copy into a view differ between releases — the values laid out as the
+    cache with their sequence dim whole, each rank writing the slots that
+    fall in its piece of a sequence-sharded cache."""
+    if not is_dtensor(cache):
+        cache[:, slots] = values.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    dm = cache.device_mesh
+    values = replicated(values, dm)
+    place = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in cache.placements)
+    vals = values.to(cache.dtype).redistribute(dm, place).to_local()
+    local = cache.to_local()
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, dm, cache.placements)
+    if shape[1] == cache.shape[1]:  # the sequence dim is whole on this rank
+        local[:, slots] = vals
+        return
+    pos = torch.arange(cache.shape[1], device=local.device)[slots]
+    mine = (pos >= offset[1]) & (pos < offset[1] + shape[1])
+    local[:, pos[mine] - offset[1]] = vals[:, mine]
 
 
 def attn_decode(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, cache: dict[str, Tensor], pos: Pos,
@@ -440,6 +496,9 @@ def attn_decode(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, cache: d
     if per_row:
         # per-row scatter: lane b writes its own slot
         slot = torch.remainder(pos, t) if ring else pos
+        if is_dtensor(k_cache):
+            raise NotImplementedError("per-row decode positions on a sharded KV cache (continuous batching "
+                                      "runs on one device: serve/lm)")
         rows = torch.arange(b, device=dev)
         k_cache[rows, slot] = k_new[:, 0].to(k_cache.dtype)
         v_cache[rows, slot] = v_new[:, 0].to(v_cache.dtype)
@@ -447,8 +506,8 @@ def attn_decode(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, cache: d
         slot = pos % t if ring else pos  # Python's % is a floor-mod
         if not 0 <= slot < t:
             raise ValueError(f"decode position {pos} is outside the KV cache of length {t}")
-        k_cache[:, slot:slot + 1] = k_new.to(k_cache.dtype)
-        v_cache[:, slot:slot + 1] = v_new.to(v_cache.dtype)
+        _cache_write(k_cache, slice(slot, slot + 1), k_new)
+        _cache_write(v_cache, slice(slot, slot + 1), v_new)
     k_cache = constrain(k_cache, rules, "batch", "kv_seq", "kv_heads", "head_dim")
     v_cache = constrain(v_cache, rules, "batch", "kv_seq", "kv_heads", "head_dim")
 
@@ -536,10 +595,29 @@ def embed_specs(cfg: ModelConfig) -> Params:
     return p
 
 
+def _gather_rows(table: Tensor, idx: Tensor) -> Tensor:
+    """`table[idx]`.  For DTensor operands an explicit site (DTensor's rule
+    for the gather's backward, an accumulating `index_put_`, fails on some
+    releases): every rank gathers its own index shard from the whole table
+    and the table's gradient is summed over the ranks that hold different
+    indices; the rows come out laid out as the indices."""
+    if not (is_dtensor(table) or is_dtensor(idx)):
+        return table[idx]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = (table if is_dtensor(table) else idx).device_mesh
+    idx, table = replicated(idx, dm), replicated(table, dm)
+    place = tuple(p if isinstance(p, Shard) else Replicate() for p in idx.placements)
+    idx = idx.redistribute(dm, place)
+    whole = table.redistribute(dm, [Replicate()] * dm.ndim).to_local(
+        grad_placements=[Partial() if isinstance(p, Shard) else Replicate() for p in place])
+    return DTensor.from_local(whole[idx.to_local()], dm, place, run_check=False)
+
+
 def embed_tokens(tokens: Tensor, p: Params, cfg: ModelConfig, rules: Optional[ShardingRules]) -> Tensor:
     dt = cfg.compute_dtype
     # a gather then a cast: the reference's cast-then-gather, elementwise
-    x = p["embedding"][tokens.long()].to(dt)
+    x = _gather_rows(p["embedding"], tokens.long()).to(dt)
     x = x * _const(math.sqrt(cfg.d_model), dt, x.device)  # √d rounded to dt first
     return constrain(x, rules, "batch", "seq", "embed")
 

@@ -24,11 +24,30 @@ dropped ones to a spare slot C that is cut off before use.  The rows are
 `x + 0` first, so a −0.0 lands as the reference's 0 + (−0.0) = +0.0: the
 reference's buffer bitwise.
 
-The reference's expert-parallel `shard_map` path (taken under an ambient
-mesh with a "model" axis for T ≥ 65,536 tokens) is not ported: that case
-raises (ROADMAP queue 1 item 5).  Since the dense dispatch runs every
-expert over its capacity buffer, a decode step reads every expert's
-weights, not only the active ones.
+Since the dense dispatch runs every expert over its capacity buffer, a
+decode step reads every expert's weights, not only the active ones.
+
+On a sharded run (DTensor operands under a mesh, `core.parallelism`) the
+dense dispatch computes the routing, the buffer scatter and the combine
+gather on the whole token stream, replicated on every rank (DTensor has no
+sharding rule for the stable sort, the integer cumsum along the tokens or
+`index_put_`): three explicit `Replicate()` sites; the expert FFN runs on
+the buffer laid out (experts, exp_cap) by the rules.
+
+The reference's expert-parallel `shard_map` path (`_moe_forward_sharded`,
+taken under an ambient mesh with a "model" axis, rules given, T ≥ 65,536
+tokens and the experts divisible by the model axis) is per-rank code here:
+each rank takes its batch shard of the token stream (replicated over
+"model") and the weights of its E / model experts, gathered over "data";
+the capacity is per batch shard (`capacity(T / batch shards)`), the
+"router_in" / "expert_in" sites apply to the token stream, and the
+combine is a sum over "model".  The balance loss is the mean over the
+batch shards, the "expert_down_in" range the min / max over every rank.
+Its gradients are the reference's: the token stream's and the router's
+are summed over the ranks that share them, and the balance loss enters on
+model rank 0 only.  On a mesh of one device with no process group the same
+body runs with no collectives; on a mesh of several devices it takes
+DTensors only, and a plain input raises.
 """
 
 from __future__ import annotations
@@ -39,7 +58,9 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.parallelism import Logical, ShardingRules, ambient_mesh, constrain
+from repro_torch.core import fixedpoint as fxp
+from repro_torch.core.parallelism import (Logical, Mesh, ShardingRules, ambient_mesh, constrain, is_dtensor,
+                                          replicated)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import LayerQAT, _act, _uniform
 
@@ -80,11 +101,11 @@ def top_k(probs: Tensor, k: int) -> tuple[Tensor, Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def route(flat: Tensor, router: Tensor, cfg: ModelConfig) -> dict[str, Tensor]:
+def route(flat: Tensor, router: Tensor, cfg: ModelConfig, c: Optional[int] = None) -> dict[str, Tensor]:
     """The router's decisions for (T, d) tokens: the renormalised top-k
     gates and their experts (from float32 probabilities), the balance loss,
     and each (token, choice) pair's slot in its expert's buffer with its
-    keep flag."""
+    keep flag against the capacity `c` (default `capacity(T)`)."""
     t, k, e = flat.shape[0], cfg.experts_per_token, cfg.n_experts
     logits = flat.to(torch.float32) @ router.to(torch.float32)
     probs = torch.softmax(logits, -1)  # (T, E)
@@ -100,22 +121,42 @@ def route(flat: Tensor, router: Tensor, cfg: ModelConfig) -> dict[str, Tensor]:
     flat_idx = expert_idx.reshape(1, t * k)
     hit = flat_idx == torch.arange(e, device=flat.device)[:, None]  # (E, T·K)
     pos_in_e = (torch.cumsum(hit, 1, dtype=torch.int32).gather(0, flat_idx)[0] - 1).reshape(t, k)
-    c = capacity(t, cfg)
+    c = capacity(t, cfg) if c is None else c
     return {"gates": gate_vals, "experts": expert_idx, "aux": aux,
             "pos": pos_in_e, "keep": pos_in_e < c, "capacity": c}
 
 
+def _ep_mesh(rules: Optional[ShardingRules], n_tokens: int, cfg: ModelConfig) -> Optional[Mesh]:
+    """The ambient mesh when the reference's condition for its
+    expert-parallel path holds, else None."""
+    mesh = ambient_mesh() if rules is not None else None
+    if (mesh is not None and "model" in mesh.axis_names and n_tokens >= SHARDED_MIN_TOKENS
+            and cfg.n_experts % mesh.shape["model"] == 0):
+        return mesh
+    return None
+
+
 def moe_forward(x: Tensor, p: Params, cfg: ModelConfig, rules: Optional[ShardingRules],
                 qat: LayerQAT) -> tuple[Tensor, Tensor]:
-    """x: (B, S, d) -> (y, aux_loss).  The dense dispatch; the reference's
-    condition for its expert-parallel path raises."""
-    mesh = ambient_mesh() if rules is not None else None
-    if (mesh is not None and "model" in mesh.axis_names and x.shape[0] * x.shape[1] >= SHARDED_MIN_TOKENS
-            and cfg.n_experts % mesh.shape["model"] == 0):
-        raise NotImplementedError(
-            f"{cfg.name}: {x.shape[0] * x.shape[1]} tokens under a mesh with a 'model' axis take the reference's "
-            "expert-parallel shard_map dispatch, which is not ported (ROADMAP queue 1 item 5)")
+    """x: (B, S, d) -> (y, aux_loss).  The expert-parallel path under the
+    reference's condition (`_ep_mesh`), the dense dispatch otherwise."""
+    mesh = _ep_mesh(rules, x.shape[0] * x.shape[1], cfg)
+    if mesh is not None:
+        return _moe_forward_sharded(x, p, cfg, rules, qat, mesh)
     return _moe_forward_dense(x, p, cfg, rules, qat)
+
+
+def _whole(x: Tensor) -> Tensor:
+    """A DTensor as the full plain tensor on every rank (a `Replicate()`
+    site, differentiable: every rank then computes the same), a plain
+    tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _like(value: Tensor, ref: Tensor) -> Tensor:
+    """`value` (the same on every rank) as a replicated DTensor on `ref`'s
+    mesh when `ref` is a DTensor, else as it is."""
+    return replicated(value, ref.device_mesh) if is_dtensor(ref) else value
 
 
 def _moe_forward_dense(x: Tensor, p: Params, cfg: ModelConfig, rules: Optional[ShardingRules],
@@ -125,7 +166,10 @@ def _moe_forward_dense(x: Tensor, p: Params, cfg: ModelConfig, rules: Optional[S
     dt = cfg.compute_dtype
 
     flat = qat.site("router_in", x.reshape(t, d))
-    r = route(flat, p["router"], cfg)
+    # Replicate() site: the routing and the scatter below run on the whole
+    # token stream on every rank
+    flat_w = _whole(flat)
+    r = route(flat_w, _whole(p["router"]), cfg)
     c = r["capacity"]
     keep = r["keep"].to(dt)
     experts = r["experts"].reshape(-1)
@@ -133,10 +177,10 @@ def _moe_forward_dense(x: Tensor, p: Params, cfg: ModelConfig, rules: Optional[S
 
     # scatter tokens -> (E, C, d): kept pairs to their slots, dropped ones to
     # the spare slot C (cut off)
-    rows = (flat.to(dt) + 0.0)[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = torch.zeros((e, c + 1, d), dtype=dt, device=x.device)
+    rows = (flat_w.to(dt) + 0.0)[:, None, :].expand(t, k, d).reshape(t * k, d)
+    buf = torch.zeros((e, c + 1, d), dtype=dt, device=flat_w.device)
     buf.index_put_((experts, torch.where(r["keep"].reshape(-1), slots, c)), rows)
-    buf = constrain(buf[:, :c], rules, "experts", "exp_cap", None)
+    buf = constrain(_like(buf[:, :c], flat), rules, "experts", "exp_cap", None)
 
     # expert FFN, batched over E
     buf_q = qat.site("expert_in", buf)
@@ -145,10 +189,104 @@ def _moe_forward_dense(x: Tensor, p: Params, cfg: ModelConfig, rules: Optional[S
     h = qat.site("expert_down_in", h)
     out_buf = constrain(torch.bmm(h, p["wd"].to(dt)), rules, "experts", "exp_cap", None)
 
-    # gather back + weighted combine
-    gathered = out_buf[experts, slots].reshape(t, k, d) * keep[..., None]
+    # gather back + weighted combine (Replicate() site: the gather by slot)
+    gathered = _whole(out_buf)[experts, slots].reshape(t, k, d) * keep[..., None]
     y = (gathered * r["gates"].to(dt)[..., None]).sum(1).reshape(b, s, d)
-    return constrain(y, rules, "batch", "seq", "embed"), r["aux"]
+    return constrain(_like(y, flat), rules, "batch", "seq", "embed"), _like(r["aux"], flat)
+
+
+def _moe_forward_sharded(x: Tensor, p: Params, cfg: ModelConfig, rules: ShardingRules, qat: LayerQAT,
+                         mesh: Mesh) -> tuple[Tensor, Tensor]:
+    """The expert-parallel dispatch (module docstring): per-rank code on
+    the local shards, with the reference's collectives."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if mesh.size > 1 and not is_dtensor(x):
+        mesh.runnable()  # raises for a layout: no process group behind it
+        raise ValueError(f"the expert-parallel MoE body on {mesh!r} needs its input laid out on the mesh as a "
+                         "DTensor (core.parallelism.distribute_tree), not a plain tensor")
+    names = mesh.axis_names
+    batch_axes = ("pod", "data") if "pod" in names else ("data",)
+    n_model = mesh.shape["model"]
+    e, k = cfg.n_experts, cfg.experts_per_token
+    e_local = e // n_model
+    dt = cfg.compute_dtype
+    b, s, d = x.shape
+
+    # QAT: the router / expert input sites on the token stream (replicated
+    # over "model") — the same content as the dispatched buffer
+    x = qat.site("router_in", x)
+    x = qat.site("expert_in", x)
+    hidden_qat = qat.params_for("expert_down_in")
+    n_batch_shards = math.prod(mesh.shape[a] for a in batch_axes)
+    c_local = capacity(b * s // n_batch_shards, cfg)
+
+    dm = mesh.device_mesh if is_dtensor(x) else None
+    if dm is not None:
+        # to_local in: the tokens by batch shard, the router whole, the
+        # expert weights by "model" shard and whole over the batch axes
+        # (the FSDP gather); the gradients of what several ranks share are
+        # summed over them (Partial)
+        batch = tuple(Shard(0) if n in batch_axes else Replicate() for n in names)
+        xl = x.to(dt).redistribute(dm, batch).to_local(
+            grad_placements=tuple(Partial() if n == "model" else pl for n, pl in zip(names, batch)))
+        router = p["router"].to(torch.float32).redistribute(dm, (Replicate(),) * len(names)).to_local(
+            grad_placements=(Partial(),) * len(names))
+        by_model = tuple(Shard(0) if n == "model" else Replicate() for n in names)
+        model_partial = tuple(Shard(0) if n == "model" else Partial() for n in names)
+        wg, wu, wd = (p[w].redistribute(dm, by_model).to_local(grad_placements=model_partial).to(dt)
+                      for w in ("wg", "wu", "wd"))
+        model_rank = dm.get_local_rank("model")
+    else:
+        xl, router = x.to(dt), p["router"].to(torch.float32)
+        wg, wu, wd = (_whole(p[w]).to(dt) for w in ("wg", "wu", "wd"))
+        model_rank = 0
+
+    tl = xl.shape[0] * xl.shape[1]
+    flat = xl.reshape(tl, d)
+    r = route(flat, router, cfg, c_local)
+    aux = r["aux"] if model_rank == 0 else r["aux"].detach()  # its gradient enters once over "model"
+
+    # ---- local dispatch (no collectives) -----------------------------------
+    rel_e = r["experts"] - model_rank * e_local
+    mine = (rel_e >= 0) & (rel_e < e_local)
+    use = (r["keep"] & mine).reshape(-1)
+    rel_clip = rel_e.clamp(0, e_local - 1).reshape(-1)
+    slots = r["pos"].clamp_max(c_local - 1).reshape(-1)
+    rows = (flat + 0.0)[:, None, :].expand(tl, k, d).reshape(tl * k, d)
+    buf = torch.zeros((e_local, c_local + 1, d), dtype=dt, device=flat.device)
+    buf.index_put_((rel_clip, torch.where(use, slots, c_local)), rows)
+    buf = buf[:, :c_local]
+
+    # ---- expert FFN ----------------------------------------------------------
+    h = _act(torch.bmm(buf, wg), cfg.act) * torch.bmm(buf, wu)
+    if hidden_qat is not None:
+        a_min, a_max, quant_phase = (_whole(v) if torch.is_tensor(v) else v for v in hidden_qat)
+        h32 = h.to(torch.float32)
+        h_q = fxp.fake_quant_affine(h32, a_min, a_max, cfg.qat_bits)
+        h_full = fxp.fake_quant(h32, fxp.FXP32)
+        phase = torch.as_tensor(quant_phase, dtype=torch.bool, device=h.device)
+        h = torch.where(phase, h_q, h_full).to(dt)
+        h_min, h_max = h32.detach().min(), h32.detach().max()
+        if dm is not None:  # pmin / pmax over every axis
+            h_min, h_max = h_min.clone(), h_max.clone()
+            torch.distributed.all_reduce(h_min, torch.distributed.ReduceOp.MIN)
+            torch.distributed.all_reduce(h_max, torch.distributed.ReduceOp.MAX)
+    out_buf = torch.bmm(h, wd)
+
+    # ---- combine: my experts' outputs, summed over "model" ---------------------
+    gathered = out_buf[rel_clip, slots].reshape(tl, k, d) * use.reshape(tl, k, 1).to(dt)
+    y = (gathered * r["gates"].to(dt)[..., None]).sum(1).reshape(xl.shape)
+    if dm is not None:
+        partial = tuple(Partial() if n == "model" else pl for n, pl in zip(names, batch))
+        y = DTensor.from_local(y, dm, partial, run_check=False).redistribute(dm, batch)
+        # pmean over the batch axes: a sum, then the quotient by a tensor
+        aux = DTensor.from_local(aux, dm, tuple(Partial() if n in batch_axes else Replicate() for n in names),
+                                 run_check=False).redistribute(dm, (Replicate(),) * len(names))
+        aux = aux / torch.full((), float(n_batch_shards), dtype=torch.float32, device=flat.device)
+    if hidden_qat is not None:
+        qat.fold_external("expert_down_in", h_min, h_max)
+    return y, aux
 
 
 __all__ = ["moe_init", "moe_specs", "capacity", "top_k", "route", "moe_forward"]

@@ -43,7 +43,8 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import tree
-from repro_torch.core.parallelism import Logical, ShardingRules, constrain, map_logical
+from repro_torch.core.parallelism import (Logical, ShardingRules, constrain, is_dtensor, map_logical, replicated,
+                                          sharded_scope)
 from repro_torch.core.ranges import RangeStat
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import frontend as fe
@@ -346,6 +347,11 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
     norm's output through the head's QAT site instead of logits (the
     chunked cross-entropy of `loss_fn`)."""
     del unroll
+    with sharded_scope():
+        return _forward(params, batch, cfg, rules, ranges, quant_phase, states, remat, attn_chunk, skip_head)
+
+
+def _forward(params, batch, cfg, rules, ranges, quant_phase, states, remat, attn_chunk, skip_head):
     qat_on = ranges is not None
     if "tokens" in batch:
         x = L.embed_tokens(batch["tokens"], params["embed"], cfg, rules)
@@ -417,11 +423,28 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
 def _nll_sums(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
     """(Σ NLL over the labelled positions, their count), float32; labels
     < 0 are masked."""
+    if is_dtensor(logits):
+        return _sharded_nll_sums(logits, labels)
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     target = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     valid = (labels >= 0).to(torch.float32)
     return torch.sum((lse - target) * valid), torch.sum(valid)
+
+
+def _sharded_nll_sums(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
+    """`_nll_sums` of DTensor logits, an explicit site: the vocab made whole
+    (the label gather has no DTensor rule on a vocab-sharded dim), each rank
+    sums its own (batch, seq) shard, and the two sums come back as partial
+    sums over the ranks that hold different rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = logits.device_mesh
+    place = tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate() for p in logits.placements)
+    lf = logits.redistribute(dm, place)
+    sums = _nll_sums(lf.to_local(), replicated(labels, dm).redistribute(dm, place).to_local())
+    partial = [Partial() if isinstance(p, Shard) else Replicate() for p in place]
+    return tuple(DTensor.from_local(t, dm, partial, run_check=False) for t in sums)
 
 
 def _chunk_nll(x: Tensor, w: Tensor, labels: Tensor, rules: Optional[ShardingRules]) -> tuple[Tensor, Tensor]:
@@ -442,6 +465,11 @@ def loss_fn(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
     forward and again in the backward, one chunk at a time, never the
     (B, S, V) whole.  Every quotient has a tensor divisor (on the card a
     division by a Python number multiplies by its rounded reciprocal)."""
+    with sharded_scope():
+        return _loss(params, batch, cfg, rules, ranges, quant_phase, remat, attn_chunk, aux_coef, ce_chunk)
+
+
+def _loss(params, batch, cfg, rules, ranges, quant_phase, remat, attn_chunk, aux_coef, ce_chunk):
     labels = batch["labels"]
     s = labels.shape[1]
     one = torch.ones((), dtype=torch.float32, device=labels.device)
@@ -528,6 +556,11 @@ def decode_step(params: Params, tokens: Tensor, cache: Params, pos, cfg: ModelCo
     mask per lane; recurrent blocks are position-independent either way.
     Writes the caches and states in place and returns (logits (B, 1, V),
     cache)."""
+    with sharded_scope():
+        return _decode(params, tokens, cache, pos, cfg, rules, ranges, quant_phase)
+
+
+def _decode(params, tokens, cache, pos, cfg, rules, ranges, quant_phase):
     qat_on = ranges is not None
     x = L.embed_tokens(tokens, params["embed"], cfg, rules)
     for i in range(cfg.n_periods):

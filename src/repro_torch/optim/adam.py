@@ -17,6 +17,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.core.parallelism import is_dtensor
 from repro_torch.numerics import sqrt_rn
 
 Tensor = torch.Tensor
@@ -68,7 +69,42 @@ def init(params: Tree) -> AdamState:
 
 
 def global_norm(tree: Tree) -> Tensor:
-    return sqrt_rn(sum(torch.sum(torch.square(leaf.to(torch.float32))) for leaf in tree_leaves(tree)))
+    """√Σ leaf², float32.  Over sharded (DTensor) leaves the per-leaf sums
+    of squares are reduced across the ranks in one all-reduce
+    (`_sharded_sum_squares`); the result is a plain 0-d tensor, the same on
+    every rank."""
+    leaves = tree_leaves(tree)
+    if any(is_dtensor(leaf) for leaf in leaves):
+        return sqrt_rn(_sharded_sum_squares(leaves))
+    return sqrt_rn(sum(torch.sum(torch.square(leaf.to(torch.float32))) for leaf in leaves))
+
+
+def _sharded_sum_squares(leaves: list) -> Tensor:
+    """Σ over the leaves of Σ leaf², with one collective: every rank sums
+    the squares of its local piece of each leaf, counted only on the rank
+    that owns that piece (coordinate 0 along each mesh dim that replicates
+    the leaf); the (n_leaves,) vector of those sums is all-reduced over the
+    world and then added up in leaf order.  A partial-sum leaf is reduced
+    first."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Partial, Replicate
+
+    parts = []
+    for leaf in leaves:
+        if not is_dtensor(leaf):
+            raise TypeError("a tree of sharded leaves holds a plain tensor")
+        if any(isinstance(p, Partial) for p in leaf.placements):
+            leaf = leaf.redistribute(leaf.device_mesh, tuple(
+                Replicate() if isinstance(p, Partial) else p for p in leaf.placements))
+        coord = leaf.device_mesh.get_coordinate()
+        owner = all(c == 0 for c, p in zip(coord, leaf.placements) if isinstance(p, Replicate))
+        ss = torch.sum(torch.square(leaf.to_local().to(torch.float32)))
+        parts.append(ss if owner else torch.zeros_like(ss))
+    if leaves[0].device_mesh.size() != dist.get_world_size():
+        raise ValueError("a sharded global norm needs a mesh over the whole world")
+    vec = torch.stack(parts)
+    dist.all_reduce(vec)
+    return sum(vec.unbind(0))
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float) -> tuple[Tree, Tensor]:

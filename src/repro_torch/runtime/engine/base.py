@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Optional, Sequence
 
 from repro_torch.obs import DispatchAudit, EngineMetrics, Observability, QATTelemetry
@@ -106,7 +107,10 @@ class StreamEngine:
         self._batcher = queue
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
-        self.obs.register_health(health_name or prefix, self.health)
+        # the bundle holds the engine's health check weakly: a bound method
+        # would tie the engine to its bundle in a cycle, and a closed
+        # engine (with its params) would live until the next gc pass
+        self.obs.register_health(health_name or prefix, _WeakHealth(self))
         self.obs.ensure_server()
 
     # ------------------------------------------------------------------ #
@@ -270,6 +274,22 @@ class StreamEngine:
         if self._audit is not None:
             self._audit.reset()
         self._qat.reset()
+
+
+class _WeakHealth:
+    """An engine's `/healthz` source that does not keep the engine alive:
+    while the engine lives it is `engine.health()`; once the engine is
+    gone the check reports it released (ok, not running)."""
+
+    def __init__(self, engine: "StreamEngine"):
+        self._ref = weakref.ref(engine)
+        self._running_key = engine.health_running_key
+
+    def __call__(self) -> dict:
+        engine = self._ref()
+        if engine is None:
+            return {"ok": True, self._running_key: False, "released": True}
+        return engine.health()
 
 
 __all__ = ["StreamEngine"]

@@ -26,7 +26,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import tree
-from repro_torch.core.parallelism import ShardingRules
+from repro_torch.core.parallelism import ShardingRules, is_dtensor, sharded_scope
 from repro_torch.core.qat import quantize_grads, quantize_weights
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
@@ -66,12 +66,21 @@ def value_and_grad(cfg: ModelConfig, params: Params, ranges: Optional[Params], b
     loss does not reach, as JAX's grad gives them).  `ranges` None runs
     without the QAT sites; remat follows `cfg.remat`."""
     live = [leaf.detach().requires_grad_(True) for leaf in tree.leaves(params)]
-    loss, extras = T.loss_fn(tree.unflatten(params, live), batch, cfg, rules=rules, ranges=ranges,
-                             quant_phase=quant_phase, remat=cfg.remat != "none", attn_chunk=attn_chunk,
-                             unroll=unroll, ce_chunk=ce_chunk)
-    grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
+    with sharded_scope():
+        loss, extras = T.loss_fn(tree.unflatten(params, live), batch, cfg, rules=rules, ranges=ranges,
+                                 quant_phase=quant_phase, remat=cfg.remat != "none", attn_chunk=attn_chunk,
+                                 unroll=unroll, ce_chunk=ce_chunk)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else _like_param(g, p) for p, g in zip(live, grads)]
     return loss.detach(), extras, tree.unflatten(params, grads)
+
+
+def _like_param(g: Tensor, p: Tensor) -> Tensor:
+    """A sharded gradient laid out as its parameter: a partial sum over the
+    batch shards is reduced here (the data-parallel gradient all-reduce)."""
+    if is_dtensor(g) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adam.AdamConfig, *, rules: Optional[ShardingRules] = None,

@@ -182,20 +182,29 @@ def test_moe_load_balance_loss_positive():
 
 def test_sharded_dispatch_condition_raises():
     """Under a mesh with a "model" axis and T ≥ 65,536 the reference takes
-    its shard_map path: the port raises, naming the roadmap item; below
-    the threshold the dense path runs, as the reference's does."""
+    its shard_map path, and so does the port (`_moe_forward_sharded`): on a
+    mesh of several devices with no process group behind it, a layout, it
+    raises rather than run unsharded; on a one-device mesh the same body
+    runs with no collectives and, QAT off, equals the dense dispatch (one
+    batch shard: the same capacity and routing).  Below the threshold, or
+    without rules, the dense path runs, as the reference's does."""
     _, pc = _cfgs("dbrx_132b")
     _, pp = _weights(_cfgs("dbrx_132b")[0])
+    qat = PL.LayerQAT(None, None)
+    big = torch.from_numpy(_x(pc, 1, PM.SHARDED_MIN_TOKENS))
+    layout = ppar.Mesh((2, 4), ("data", "model"))
+    with mesh_context(layout):
+        with pytest.raises(RuntimeError, match="no process group"):
+            PM.moe_forward(big, pp, pc, ppar.train_rules(layout), qat)
     mesh = ppar.Mesh((1, 1), ("data", "model"))
     rules = ppar.serve_rules(mesh)
-    qat = PL.LayerQAT(None, None)
     with mesh_context(mesh):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            PM.moe_forward(torch.zeros((1, PM.SHARDED_MIN_TOKENS, pc.d_model)), pp, pc, rules, qat)
+        got, aux = PM.moe_forward(big, pp, pc, rules, qat)
         x = torch.from_numpy(_x(pc, 1, 8))
-        got, _ = PM.moe_forward(x, pp, pc, rules, qat)
-    want, _ = PM.moe_forward(x, pp, pc, None, qat)
-    assert torch.equal(got, want)
+        small, _ = PM.moe_forward(x, pp, pc, rules, qat)
+    want, want_aux = PM._moe_forward_dense(big, pp, pc, None, qat)
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
+    assert torch.equal(small, PM.moe_forward(x, pp, pc, None, qat)[0])
     # no rules, or no mesh in scope: the dense path at any size
     y, _ = PM.moe_forward(torch.zeros((1, PM.SHARDED_MIN_TOKENS, pc.d_model)), pp, pc, rules, qat)
     assert y.shape == (1, PM.SHARDED_MIN_TOKENS, pc.d_model)

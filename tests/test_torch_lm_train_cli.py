@@ -185,13 +185,16 @@ def test_train_driver_cli_resume(tmp_path, capsys):
 
 def test_train_driver_device_and_mesh_rules():
     """Without `--device cpu` the driver needs a card; a mesh of more than
-    one device raises at the first layout constraint, never falling back
-    to one device."""
+    one device needs a process group of its size (one process per rank,
+    tests/test_torch_dist_ckpt.py): started alone it raises, never falling
+    back to one device, and so does the 256-device production layout."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["--arch", "demo_100m", "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="more than one device"):
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         main(_cli("--steps", "1", "--mesh", "debug"))
+    with pytest.raises(RuntimeError, match="no process group"):
+        main(_cli("--steps", "1", "--mesh", "pod16x16"))
 
 
 @pytest.mark.parametrize("mode", H.MODES)

@@ -234,14 +234,18 @@ def test_constrain_is_identity_on_one_device_and_without_a_mesh():
 
 @pytest.mark.parametrize("layout", ["2x4", "16x16", "2x16x16"])
 def test_constrain_raises_on_a_multi_device_mesh(layout):
+    """A mesh of several devices with no process group behind it (a
+    layout) cannot run a constraint: it raises, for a sharded spec and a
+    replicated one alike, rather than leave the tensor unsharded.  (Meshes
+    over a live process group: tests/test_torch_dist_cells.py.)"""
     sizes, names = LAYOUTS[layout]
     mesh = ppar.Mesh(sizes, names)
     x = torch.zeros(32, 8, 16)
     with pmesh.mesh_context(mesh):
-        with pytest.raises(NotImplementedError, match="more than one device"):
+        with pytest.raises(RuntimeError, match="no process group"):
             ppar.constrain(x, ppar.train_rules(mesh), "batch", "seq", "embed")
         # a replicated spec would still move data onto every device
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="no process group"):
             ppar.constrain(x, ppar.train_rules(mesh), None, None, None)
     inner = ppar.Mesh((1,), ("data",), ["cpu"])
     with pmesh.mesh_context(mesh), pmesh.mesh_context(inner):

@@ -7,9 +7,8 @@ classes, functions and aliases defined in it and its UPPERCASE constants;
 for a package, every public name its `__init__.py` binds (the port's
 `__init__.py` must bind it itself, not by a side effect of another import:
 `import repro.rl` gives `repro.rl.loop`).  Left out by name, with the
-reason: the reference's `launch/dryrun.py` (XLA lowering over 512 forced
-host devices; ROADMAP queue 1) and the Pallas entry points, whose
-counterparts are the port's CUDA wrappers under other names (PERF.md §6).
+reason: the Pallas entry points, whose counterparts are the port's CUDA
+wrappers under other names (PERF.md §6).
 """
 
 import ast
@@ -25,7 +24,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 REF = REPO / "src" / "repro"
 PORT = REPO / "src" / "repro_torch"
 
-LEFT_OUT_MODULES = {"repro.launch.dryrun": "XLA lower + compile over 512 forced host devices (ROADMAP queue 1)"}
+LEFT_OUT_MODULES: dict = {}
 # the Pallas entry points (and Pallas's compiler-params shim): the port's
 # kernels are CUDA, reached through `*_cuda` wrappers of its own
 PALLAS_NAMES = {
