@@ -14,7 +14,9 @@ serving over a device mesh and the LM zoo's attention-family serving path
 at full width (slice 9), and the LM zoo's MoE, RWKV-6 and RG-LRU serving
 paths at full width (slice 10), LM training with QAT at full width
 (slice 11), and the sharded LM code (DTensor rules, the expert-parallel
-MoE dispatch) at world size 1 (slice 12).  Phases, each printing one JSON line (`lm` one per model),
+MoE dispatch) at world size 1 (slice 12), and the production dry run on the 256- and
+512-rank layouts over a fake process group under fake tensors (slice 13).  Phases,
+each printing one JSON line (`lm` one per model),
 each line with its wall seconds since the line before:
 
   1. device   — the card's name and power limit (nvidia-smi), CUDA version,
@@ -182,7 +184,8 @@ each line with its wall seconds since the line before:
                 tokens) on prompts of 128 and 1024 tokens, 700 on gemma3
                 (its masked local path; 1024 takes the banded one), 2304 on
                 recurrentgemma (past its window: the ring wraps); decode ms
-                per step at 1, 4 and 16 lanes, beside the least time of the
+                per step at 1, 4 and 16 lanes (5 steps, the median of 2
+                timed runs after a warmup), beside the least time of the
                 serving tree's read (every expert, for MoE's dense
                 dispatch); a `torch.profiler` pass over
                 decode at 4 lanes and 1024-token prefills; except for dbrx,
@@ -213,7 +216,7 @@ each line with its wall seconds since the line before:
                 range leaf stay finite and bitwise frozen from the delay's
                 checkpoint on, every param stay finite, and the resumed
                 step-70 state equal the uninterrupted one bitwise.  Then
-                the step's host wall ms (p50 of 6 steady steps, each
+                the step's host wall ms (p50 of 3 steady steps, each
                 ending in a sync), tokens/s, MFU (6·N·tokens plus causal
                 attention over 989 TFLOP/s), peak memory and a profiler
                 pass over 3 steps; the same step with `ce_chunk=256` and
@@ -243,7 +246,25 @@ each line with its wall seconds since the line before:
                 bf16 serving contract 0.05·scale + 0.05.  The mesh path's
                 and the plain path's train step ms and kernels per step
                 (DTensor's host cost at one rank).  The group is destroyed
-                when the phase ends; the six kernels' counts must read 0.
+                when the phase ends; the six kernels' counts must read 0;
+ 24. dryrun   — the production dry run (slice 13): the per-rank memory
+                estimator (`launch.dryrun.measure`, a dispatch mode over
+                the live local storages) calibrated against the card's
+                allocator — demo-100m's train step at B = 8, S = 1024
+                (QAT, remat "dots") and qwen2-0.5b's 1024-token prefill
+                (float32 params), each once for real (the allocator's peak
+                over the run, from its arguments' creation on) and once
+                under fake tensors with no process group: the estimate
+                within 10 % of the allocator's peak; meanwhile, through the
+                CLI (`python -m repro_torch.launch.dryrun`, one process per
+                cell, both started first: each starts a fake world of its
+                mesh's size), qwen2-0.5b decode_32k on the (16, 16) mesh and
+                qwen2-0.5b train_4k on (2, 16, 16), full configs, fake CUDA
+                tensors: each must end "ok" with ops of DTensor's planner
+                recognised and left out of its peak; per-rank peak GB
+                against the card's 80 GB (`launch.dryrun.HBM_BYTES`),
+                collective bytes by kind, flops.  The six
+                kernels' counts must read 0.
 
 The LM path runs no kernel of the port's own: the reference computes its
 attention, MoE dispatch, recurrences and products in jnp, outside any
@@ -422,7 +443,7 @@ def peaks(name: str) -> tuple[float, float, str]:
     return PEAKS[2][1], PEAKS[2][2], "H100 SXM (assumed: part not recognised)"
 
 
-def device_time_ms(fn, iters: int, reps: int = 5, sleep_cycles: int = 100_000_000) -> float:
+def device_time_ms(fn, iters: int, reps: int = 3, sleep_cycles: int = 100_000_000) -> float:
     """Median over `reps` of the mean device time of `iters` back-to-back
     calls.  A sleep kernel of `sleep_cycles` queued first lets the host
     enqueue every call before the first one runs, so host launch overhead
@@ -2744,7 +2765,7 @@ def _lm_lanes_vs_b1(params, cfg, dev, prompts, max_new, outs, logits) -> dict:
             "requests": len(prompts)}
 
 
-def _lm_decode_ms(params, cfg, dev, lanes: int, steps: int = 10) -> float:
+def _lm_decode_ms(params, cfg, dev, lanes: int, steps: int = 5) -> float:
     from repro_torch.models import transformer as T
 
     cache = T.init_cache(cfg, lanes, LM_MAX_SEQ, device=dev)
@@ -2756,10 +2777,10 @@ def _lm_decode_ms(params, cfg, dev, lanes: int, steps: int = 10) -> float:
             T.decode_step(params, tokens, cache, pos, cfg)
 
     with torch.inference_mode():
-        return _wall_ms(run, dev, reps=5) / steps
+        return _wall_ms(run, dev, reps=2) / steps
 
 
-def _lm_profile(params, cfg, dev, steps: int = 10) -> dict:
+def _lm_profile(params, cfg, dev, steps: int = 5) -> dict:
     """`torch.profiler` over `steps` decode steps at 4 lanes and over three
     1024-token prefills: wall and device-busy ms, the device's idle share,
     kernels per call."""
@@ -2966,7 +2987,7 @@ def phase_lm(gen: torch.Generator, dev, dev_info: dict) -> dict:
 # the lm_train phase: demo-100m at full width and depth through the train CLI
 LM_TRAIN_ARCH = "demo_100m"
 LM_TRAIN_CLI = dict(batch=8, seq=1024, qat_delay=30, steps=70, ckpt_every=30)
-LM_TRAIN_TIMED = 8  # steps timed for the step ms (the first 2 not counted)
+LM_TRAIN_TIMED = 5  # steps timed for the step ms (the first 2 not counted)
 LM_TRAIN_VARIANTS = {"ce_chunk_256": dict(ce_chunk=256), "remat_none": dict(remat="none")}
 LM_TRAIN_PROFILED = 3
 LM_TRAIN_LEARNER_STEPS = 4
@@ -3252,7 +3273,7 @@ def phase_lm_train(gen: torch.Generator, dev, dev_info: dict) -> dict:
 DIST_TRAIN = dict(batch=8, seq=1024, qat_delay=2, steps=3)
 DIST_SERVE = dict(arch="qwen2_0_5b", batch=2, prompt=1024, new=16)
 DIST_MOE = dict(arch="moonshot_v1_16b_a3b", n_layers=2, batch=64, seq=1024)  # 65,536 tokens
-DIST_TIMED = 4  # steps timed per path (the first not counted)
+DIST_TIMED = 2  # steps timed per path (the first not counted)
 
 
 def _dist_group(dev):
@@ -3474,6 +3495,149 @@ def phase_dist(gen: torch.Generator, dev, dev_info: dict) -> dict:
     return report
 
 
+DRYRUN_CALIBRATION = (("demo_100m", "train", 8, 1024), ("qwen2_0_5b", "prefill", 1, 1024))  # (arch, kind, B, S)
+DRYRUN_CELLS = (("qwen2_0_5b", "decode_32k", False), ("qwen2_0_5b", "train_4k", True))  # (arch, shape, multi_pod)
+DRYRUN_TOL = 0.10  # the estimate's relative distance from the allocator's peak
+DRYRUN_TIMEOUT = 300  # seconds for one production cell's CLI run
+
+
+def _dryrun_cell(arch: str, kind: str, batch: int, seq: int, dev):
+    """(step, args) of a calibration cell on `dev`, no mesh: demo-100m's
+    train step as `lm_train` runs it (QAT, remat "dots"), or a prefill of
+    the float32 params (cast per use)."""
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adam, schedule
+    from repro_torch.serve.engine import make_prefill
+    from repro_torch.train.step import init_state, make_train_step
+
+    shape = ShapeConfig("calibration", kind, seq, batch)
+    if kind == "train":
+        cfg = _lm_train_config()
+        opt = adam.AdamConfig(lr=3e-4, grad_clip_norm=1.0, schedule=schedule.warmup_cosine(50, LM_TRAIN_CLI["steps"]))
+        state = init_state(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+        return make_train_step(cfg, opt), (state, make_batch(DataConfig(seed=5), cfg, shape, 0, device=dev))
+    cfg = _lm_config(arch)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(2), cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32).to(dev)
+    return make_prefill(cfg), (params, {"tokens": tokens})
+
+
+def _dryrun_calibrate(arch: str, kind: str, batch: int, seq: int, dev) -> dict:
+    """The cell once for real (the allocator's peak over it, from its
+    arguments' creation on) and once under fake tensors with no group
+    (`launch.dryrun.measure`'s estimate); the estimate within DRYRUN_TOL of
+    the allocator's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun
+
+    grad = torch.enable_grad if kind == "train" else torch.no_grad
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sync(dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fn, args = _dryrun_cell(arch, kind, batch, seq, dev)
+    with grad():
+        out = fn(*args)
+    sync(dev)
+    real_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    del fn, args, out
+    t0 = time.perf_counter()
+    with FakeTensorMode(), grad():
+        est = dryrun.measure(*_dryrun_cell(arch, kind, batch, seq, dev))
+    fake_s = time.perf_counter() - t0
+    row = {"arch": arch, "kind": kind, "batch": batch, "seq": seq, "estimate_bytes": est["memory"]["peak_bytes"],
+           "estimate_argument_bytes": est["memory"]["argument_bytes"], "real_s": real_s, "fake_s": fake_s}
+    if peak is not None:
+        real = peak - base
+        row.update(max_memory_allocated=peak, allocated_before=base, allocator_peak_bytes=real,
+                   rel_err=(row["estimate_bytes"] - real) / real)
+        require(abs(row["rel_err"]) <= DRYRUN_TOL,
+                f"dryrun calibration {arch} {kind}: estimate {row['estimate_bytes']} B against the allocator's "
+                f"{real} B ({row['rel_err']:+.3f}, limit {DRYRUN_TOL})")
+    return row
+
+
+def _dryrun_start(cells, dev, work: pathlib.Path) -> list:
+    """Start `python -m repro_torch.launch.dryrun` for each production
+    cell, each in a process of its own (each starts the fake world of its
+    mesh), all at once."""
+    work.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (str(SRC), os.environ.get("PYTHONPATH")) if p))
+    procs = []
+    for arch, shape, multi_pod in cells:
+        out = work / f"{arch}_{shape}_{'pod2x16x16' if multi_pod else 'pod16x16'}.json"
+        out.unlink(missing_ok=True)
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                "--device", dev.type, "--out", str(out)] + (["--multi-pod"] if multi_pod else [])
+        procs.append((out, subprocess.Popen(argv, cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True), time.perf_counter()))
+    return procs
+
+
+def _dryrun_wait(procs) -> list:
+    """Each started cell's record; every cell must end "ok"."""
+    rows = []
+    for out, proc, t0 in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            require(False, f"dryrun: {out.name} did not finish within {DRYRUN_TIMEOUT} s")
+        require(proc.returncode == 0 and out.is_file(),
+                f"dryrun: {out.name} exited {proc.returncode}: {stdout[-1500:]} {stderr[-1500:]}")
+        rec = json.loads(out.read_text())
+        require(rec["status"] == "ok", f"dryrun: {out.name}: {rec.get('error')}")
+        require(rec["planner_ops"] > 0, f"dryrun: {out.name}: no op of DTensor's sharding planner was recognised "
+                                        "(launch.dryrun._in_sharding_propagation): its peak would count them")
+        rows.append({**{k: rec[k] for k in ("arch", "shape", "mesh", "status", "n_devices", "flops",
+                                            "flops_per_rank", "collective_bytes", "collective_counts", "memory",
+                                            "planner_ops", "build_s", "run_s")},
+                     "process_s": time.perf_counter() - t0})
+    return rows
+
+
+def phase_dryrun(gen: torch.Generator, dev, dev_info: dict) -> dict:
+    """The production dry run (slice 13, module docstring): the production
+    cells through the CLI, in processes of their own, while this one
+    calibrates the estimator against the card's allocator.  The six
+    kernels' counts are set to 0 before and must read 0 after."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    procs = _dryrun_start(DRYRUN_CELLS, dev, REPO / "build" / "dryrun")
+    try:
+        calibration = [_dryrun_calibrate(*c, dev) for c in DRYRUN_CALIBRATION]
+        calibration_s = time.perf_counter() - t0
+        launches = _lm_launches()
+        require(not any(launches.values()), f"dryrun: a ported kernel ran on the calibration cells: {launches}")
+        cells = _dryrun_wait(procs)
+    finally:
+        for _, proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    from repro_torch.launch.dryrun import HBM_BYTES
+
+    for c in cells:  # the threshold of PERF.md's table (tools/dryrun_table.py)
+        c["peak_gb_per_rank"] = c["memory"]["peak_bytes"] / 1e9
+        c["fits_gb"] = HBM_BYTES / 1e9
+        c["fits"] = c["memory"]["peak_bytes"] <= HBM_BYTES
+    report = {"calibration": calibration, "cells": cells, "launches": launches,
+              "seconds": {"calibration": calibration_s, "phase": time.perf_counter() - t0}}
+    emit("dryrun", nvidia_smi=dev_info["nvidia_smi"],
+         tolerance=f"estimate within {DRYRUN_TOL:.0%} of the allocator's peak", **report)
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every random weight and input")
@@ -3518,6 +3682,7 @@ def main(argv=None) -> int:
     lm_launches = phase_lm(gen, dev, dev_info)["launches"]
     lm_train_launches = phase_lm_train(gen, dev, dev_info)["launches"]
     dist_launches = phase_dist(gen, dev, dev_info)["launches"]
+    dryrun_launches = phase_dryrun(gen, dev, dev_info)["launches"]
 
     host, device = fused["train_host"], fused["train_device"]
 
@@ -3540,6 +3705,7 @@ def main(argv=None) -> int:
         paths["lm"] = lm_launches[name]
         paths["lm_train"] = lm_train_launches[name]
         paths["dist"] = dist_launches[name]
+        paths["dryrun"] = dryrun_launches[name]
 
     def wrapper_count(paths: dict) -> int:
         return sum(v["wrapper_calls"] if isinstance(v, dict) else v for v in paths.values())

@@ -8,8 +8,11 @@ the mesh's size.  Without one, a mesh spans real devices when there are
 enough of them and is a layout only (`Mesh.devices is None`) otherwise:
 the rules of `core.parallelism` need only the axis sizes, so a layout is
 enough to ask which tensor dims a production mesh would shard.  The
-production layouts (256 and 512 devices) are always layouts: asked to
-run, they raise.
+production layouts (256 and 512 devices) run only on a fake world
+(`init_fake_world`): a "fake" process group of that many ranks in one
+process, at rank 0, whose collectives move nothing — the counterpart of
+the reference's forced host devices, for `launch.dryrun` under fake
+tensors.  Without one they are layouts, and asked to run, they raise.
 
 One process per rank, as `torch.distributed.run` starts them:
 
@@ -17,7 +20,8 @@ One process per rank, as `torch.distributed.run` starts them:
       -m repro_torch.launch.train --smoke --device cpu --mesh debug
 
 Rank r computes on `cuda:(r % local world)` on the card (backend `nccl`)
-and on the CPU under `device="cpu"` (backend `gloo`).
+and on the CPU under `device="cpu"` (backend `gloo`).  A mesh over the
+group lies on the device the group was started for.
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ import torch.distributed as dist
 
 from repro_torch.core.parallelism import _AMBIENT, Mesh
 from repro_torch.device import DeviceLike, resolve_device
+
+# the device the live process group computes on (`init_distributed`,
+# `init_fake_world`): a mesh over the group lies there
+_GROUP_DEVICE: Optional[torch.device] = None
 
 
 def _cuda_devices(n: int) -> Optional[list[torch.device]]:
@@ -60,9 +68,11 @@ def init_distributed(device: DeviceLike = None, *, store: Any = None, rank: Opti
         dev = torch.device("cuda", r % local)
         torch.cuda.set_device(dev)
     backend = "nccl" if dev.type == "cuda" else "gloo"
+    global _GROUP_DEVICE
     if dist.is_initialized():
         if dist.get_backend() != backend:
             raise RuntimeError(f"a {dist.get_backend()} process group is up; {dev} needs {backend}")
+        _GROUP_DEVICE = dev
         return dev
     if store is not None:
         if rank is None or world_size is None:
@@ -74,12 +84,44 @@ def init_distributed(device: DeviceLike = None, *, store: Any = None, rank: Opti
             raise RuntimeError(f"no process group to join: {', '.join(missing)} unset (start one process per "
                                "rank with python -m torch.distributed.run, or pass store=)")
         dist.init_process_group(backend, init_method="env://")
+    _GROUP_DEVICE = dev
+    return dev
+
+
+def init_fake_world(world_size: int, device: DeviceLike = None) -> torch.device:
+    """Start a "fake" process group of `world_size` ranks in this process,
+    as rank 0, and return the device it computes on (`cuda:0` on the card,
+    the CPU under `device="cpu"`).
+
+    Every collective on it completes at once and moves nothing, so a
+    sharded step runs rank 0's program alone; under fake tensors
+    (`launch.dryrun`) that is the whole of a 256- or 512-rank run's shapes,
+    collectives and memory, without data.  The group comes from
+    `torch.testing._internal.distributed.fake_pg` (a torch-internal
+    module, run on torch 2.11 and 2.13).  A fake group of this size
+    already up is kept; any other group raises."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers the "fake" backend
+
+    global _GROUP_DEVICE
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != world_size:
+            raise RuntimeError(f"a {dist.get_backend()} process group of {dist.get_world_size()} ranks is up; "
+                               f"a fake world of {world_size} needs none")
+    else:
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    _GROUP_DEVICE = dev
     return dev
 
 
 def _device_mesh(shape: tuple, axes: tuple):
     """A `DeviceMesh` of `shape` over the live process group, or None when
-    no group is up; raises when the world's size is not the mesh's."""
+    no group is up; raises when the world's size is not the mesh's, or
+    when the group was not started here (`init_distributed`,
+    `init_fake_world`), which leaves its device unknown."""
     if not (dist.is_available() and dist.is_initialized()):
         return None
     world = dist.get_world_size()
@@ -87,8 +129,10 @@ def _device_mesh(shape: tuple, axes: tuple):
         raise ValueError(f"a mesh of shape {shape} needs a world of {math.prod(shape)} ranks, got {world}")
     from torch.distributed.device_mesh import init_device_mesh
 
-    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+    if _GROUP_DEVICE is None:
+        raise RuntimeError("the process group was not started by launch.mesh (init_distributed or "
+                           "init_fake_world): its device is unknown")
+    return init_device_mesh(_GROUP_DEVICE.type, shape, mesh_dim_names=axes)
 
 
 def make_auto_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
@@ -123,11 +167,14 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The reference's production layout: a single TPU pod slice
     (data=16, model=16) = 256 chips, or two pods (pod=2, data=16,
     model=16) = 512 chips, `pod` composing with `data` for hierarchical
-    data parallelism.  A layout, not hardware the port has: on anything
-    short of that many CUDA devices it carries no devices, and serves to
-    hold the rules' shardings to the reference's."""
+    data parallelism.  Over the process group when one of its size is up
+    (`init_fake_world`: `make_auto_mesh`); otherwise not hardware the port
+    has: on anything short of that many CUDA devices it carries no
+    devices, and serves to hold the rules' shardings to the reference's."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() == math.prod(shape):
+        return make_auto_mesh(shape, axes)
     return Mesh(shape, axes, _cuda_devices(math.prod(shape)))
 
 
@@ -163,4 +210,5 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 4, *, multi_pod: bool = Fals
     return make_auto_mesh(shape, axes)
 
 
-__all__ = ["init_distributed", "make_auto_mesh", "mesh_context", "make_production_mesh", "make_serve_mesh", "make_debug_mesh"]
+__all__ = ["init_distributed", "init_fake_world", "make_auto_mesh", "mesh_context", "make_production_mesh",
+           "make_serve_mesh", "make_debug_mesh"]

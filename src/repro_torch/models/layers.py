@@ -140,7 +140,23 @@ def init_site_ranges(sites: tuple[str, ...], n: int, *, device: torch.device) ->
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
+def _per_device(fn):
+    """`functools.lru_cache(fn)`, bypassed while a fake-tensor mode is
+    active (`launch.dryrun`): a fake constant must not outlive its mode, and
+    a real one cannot enter it."""
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def lookup(*args):
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return fn(*args)
+        return cached(*args)
+
+    lookup.cache_clear = cached.cache_clear
+    return lookup
+
+
+@_per_device
 def _const(value: float, dtype: torch.dtype, device: torch.device) -> Tensor:
     """A 0-d tensor of `value` rounded to `dtype` (made once per device: a
     product or quotient by it is the reference's by a weak-typed constant,
@@ -152,7 +168,7 @@ def _const(value: float, dtype: torch.dtype, device: torch.device) -> Tensor:
         return torch.tensor(value, dtype=dtype).to(device)
 
 
-@functools.lru_cache(maxsize=None)
+@_per_device
 def rope_freqs(half: int, theta: float, device: torch.device) -> Tensor:
     """`theta ** (−arange(half) / half)` in float32, built once on the CPU
     and copied, so every device holds the same table (outside inference
@@ -274,7 +290,42 @@ def attn_specs(cfg: ModelConfig) -> Params:
 def _heads(x: Tensor, w: Tensor, dt: torch.dtype) -> Tensor:
     """einsum("bsd,dhk->bshk", x, w) as one matmul."""
     d, h, k = w.shape
+    if _head_dim_sharded(w, 2):
+        return _heads_by_rank(x, w, dt)
     return (x @ w.to(dt).reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def _head_dim_sharded(w: Tensor, dim: int) -> bool:
+    """Whether a DTensor weight shards its head_dim (`dim`) on some mesh
+    dim: merging (heads, head_dim) into one matmul dim then makes a strided
+    shard, which DTensor's matmul planner takes apart only by reading
+    data (it fails under fake tensors: `launch.dryrun`)."""
+    from torch.distributed.tensor import Shard
+
+    return is_dtensor(w) and any(isinstance(p, Shard) and p.dim == dim for p in w.placements)
+
+
+def _heads_by_rank(x: Tensor, w: Tensor, dt: torch.dtype) -> Tensor:
+    """`_heads` of a weight whose head_dim is sharded (the serve rules'
+    `prefer_head_dim` layout, or heads that do not divide the model axis):
+    an explicit site, each rank multiplying x by its own head_dim slice.
+    x keeps its batch / sequence shards on the other mesh dims and is made
+    whole on the weight's; the output is sharded on head_dim as the weight
+    is.  x's gradient is a partial sum over the ranks of the weight's
+    shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = w.device_mesh
+    x = replicated(x, dm)
+    on_w = [isinstance(p, Shard) and p.dim == 2 for p in w.placements]
+    xp = tuple(px if isinstance(px, Shard) and px.dim < x.ndim - 1 and not ow else Replicate()
+               for px, ow in zip(x.placements, on_w))
+    wl = w.redistribute(dm, tuple(Shard(2) if ow else Replicate() for ow in on_w)).to_local()
+    xl = x.redistribute(dm, xp).to_local(grad_placements=[Partial() if ow else p for p, ow in zip(xp, on_w)])
+    d, h, k = wl.shape
+    out = (xl @ wl.to(dt).reshape(d, h * k)).reshape(*xl.shape[:-1], h, k)
+    return DTensor.from_local(out, dm, tuple(Shard(x.ndim) if ow else p for p, ow in zip(xp, on_w)),
+                              run_check=False)
 
 
 def _qkv(x: Tensor, p: Params, cfg: ModelConfig, qat: LayerQAT):
@@ -291,7 +342,29 @@ def _qkv(x: Tensor, p: Params, cfg: ModelConfig, qat: LayerQAT):
 def _out_proj(out: Tensor, p: Params, cfg: ModelConfig) -> Tensor:
     """einsum("bshk,hkd->bsd", out, wo) as one matmul."""
     h, k, d = p["wo"].shape
+    if _head_dim_sharded(p["wo"], 1):
+        return _out_proj_by_rank(out, p["wo"], cfg.compute_dtype)
     return out.reshape(*out.shape[:2], h * k) @ p["wo"].to(cfg.compute_dtype).reshape(h * k, d)
+
+
+def _out_proj_by_rank(out: Tensor, wo: Tensor, dt: torch.dtype) -> Tensor:
+    """`_out_proj` of a weight whose head_dim is sharded (see
+    `_heads_by_rank`): an explicit site, each rank contracting its own
+    head_dim slice of the attention output; the product is a partial sum
+    over the ranks of the weight's shards (the row-parallel all-reduce
+    follows at the caller's `constrain`)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = wo.device_mesh
+    h, k, d = wo.shape
+    out = replicated(out, dm)
+    on_w = [isinstance(p, Shard) and p.dim == 1 for p in wo.placements]
+    op = tuple(Shard(3) if ow else (po if isinstance(po, Shard) and po.dim < 2 else Replicate())
+               for po, ow in zip(out.placements, on_w))
+    wl = wo.redistribute(dm, tuple(Shard(1) if ow else Replicate() for ow in on_w)).to_local()
+    ol = out.reshape(*out.shape[:2], h, k).redistribute(dm, op).to_local()
+    y = ol.reshape(*ol.shape[:2], -1) @ wl.to(dt).reshape(-1, d)
+    return DTensor.from_local(y, dm, tuple(Partial() if ow else p for p, ow in zip(op, on_w)), run_check=False)
 
 
 def _mask(q_pos: Tensor, k_pos: Tensor, cfg: ModelConfig, local: bool) -> Tensor:
@@ -403,20 +476,28 @@ def attn_forward(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, positio
     k = constrain(k, rules, "batch", "seq", "kv_heads", "head_dim")
 
     if cache is not None and positions.ndim == 1:
+        # a prompt's positions are 0 .. S-1 (`transformer.forward`'s), so its
+        # slots follow from the shapes: the last `keep` positions, at their
+        # own slots, or at p % t in a ring (one wrap at most: keep <= t)
         s_all = x.shape[1]
         t = cache["k"].shape[1]
         keep = min(s_all, t)  # ring keeps only the last window of the prompt
-        slots = positions[-keep:]
+        first = s_all - keep
         if local and t <= cfg.window:
-            slots = torch.remainder(slots, t)
+            runs = [(first % t, first, min(keep, t - first % t))]
+            runs.append((0, first + runs[0][2], keep - runs[0][2]))
         elif s_all > t:
             # absolute-slot cache: positions >= t have no slot, and decode
             # would read zeros
             raise ValueError(
                 f"prompt length {s_all} exceeds the KV cache length {t}; "
                 "init_cache with max_seq >= prompt + max_new")
-        _cache_write(cache["k"], slots, k[:, s_all - keep:])
-        _cache_write(cache["v"], slots, v[:, s_all - keep:])
+        else:
+            runs = [(first, first, keep)]
+        for slot, src, n in runs:
+            if n:
+                _cache_write(cache["k"], slot, k[:, src:src + n])
+                _cache_write(cache["v"], slot, v[:, src:src + n])
 
     b, s = x.shape[0], x.shape[1]
     if local and s >= 2 * cfg.window and s % cfg.window == 0 and positions.ndim == 1:
@@ -439,31 +520,48 @@ def attn_forward(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, positio
     return constrain(y, rules, "batch", "seq", "embed"), cache
 
 
-def _cache_write(cache: Tensor, slots, values: Tensor) -> None:
-    """`cache[:, slots] = values` in place (slots: a slice or an index
-    tensor along the sequence dim).  A DTensor cache is written shard by
+def _cache_write(cache: Tensor, start: int, values: Tensor) -> None:
+    """`cache[:, start:start + n] = values` in place, n = values.shape[1]
+    (slots along the sequence dim).  A DTensor cache is written shard by
     shard — an explicit site: DTensor's rules for `index_put_` and for a
     copy into a view differ between releases — the values laid out as the
     cache with their sequence dim whole, each rank writing the slots that
-    fall in its piece of a sequence-sharded cache."""
+    fall in its piece of a sequence-sharded cache: the range's overlap with
+    the rank's piece, from the shapes and offsets alone (no tensor is read,
+    so fake tensors run it too)."""
+    n = values.shape[1]
     if not is_dtensor(cache):
-        cache[:, slots] = values.to(cache.dtype)
+        cache[:, start:start + n] = values.to(cache.dtype)
         return
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     dm = cache.device_mesh
     values = replicated(values, dm)
     place = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in cache.placements)
     vals = values.to(cache.dtype).redistribute(dm, place).to_local()
-    local = cache.to_local()
-    shape, offset = compute_local_shape_and_global_offset(cache.shape, dm, cache.placements)
-    if shape[1] == cache.shape[1]:  # the sequence dim is whole on this rank
-        local[:, slots] = vals
-        return
-    pos = torch.arange(cache.shape[1], device=local.device)[slots]
-    mine = (pos >= offset[1]) & (pos < offset[1] + shape[1])
-    local[:, pos[mine] - offset[1]] = vals[:, mine]
+    offset, length = _local_span(cache.shape[1], dm, cache.placements, 1)
+    lo, hi = max(start, offset), min(start + n, offset + length)
+    if lo < hi:
+        cache.to_local()[:, lo - offset:hi - offset] = vals[:, lo - start:hi - start]
+
+
+def _local_span(size: int, dm, placements, dim: int) -> tuple[int, int]:
+    """(offset, length) of this rank's piece of a tensor dim of `size`
+    under `placements`: each mesh dim that shards it cuts the piece left by
+    the ones before into `torch.chunk`'s pieces (DTensor's `Shard`), at
+    this rank's mesh coordinate — Python ints only.  (DTensor's own
+    `compute_local_shape_and_global_offset` reads a tensor for the
+    coordinate on some releases, which fake tensors refuse.)"""
+    from torch.distributed.tensor import Shard
+
+    coord = dm.get_coordinate()
+    offset, length = 0, size
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            chunk = -(-length // dm.size(i))
+            lo = min(coord[i] * chunk, length)
+            offset, length = offset + lo, min(chunk, length - lo)
+    return offset, length
 
 
 def attn_decode(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, cache: dict[str, Tensor], pos: Pos,
@@ -506,8 +604,8 @@ def attn_decode(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, cache: d
         slot = pos % t if ring else pos  # Python's % is a floor-mod
         if not 0 <= slot < t:
             raise ValueError(f"decode position {pos} is outside the KV cache of length {t}")
-        _cache_write(k_cache, slice(slot, slot + 1), k_new)
-        _cache_write(v_cache, slice(slot, slot + 1), v_new)
+        _cache_write(k_cache, slot, k_new)
+        _cache_write(v_cache, slot, v_new)
     k_cache = constrain(k_cache, rules, "batch", "kv_seq", "kv_heads", "head_dim")
     v_cache = constrain(v_cache, rules, "batch", "kv_seq", "kv_heads", "head_dim")
 

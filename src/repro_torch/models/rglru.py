@@ -109,11 +109,14 @@ def _softplus(x: Tensor) -> Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _gates(xc: Tensor, p: Params) -> tuple[Tensor, Tensor]:
-    """a (decay) and gated input from the conv output, in float32."""
+def _gates(xc: Tensor, p: Params, rules: Optional[ShardingRules] = None) -> tuple[Tensor, Tensor]:
+    """a (decay) and gated input from the conv output, in float32.  The
+    gate products contract the sharded state dim: each partial sum is laid
+    out on "state" (a reduce-scatter) before its bias, which is sharded
+    there (torch 2.11's DTensor has no Shard → Partial for the bias)."""
     xf = xc.to(torch.float32)
-    rgate = torch.sigmoid(xf @ p["wa"] + p["ba"])
-    igate = torch.sigmoid(xf @ p["wi"] + p["bi"])
+    rgate = torch.sigmoid(constrain(xf @ p["wa"], rules, "batch", "seq", "state") + p["ba"])
+    igate = torch.sigmoid(constrain(xf @ p["wi"], rules, "batch", "seq", "state") + p["bi"])
     log_a = -_C * _softplus(p["lam"]) * rgate  # log a_t ≤ 0
     a = torch.exp(log_a)
     gated_in = sqrt_rn(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (igate * xf)
@@ -144,7 +147,7 @@ def rglru_forward(x: Tensor, p: Params, cfg: ModelConfig, state: Optional[dict[s
     xr = constrain(x @ p["wx"].to(dt), rules, "batch", "seq", "state")
     xc, new_hist = _causal_conv(xr, p, src["conv"])
 
-    a, gin = _gates(xc, p)
+    a, gin = _gates(xc, p, rules)
     # seed the scan with the carried state: h_t = a·h + gin, over S steps
     gin = torch.cat([gin[:, :1] + a[:, :1] * src["h"][:, None], gin[:, 1:]], dim=1)
     h = constrain(linear_scan(a, gin).to(dt), rules, "batch", "seq", "state")
@@ -162,12 +165,12 @@ def decode_step(x: Tensor, p: Params, cfg: ModelConfig, state: dict[str, Tensor]
     gate = _act(x @ p["wg"].to(dt), "gelu")
     xr = x @ p["wx"].to(dt)
     xc, new_hist = _causal_conv(xr, p, state["conv"])
-    a, gin = _gates(xc, p)
+    a, gin = _gates(xc, p, rules)
     h = a[:, 0] * state["h"] + gin[:, 0]
     y = (gate * h[:, None, :].to(dt)) @ p["wo"].to(dt)
     state["h"].copy_(h)
     state["conv"].copy_(new_hist)
-    return y, state
+    return constrain(y, rules, "batch", "seq", "embed"), state  # as `rglru_forward`'s
 
 
 __all__ = ["rglru_init", "rglru_specs", "init_state", "state_specs", "rglru_forward", "decode_step",

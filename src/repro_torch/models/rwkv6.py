@@ -31,12 +31,13 @@ start from zeros and return their new state as a new dict, writing nothing
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.parallelism import Logical, ShardingRules, constrain
+from repro_torch.core.parallelism import Logical, ShardingRules, constrain, is_dtensor, replicated
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import LayerQAT, _uniform, carry_state, group_norm_heads
 
@@ -117,13 +118,40 @@ def state_specs(cfg: ModelConfig) -> dict[str, Logical]:
 
 
 def _ddlerp(x: Tensor, x_prev: Tensor, p: Params, dt: torch.dtype) -> Tensor:
-    """Data-dependent lerp producing the 5 mixed inputs (r,k,v,w,g)."""
+    """Data-dependent lerp producing the 5 mixed inputs (r,k,v,w,g).
+
+    For DTensor operands an explicit site: each rank mixes its own rows
+    (the batch and sequence shards of x; every other placement made
+    `Replicate()`) with the lerp's weights whole, so no collective runs;
+    the weights' gradients are partial sums over the row shards.  (On the
+    (pod, data, model) mesh DTensor's planner lays the lora's gradient out
+    as a strided shard of the merged rows, whose product it takes apart
+    only by reading data.)"""
+    if is_dtensor(x):
+        return _rows_by_rank(lambda xl, pl, wl: _ddlerp(xl, pl, wl, dt), x, x_prev,
+                             {k: p[k] for k in ("tm_A", "tm_B", "tm_base")})
     delta = (x_prev - x).to(dt)
     lora = torch.tanh(x @ p["tm_A"].to(dt))
     lora = lora.reshape(*x.shape[:-1], 5, LORA_R)
     mix = p["tm_base"].to(dt) + torch.einsum("...fr,frd->...fd", lora, p["tm_B"].to(dt))
     # x_f = x + delta * mix_f  for f in (r,k,v,w,g)
     return x[..., None, :] + delta[..., None, :] * mix  # (..., 5, d)
+
+
+def _rows_by_rank(fn, x: Tensor, x_prev: Tensor, weights: Params) -> Tensor:
+    """`fn(x, x_prev, weights)` on each rank's rows of x and x_prev (their
+    shards of every dim but the last), the weights whole; the output laid
+    out as those rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = x.device_mesh
+    rows = tuple(pl if isinstance(pl, Shard) and pl.dim < x.ndim - 1 else Replicate() for pl in x.placements)
+    grad = [Partial() if isinstance(pl, Shard) else Replicate() for pl in rows]
+    xl, pl = (replicated(t, dm).redistribute(dm, rows).to_local() for t in (x, x_prev))
+    wl = {k: replicated(w, dm).redistribute(dm, [Replicate()] * dm.ndim).to_local(grad_placements=grad)
+          for k, w in weights.items()}
+    out = fn(xl, pl, wl)
+    return DTensor.from_local(out, dm, rows, run_check=False)
 
 
 def _shift(x: Tensor, x_last: Tensor) -> Tensor:
@@ -165,6 +193,54 @@ def _wkv_chunk(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, s0: Ten
     return o, s_next
 
 
+def _wkv_scan(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, s0: Tensor, *,
+              chunk: int) -> tuple[Tensor, Tensor]:
+    """The WKV recurrence over the whole sequence, chunk by chunk
+    (`_wkv_chunk`'s shapes, S a multiple of `chunk`): (o, the last state)."""
+    s_cur, outs = s0, []
+    for i in range(r.shape[1] // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        oc, s_cur = _wkv_chunk(r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u, s_cur)
+        outs.append(oc)
+    return torch.cat(outs, 1), s_cur
+
+
+def _wkv_step(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor, s0: Tensor) -> tuple[Tensor, Tensor]:
+    """One decode step of the recurrence: r,k,v,w: (B,H,n) float32, u:
+    (H,n), s0: (B,H,n,n) -> (o: (B,H,n), s1)."""
+    wkv = s0 + (u[None] * k)[..., None] * v[..., None, :]
+    o = torch.einsum("bhn,bhnm->bhm", r, wkv)
+    return o, w[..., None] * s0 + k[..., None] * v[..., None, :]
+
+
+def _by_rank(fn, r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor, s0: Tensor, *, heads: int):
+    """`fn(r, k, v, w, u, s0) -> (o, s1)` (the WKV recurrence: batch on dim
+    0 and heads on dim `heads` of r, k, v, w and o; u (H, n); the state
+    (B, H, n, n)).  For DTensor operands an explicit site: each rank runs
+    it on its own (batch, head) shards — the recurrence is independent per
+    (batch, head) — so no collective is issued.  Mesh dims that shard the
+    batch or the heads of r keep that sharding, every other placement is
+    made `Replicate()`.  (DTensor's einsum rules would merge the two
+    sharded dims into one strided shard, whose batched product the
+    planner takes apart only by reading data: fake tensors refuse it.)
+    u's gradient is a partial sum over the batch shards."""
+    if not is_dtensor(r):
+        return fn(r, k, v, w, u, s0)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = r.device_mesh
+    place = tuple(p if isinstance(p, Shard) and p.dim in (0, heads) else Replicate() for p in r.placements)
+    on_heads = [p == Shard(heads) for p in place]
+    u_place = tuple(Shard(0) if oh else Replicate() for oh in on_heads)
+    u_grad = [Shard(0) if oh else Partial() if p == Shard(0) else Replicate() for p, oh in zip(place, on_heads)]
+    s_place = tuple(Shard(1) if oh else p for p, oh in zip(place, on_heads))
+    loc = [replicated(t, dm).redistribute(dm, place).to_local() for t in (r, k, v, w)]
+    u = replicated(u, dm).redistribute(dm, u_place).to_local(grad_placements=u_grad)
+    s0 = replicated(s0, dm).redistribute(dm, s_place).to_local()
+    o, s1 = fn(*loc, u, s0)
+    return DTensor.from_local(o, dm, place, run_check=False), DTensor.from_local(s1, dm, s_place, run_check=False)
+
+
 def _decay_log(xw: Tensor, p: Params) -> Tensor:
     """log w = −exp(w0 + lora_w(x)), in float32."""
     return -torch.exp(p["w0"].to(torch.float32) + (xw.to(torch.float32) @ p["wA"]) @ p["wB"])
@@ -198,13 +274,9 @@ def time_mix(x: Tensor, p: Params, cfg: ModelConfig, state: Optional[dict[str, T
     g = F.silu(xg @ p["wg"].to(dt))
     logw = _decay_log(xw, p).reshape(b, s, h, n)
 
-    u = p["u"].to(torch.float32)
-    s_cur, outs = state["wkv"] if state is not None else _zeros(b, h, n, n, like=x), []
-    for i in range(s // c):
-        sl = slice(i * c, (i + 1) * c)
-        oc, s_cur = _wkv_chunk(r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u, s_cur)
-        outs.append(oc)
-    o = torch.cat(outs, 1).reshape(b, s, d)
+    s0 = state["wkv"] if state is not None else _zeros(b, h, n, n, like=x)
+    o, s_cur = _by_rank(functools.partial(_wkv_scan, chunk=c), r, k, v, logw, p["u"].to(torch.float32), s0, heads=2)
+    o = o.reshape(b, s, d)
 
     o = group_norm_heads(o.to(dt), p["gn_scale"], p["gn_bias"], h)
     y = (o * g) @ p["wo"].to(dt)
@@ -248,15 +320,16 @@ def decode_step(x: Tensor, p: Params, cfg: ModelConfig, state: dict[str, Tensor]
     g = F.silu(xg @ p["wg"].to(dt))[:, 0]
     w = torch.exp(_decay_log(xw[:, 0], p)).reshape(b, h, n)
     rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
-    s0 = state["wkv"]
-    wkv = s0 + (p["u"].to(torch.float32)[None] * kf)[..., None] * vf[..., None, :]
-    o = torch.einsum("bhn,bhnm->bhm", rf, wkv).reshape(b, d)
-    s1 = w[..., None] * s0 + kf[..., None] * vf[..., None, :]
+    o, s1 = _by_rank(_wkv_step, rf, kf, vf, w, p["u"].to(torch.float32), state["wkv"], heads=1)
+    o = o.reshape(b, d)
     o = group_norm_heads(o.to(dt), p["gn_scale"], p["gn_bias"], h)
     y = ((o * g) @ p["wo"].to(dt))[:, None, :]
     state["wkv"].copy_(s1)
     state["x_tm"].copy_(x[:, 0, :])
-    return y, state
+    # as `time_mix`: the product over the sharded state dim is a partial
+    # sum, reduced here, not left in the residual stream for the next
+    # layer's lora to be reduce-scattered onto its (5, 32) split
+    return constrain(y, rules, "batch", "seq", "embed"), state
 
 
 __all__ = ["rwkv_init", "rwkv_specs", "init_state", "state_specs", "time_mix", "channel_mix", "decode_step",

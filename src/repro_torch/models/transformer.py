@@ -43,8 +43,8 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import tree
-from repro_torch.core.parallelism import (Logical, ShardingRules, constrain, is_dtensor, map_logical, replicated,
-                                          sharded_scope)
+from repro_torch.core.parallelism import (_AMBIENT, Logical, ShardingRules, ambient_mesh, constrain, is_dtensor,
+                                          map_logical, replicated, sharded_scope)
 from repro_torch.core.ranges import RangeStat
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import frontend as fe
@@ -325,7 +325,28 @@ def _remat_wrap(fn, cfg: ModelConfig, enable: bool):
     kw = {"use_reentrant": False, "preserve_rng_state": False}
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_matmuls)
+    fn = _in_this_mesh(fn)
     return lambda *args: checkpoint(fn, *args, **kw)
+
+
+def _in_this_mesh(fn):
+    """`fn` run under the mesh in scope now (`ambient_mesh`) and its
+    `sharded_scope`, wherever it is called from: a checkpoint's backward
+    recomputes it on the autograd engine's thread (on the card, a device
+    thread of its own), where the forward's mesh — a context variable — is
+    not set, so its `constrain`s and the MoE's path choice would silently
+    differ from the forward's."""
+    mesh = ambient_mesh()
+
+    def run(*args):
+        token = _AMBIENT.set(mesh)
+        try:
+            with sharded_scope():
+                return fn(*args)
+        finally:
+            _AMBIENT.reset(token)
+
+    return run
 
 
 def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
@@ -433,17 +454,41 @@ def _nll_sums(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
 
 
 def _sharded_nll_sums(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
-    """`_nll_sums` of DTensor logits, an explicit site: the vocab made whole
-    (the label gather has no DTensor rule on a vocab-sharded dim), each rank
-    sums its own (batch, seq) shard, and the two sums come back as partial
-    sums over the ranks that hold different rows."""
+    """`_nll_sums` of DTensor logits, an explicit site (the label gather has
+    no DTensor rule on a vocab-sharded dim), vocab-parallel: each rank
+    keeps its (batch, seq) shard and its vocab slice, in float32; the
+    log-sum-exp combines the slices' own (an all-reduce of their max, no
+    gradient: any shift gives the same value, then of their shifted
+    exponentials), the target logit comes from the slice that holds the
+    label (an all-reduce), and the two sums come back as partial sums over
+    the ranks that hold different rows.  So no rank holds the vocab whole:
+    at the production layouts a (rows, vocab) float32 copy on every rank
+    was the train step's largest tensor.  With the vocab on one slice the
+    combination adds 0 and scales the gradient by 1, exactly: bitwise
+    `_nll_sums`."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     dm = logits.device_mesh
-    place = tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate() for p in logits.placements)
-    lf = logits.redistribute(dm, place)
-    sums = _nll_sums(lf.to_local(), replicated(labels, dm).redistribute(dm, place).to_local())
-    partial = [Partial() if isinstance(p, Shard) else Replicate() for p in place]
+    rows = tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate() for p in logits.placements)
+    on_vocab = [isinstance(p, Shard) and p.dim == 2 for p in logits.placements]
+    place = tuple(Shard(2) if v else r for r, v in zip(rows, on_vocab))
+    lf = logits.redistribute(dm, place).to_local().to(torch.float32)
+    lab = replicated(labels, dm).redistribute(dm, rows).to_local().long()
+    offset, n = L._local_span(logits.shape[2], dm, place, 2)
+
+    def over_vocab(t: Tensor, op: str = "sum") -> Tensor:  # the local (rows) values reduced over the vocab slices
+        pl = tuple(Partial(op) if v else r for r, v in zip(rows, on_vocab))
+        return DTensor.from_local(t, dm, pl, run_check=False).redistribute(dm, rows).to_local()
+
+    lse_slice = torch.logsumexp(lf, dim=-1)
+    m = over_vocab(lse_slice.detach(), "max")
+    lse = m + torch.log(over_vocab(torch.exp(lse_slice - m)))
+    mine = (lab >= offset) & (lab < offset + n)
+    picked = torch.gather(lf, -1, (lab - offset).clamp(0, n - 1)[..., None])[..., 0]
+    target = over_vocab(torch.where(mine, picked, torch.zeros((), dtype=lf.dtype, device=lf.device)))
+    valid = (lab >= 0).to(torch.float32)
+    sums = torch.sum((lse - target) * valid), torch.sum(valid)
+    partial = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
     return tuple(DTensor.from_local(t, dm, partial, run_check=False) for t in sums)
 
 
@@ -480,7 +525,7 @@ def _loss(params, batch, cfg, rules, ranges, quant_phase, remat, attn_chunk, aux
         nll_sum = v_sum = torch.zeros((), dtype=torch.float32, device=labels.device)
         for c in range(s // ce_chunk):
             sl = slice(c * ce_chunk, (c + 1) * ce_chunk)
-            nll, v = checkpoint(_chunk_nll, hidden[:, sl], w, labels[:, sl], rules, use_reentrant=False,
+            nll, v = checkpoint(_in_this_mesh(_chunk_nll), hidden[:, sl], w, labels[:, sl], rules, use_reentrant=False,
                                 preserve_rng_state=False)
             nll_sum, v_sum = nll_sum + nll, v_sum + v
         loss = nll_sum / torch.maximum(v_sum, one)

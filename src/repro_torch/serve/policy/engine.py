@@ -26,12 +26,14 @@ Trace span names (`serve.dispatch`, `serve.launch`,
 
 Differences from the reference: `device=` picks the card (default) or the
 CPU; `jax.block_until_ready` becomes a stream synchronize.  `mesh=` (a
-`core.parallelism.Mesh` over a `data` axis, `launch.mesh.make_serve_mesh`)
+`core.parallelism.Mesh` with a `data` axis, `launch.mesh.make_serve_mesh`)
 splits a padded bucket whose rows divide by the mesh's size into one chunk
-per device, runs each chunk on its device against a replica of the actor,
-and concatenates the results in order — the reference's batch sharding
-with replicated weights, spelled out.  On one card the split is one chunk:
-the same code, a no-op.
+per slice of the data axis, runs each chunk against a replica of the actor
+on the slice's first device, and concatenates the results in order — the
+reference's batch sharding over "data" with the weights and every other
+axis replicated, spelled out (a replica axis's other devices would compute
+the same rows, so they are not asked to).  On one card the split is one
+chunk: the same code, a no-op.
 """
 
 from __future__ import annotations
@@ -89,16 +91,15 @@ class PolicyEngine(StreamEngine):
         if mesh is not None:
             if mesh.devices is None:
                 raise ValueError(f"{mesh!r} is a layout only: serving needs a mesh of devices")
-            if any(n > 1 for name, n in mesh.shape.items() if name != "data"):
-                raise NotImplementedError(
-                    f"{mesh!r}: replicating across a non-data mesh axis is not ported (ROADMAP queue 1)")
             if "data" not in mesh.shape:
                 raise ValueError(f"{mesh!r} has no 'data' axis to split the batch over")
-            # one actor replica per mesh device (the engine's own on its device)
+            # one actor replica per slice of the data axis (the engine's own
+            # on its device), on the slice's first device: every other axis
+            # replicates, and its devices would compute the same rows
             self._replicas = [
                 (dev, self.actor, self.frozen) if _same_device(dev, self.device)
                 else (dev, _actor_on(self.actor, dev), self.frozen.to(dev) if self.frozen is not None else None)
-                for dev in mesh.devices
+                for dev in _data_slice_devices(mesh)
             ]
         self.batcher_config = batcher
         n = len(ddpg.ACTOR_ACTS)
@@ -146,8 +147,9 @@ class PolicyEngine(StreamEngine):
     def _call(self, x_padded: np.ndarray, mode: str) -> torch.Tensor:
         if mode not in self.modes:
             raise ValueError(f"mode {mode!r} not in enabled modes {self.modes}")
-        if self._replicas is not None and x_padded.shape[0] % len(self._replicas) == 0:
-            # batch split along the mesh's data axis, weights replicated
+        if self._replicas is not None and x_padded.shape[0] % self.mesh.size == 0:
+            # batch split along the mesh's data axis, weights replicated (the
+            # reference's condition: the rows divide by the mesh's size)
             chunks = np.split(x_padded, len(self._replicas))
             ys = [ddpg.act_batch(actor, torch.from_numpy(c).to(dev), frozen, mode=mode)
                   for (dev, actor, frozen), c in zip(self._replicas, chunks)]
@@ -250,6 +252,14 @@ class PolicyEngine(StreamEngine):
 def _actor_on(actor: Params, dev: torch.device) -> Params:
     return {name: {k: v.to(dev, torch.float32).contiguous() for k, v in layer.items()}
             for name, layer in actor.items()}
+
+
+def _data_slice_devices(mesh) -> list:
+    """The first device of each slice of `mesh`'s data axis, in order (the
+    mesh's devices are row-major over its axes)."""
+    grid = np.arange(mesh.size).reshape(mesh.axis_sizes)
+    at = lambda i: tuple(i if name == "data" else 0 for name in mesh.axis_names)  # noqa: E731
+    return [mesh.devices[int(grid[at(i)])] for i in range(mesh.shape["data"])]
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:

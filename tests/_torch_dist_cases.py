@@ -147,10 +147,12 @@ def train_cell(rank, world, arch, multi_pod=False, seq=256, batch=8, steps=2, qa
     return out
 
 
-def prefill_cell(rank, world, arch="gemma3_1b", seq=512, batch=4):
+def prefill_cell(rank, world, arch="gemma3_1b", seq=512, batch=4, n_model=None):
+    """A prefill, sharded (the serve rules on the debug mesh, or on a
+    (world / n_model, n_model) mesh) against unsharded."""
     cfg = _f32(arch)
     shape = ShapeConfig("p", "prefill", seq, batch)
-    mesh = _mesh()
+    mesh = _mesh() if n_model is None else M.make_debug_mesh(world // n_model, n_model)
     rules = par.serve_rules(mesh)
     p_sh, b_sh, _ = S.serve_shardings(cfg, shape, mesh, rules)
     params = T.init_params(0, cfg, device="cpu")
@@ -160,17 +162,19 @@ def prefill_cell(rank, world, arch="gemma3_1b", seq=512, batch=4):
     with M.mesh_context(mesh):
         got = T.prefill(par.distribute_tree(params, p_sh), par.distribute_tree({"tokens": tokens}, b_sh), cfg,
                         rules=rules)
-    return {"logits": (want, _np(got)), "placements": str(got.placements)}
+    return {"logits": (want, _np(got)), "placements": str(got.placements),
+            "wq_placements": str(p_sh["scan"][0]["attn"]["wq"].placements())}
 
 
-def decode_cell(rank, world, arch="rwkv6_1_6b", cache_len=512, batch=8, prompt=16, steps=2, shard_kv_seq=False):
+def decode_cell(rank, world, arch="rwkv6_1_6b", cache_len=512, batch=8, prompt=16, steps=2, shard_kv_seq=False,
+                n_model=None):
     """A prompt prefilled into a `cache_len` cache, then `steps` greedy
     decode steps, sharded (the decode rules with the reference's layout
-    hints, and its sequence-parallel cache when `shard_kv_seq`) against
-    unsharded."""
+    hints, and its sequence-parallel cache when `shard_kv_seq`; on the
+    debug mesh or a (world / n_model, n_model) one) against unsharded."""
     cfg = _f32(arch)
     shape = ShapeConfig("d", "decode", cache_len, batch)
-    mesh = _mesh()
+    mesh = _mesh() if n_model is None else M.make_debug_mesh(world // n_model, n_model)
     rules = par.serve_rules(mesh, shard_kv_seq=shard_kv_seq, **dryrun._serve_layout_hints(cfg, mesh))
     p_sh, b_sh, c_sh = S.serve_shardings(cfg, shape, mesh, rules)
     params = T.init_params(0, cfg, device="cpu")
@@ -204,10 +208,16 @@ def decode_cell(rank, world, arch="rwkv6_1_6b", cache_len=512, batch=8, prompt=1
 # ---------------------------------------------------------------------------
 
 
-def dryrun_cell(rank, world, arch, kind, seq, batch):
-    rec = dryrun.run_cell(arch, ShapeConfig(kind[0], kind, seq, batch), multi_pod=False, qat=True, debug_mesh=True,
-                          smoke=True)
-    return {k: rec[k] for k in ("status", "n_devices", "flops", "collective_bytes", "collective_counts", "memory")}
+def dryrun_cell(rank, world, arch, kind, seq, batch, repeat=1):
+    """The cell as the CLI runs it on the debug mesh (real tensors); run
+    `repeat` times, the last reported (after the first, the per-device
+    constants the layers cache exist before the step, as under fake
+    tensors, which never cache them, they are made and freed within it)."""
+    for _ in range(repeat):
+        rec = dryrun.run_cell(arch, ShapeConfig(kind[0], kind, seq, batch), multi_pod=False, qat=True,
+                              debug_mesh=True, smoke=True)
+    return {k: rec[k] for k in ("status", "n_devices", "flops", "flops_per_rank", "collective_bytes",
+                                "collective_counts", "memory", "planner_ops")}
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,14 @@ reads its case.  The cells are the reference's, at its smoke configs and
 shapes, in float32: qwen2 train and dbrx train at S = 256, B = 8 on the
 debug mesh (data 2, model 4), rwkv6 decode against a 512-token cache at
 B = 8, gemma3 prefill at S = 512, B = 4, and qwen2 train on the multi-pod
-layout pod 2 × data 2 × model 2 (one step); and a qwen2 decode at B = 1 under the
+layout pod 2 × data 2 × model 2 (one step); a qwen2 decode at B = 1 under the
 long-context rules (`shard_kv_seq`: the KV cache sharded along its
-sequence).  Each is held against the port's unsharded run on the same
+sequence); gemma3's prefill on a (1, 8) mesh (its attention weights
+sharded on head_dim: heads that do not divide the model axis); an
+rwkv6 train step (the WKV recurrence per rank on its (batch, head)
+shards); and recurrentgemma's train step and decode (the RG-LRU gate
+products laid out on "state" before their biases, `rglru._gates`, and its
+decode output laid out as its prompt path's).  Each is held against the port's unsharded run on the same
 arrays (itself held to the reference by the parity tests), to the
 existing contracts:
 
@@ -42,8 +47,15 @@ Then the dry-run cells as the CLI runs them (`launch.dryrun.run_cell` on
 the debug mesh, the smoke configs, QAT on): status ok, and the dbrx
 prefill at 65,536 tokens runs the expert-parallel MoE path, whose
 collectives are an all-gather of the expert weights and an all-reduce of
-the combine.
+the combine.  The production dry run's measurement (`launch.dryrun.
+measure`, fake tensors over a fake world) is held to these real runs: a
+subprocess starts a fake world of 8 ranks (`launch.mesh.init_fake_world`)
+and measures the same cells on the same (2, 4) mesh under
+`FakeTensorMode` (`_FAKE_WORLD`); rank 0's flops, collective bytes and
+argument, output and peak bytes must be the real run's.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -62,17 +74,23 @@ CASES = [
                                                               "steps": 1}),
     ("qwen2_decode_kv_seq", "_torch_dist_cases:decode_cell", {"arch": "qwen2_0_5b", "batch": 1, "prompt": 254,
                                                               "steps": 3, "shard_kv_seq": True}),
+    ("gemma3_prefill_model8", "_torch_dist_cases:prefill_cell", {"n_model": 8}),
+    ("rwkv6_train", "_torch_dist_cases:train_cell", {"arch": "rwkv6_1_6b", "steps": 1}),
+    ("recurrentgemma_train", "_torch_dist_cases:train_cell", {"arch": "recurrentgemma_2b", "steps": 1}),
+    ("recurrentgemma_decode", "_torch_dist_cases:decode_cell", {"arch": "recurrentgemma_2b"}),
     ("dry_qwen2_train", "_torch_dist_cases:dryrun_cell", {"arch": "qwen2_0_5b", "kind": "train", "seq": 256,
-                                                          "batch": 8}),
+                                                          "batch": 8, "repeat": 2}),
     ("dry_dbrx_train", "_torch_dist_cases:dryrun_cell", {"arch": "dbrx_132b", "kind": "train", "seq": 256,
                                                         "batch": 8}),
     ("dry_rwkv6_decode", "_torch_dist_cases:dryrun_cell", {"arch": "rwkv6_1_6b", "kind": "decode", "seq": 512,
-                                                          "batch": 8}),
+                                                          "batch": 8, "repeat": 2}),
     ("dry_gemma3_prefill", "_torch_dist_cases:dryrun_cell", {"arch": "gemma3_1b", "kind": "prefill", "seq": 512,
                                                             "batch": 4}),
     ("dry_dbrx_expert_parallel", "_torch_dist_cases:dryrun_cell", {"arch": "dbrx_132b", "kind": "prefill",
                                                                   "seq": 128, "batch": 512}),
 ]
+# the dry-run cells measured again under fake tensors on a fake world of 8
+FAKE_CELLS = {"dry_qwen2_train": ("qwen2_0_5b", "train", 256, 8), "dry_rwkv6_decode": ("rwkv6_1_6b", "decode", 512, 8)}
 QUANTUM = 2.0 ** -16
 LR, B1, B2 = 1e-4, 0.9, 0.999  # the cells' Adam config (the dry run's: lr 1e-4, the default betas)
 GRAD_REL = (1e-4, 1e-3)  # the gradient contract's relative term: monitor phase, quant phase
@@ -121,6 +139,27 @@ np.savez(sys.argv[2], **out)
 """
 
 
+# The dry-run cells of FAKE_CELLS as the production dry run measures a
+# cell (`measure_cell`: fake tensors), on the debug mesh over a fake world
+# of 8 ranks in one process.
+_FAKE_WORLD = r"""
+import json
+from repro_torch.configs import registry
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import init_fake_world, make_debug_mesh
+from repro_torch.models.config import ShapeConfig
+
+init_fake_world(8, "cpu")
+mesh = make_debug_mesh()
+out = {}
+for name, (arch, kind, seq, batch) in json.loads(sys.argv[2]).items():
+    rec = dryrun.measure_cell(registry.get_smoke(arch), ShapeConfig(kind[0], kind, seq, batch), mesh, qat=True)
+    out[name] = {k: rec[k] for k in ("flops_per_rank", "collective_bytes", "memory", "planner_ops")}
+with open(sys.argv[1], "w") as f:
+    json.dump(out, f)
+"""
+
+
 def _dbrx_inputs(path):
     """The dbrx train cell's arrays (`_torch_dist_cases.train_cell`'s), for
     the reference: the initial params and ranges, the first batch."""
@@ -142,15 +181,27 @@ def _dbrx_inputs(path):
 
 
 @pytest.fixture(scope="module")
-def results(tmp_path_factory):
+def runs(tmp_path_factory):
     work = tmp_path_factory.mktemp("dist_cells")
     _dbrx_inputs(work / "dbrx_in.npz")
     ref = D.start_reference(_REF_DBRX, work / "dbrx_in.npz", work / "dbrx_ref.npz")
+    fake = D.start_reference(_FAKE_WORLD, work / "fake_world.json", json.dumps(FAKE_CELLS))
     try:
         port = D.run_ranks(8, work / "ranks", CASES)
     finally:
         D.wait_reference(ref)
-    return port, dict(np.load(work / "dbrx_ref.npz"))
+        D.wait_reference(fake)
+    return port, dict(np.load(work / "dbrx_ref.npz")), json.loads((work / "fake_world.json").read_text())
+
+
+@pytest.fixture(scope="module")
+def results(runs):
+    return runs[:2]
+
+
+@pytest.fixture(scope="module")
+def fake_world(runs):
+    return runs[2]
 
 
 def _within(got, want, rel, abs_=None):
@@ -239,7 +290,8 @@ def _check_optimizer(steps, what):
         prev = cur
 
 
-@pytest.mark.parametrize("cell", ["qwen2_train", "dbrx_train", "qwen2_train_multipod"])
+@pytest.mark.parametrize("cell", ["qwen2_train", "dbrx_train", "qwen2_train_multipod", "rwkv6_train",
+                                  "recurrentgemma_train"])
 def test_train_cell_matches_unsharded(results, cell):
     r = D.result(results[0], cell)
     _check_train(r, cell)
@@ -266,6 +318,22 @@ def test_gemma3_prefill_matches_unsharded(results):
     assert ok, flips
 
 
+def test_head_dim_sharded_prefill_matches_unsharded(results):
+    """gemma3's smoke config on a (1, 8) mesh: its 4 query heads and 1 kv
+    head do not divide 8, its head_dim 16 does, so the serve rules shard
+    the attention weights on head_dim, as the full config's (4 heads, 256)
+    on the production mesh's model axis of 16 — the layout whose merged
+    (heads, head_dim) matmul the attention projections compute per rank
+    (`layers._heads_by_rank`, `_out_proj_by_rank`)."""
+    r = D.result(results[0], "gemma3_prefill_model8")
+    assert "Shard(dim=3)" in r["wq_placements"], r["wq_placements"]
+    want, got = r["logits"]
+    assert got.shape == want.shape == (4, 512)
+    assert _within(got, want, 2e-5)
+    ok, flips = _greedy_agrees(want, got, 2e-5 * np.max(np.abs(want)) + 2e-5)
+    assert ok, flips
+
+
 def _check_decode(r, n_logits):
     assert len(r["logits"]) == n_logits
     for want, got in r["logits"]:
@@ -281,6 +349,17 @@ def test_rwkv6_decode_matches_unsharded(results):
     r = D.result(results[0], "rwkv6_decode")
     _check_decode(r, 3)
     # the recurrent states stay sharded (batch over data, state over model)
+    assert any("Shard" in p for p in r["state_placements"]), r["state_placements"]
+
+
+def test_recurrentgemma_decode_matches_unsharded(results):
+    """recurrentgemma's smoke config (RG-LRU, RG-LRU, local attention): a
+    16-token prefill and two decodes on the debug mesh.  The RG-LRU gate
+    products contract the sharded state dim, so each partial sum is laid
+    out on "state" before its sharded bias (`rglru._gates`), and the decode
+    step lays its output out as the prompt path does."""
+    r = D.result(results[0], "recurrentgemma_decode")
+    _check_decode(r, 3)
     assert any("Shard" in p for p in r["state_placements"]), r["state_placements"]
 
 
@@ -334,3 +413,23 @@ def test_dryrun_expert_parallel_collectives(results):
     r = D.result(results[0], "dry_dbrx_expert_parallel")
     assert r["status"] == "ok"
     assert {"all_gather", "all_reduce"} <= set(r["collective_bytes"]), r["collective_bytes"]
+
+
+@pytest.mark.parametrize("cell", sorted(FAKE_CELLS))
+def test_dryrun_measure_on_a_fake_world_matches_real_ranks(results, fake_world, cell):
+    """The production dry run's measurement on a fake world of 8 under fake
+    tensors against the same cell on the 8 real ranks (their second run:
+    the per-device constants the layers cache exist by then; a fake run,
+    which never caches them, makes and frees them within the step, so its
+    peak may exceed the real one by their bytes, at most 64).  DTensor's
+    sharding planner must be seen (`planner_ops`): its ops run at global
+    shapes and are left out of the peak, and a planner no longer
+    recognised would let them in."""
+    real, fake = D.result(results[0], cell), fake_world[cell]
+    assert fake["planner_ops"] > 0
+    assert real["flops_per_rank"] == fake["flops_per_rank"] > 0
+    assert real["collective_bytes"] == fake["collective_bytes"]
+    for key in ("argument_bytes", "output_bytes"):
+        assert real["memory"][key] == fake["memory"][key] > 0, key
+    assert 0 <= fake["memory"]["peak_bytes"] - real["memory"]["peak_bytes"] <= 64
+    assert real["memory"]["peak_bytes"] > real["memory"]["argument_bytes"]

@@ -300,5 +300,39 @@ def test_mesh_engine_refuses_a_layout_without_devices():
     _, _, actor, frozen = _regime("off")
     with pytest.raises(ValueError, match="layout only"):
         PolicyEngine(actor, frozen, device="cpu", mesh=Mesh((2,), ("data",)))
-    with pytest.raises(NotImplementedError, match="non-data mesh axis"):
-        PolicyEngine(actor, frozen, device="cpu", mesh=Mesh((1, 2), ("data", "model"), ["cpu", "cpu"]))
+    with pytest.raises(ValueError, match="no 'data' axis"):
+        PolicyEngine(actor, frozen, device="cpu", mesh=Mesh((2,), ("model",), ["cpu", "cpu"]))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_mesh_engine_over_data_and_model_matches_act_batch(mode):
+    """A (data 2, model 2) mesh of CPU placements: the batch splits over
+    "data" (two chunks, on the first device of each data slice) and the
+    "model" axis replicates, split when the rows divide by the mesh's size
+    (4), as the reference's `x.shape[0] % mesh.size == 0`; the actions are
+    bitwise the unsharded `act_batch` on the same rows (the plain versions
+    compute every row alone), bucket 1 running unsplit."""
+    from repro_torch.core.parallelism import Mesh
+
+    _, _, actor, frozen = _regime("frozen")
+    mesh = Mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    eng = PolicyEngine(actor, frozen, device="cpu", force_mode=mode, batcher=BatcherConfig(buckets=(1, 8, 32)),
+                       mesh=mesh)
+    assert len(eng._replicas) == 2
+    calls = []
+    real = pddpg.act_batch
+
+    def spy(a, x, f, mode):
+        calls.append(x.shape[0])
+        return real(a, x, f, mode=mode)
+
+    pddpg.act_batch = spy
+    try:
+        for rows in (1, 5, 8, 27):
+            obs = _obs(rows, seed=11)
+            got = eng.run_batch(obs)
+            np.testing.assert_array_equal(got, real(actor, torch.from_numpy(obs), frozen, mode=mode).numpy(),
+                                          err_msg=f"{mode}/{rows}")
+    finally:
+        pddpg.act_batch = real
+    assert calls == [1, 4, 4, 4, 4, 16, 16], calls
