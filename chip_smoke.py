@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--out FILE]   (FILE: every phase's result as JSON)
 
 Run from the repository root on a machine with a CUDA card and the CUDA
-toolkit.  It drives the port's eight main paths: policy serving (slice
+toolkit.  It drives the port's main paths: policy serving (slice
 1), DDPG training through backend "pallas" (slice 2), training through
 the fused whole-update step, eagerly and as a captured CUDA graph (slice
 3), Algorithm 1 over the per-layer datapath with the standalone
@@ -14,8 +14,10 @@ serving over a device mesh and the LM zoo's attention-family serving path
 at full width (slice 9), and the LM zoo's MoE, RWKV-6 and RG-LRU serving
 paths at full width (slice 10), LM training with QAT at full width
 (slice 11), and the sharded LM code (DTensor rules, the expert-parallel
-MoE dispatch) at world size 1 (slice 12), and the production dry run on the 256- and
-512-rank layouts over a fake process group under fake tensors (slice 13).  Phases,
+MoE dispatch) at world size 1 (slice 12), the production dry run on the 256- and
+512-rank layouts over a fake process group under fake tensors (slice 13), and
+the layouts the reference runs with one kv head on a "model" axis of 1 and
+the nine ported examples (slice 14).  Phases,
 each printing one JSON line (`lm` one per model),
 each line with its wall seconds since the line before:
 
@@ -233,21 +235,38 @@ each line with its wall seconds since the line before:
                 the expert-parallel MoE dispatch) at world size 1: a
                 one-rank NCCL group (a `HashStore`, no network) and a
                 (1, 1) ("data", "model") `DeviceMesh` on the card, every
-                tensor a DTensor laid out by the rules.  demo-100m: 3
-                train steps at B = 8, S = 1024 with QAT (the quant phase
-                from step 2) against the plain step on the same batches,
-                both under deterministic algorithms: losses, grad norms and
-                the whole state bitwise; qwen2-0.5b (bf16 serving tree): a
-                1024-token prefill into a cache and 16 greedy decode steps
-                against the plain path, logits bitwise; moonshot-v1-16b-a3b
+                tensor a DTensor laid out by the rules.  demo-100m and
+                gemma3-1b (whole, 26 layers; its one kv head on the "model"
+                axis of 1, `Replicate()` there): 3 train steps each at
+                B = 8, S = 1024 with QAT (the quant phase from step 2)
+                against the plain step on the same batches, both under
+                deterministic algorithms (the plain run's state kept on
+                the host meanwhile): losses, grad norms and the whole
+                state bitwise; qwen2-0.5b, gemma3-1b and recurrentgemma-2b
+                (whole, bf16 serving trees): a 1024-token prefill into a
+                cache and 16 greedy decode steps against the plain path,
+                logits bitwise; moonshot-v1-16b-a3b
                 cut to 2 layers: a prefill of 64 × 1024 = 65,536 tokens,
                 which selects the expert-parallel path at model = 1 (its
                 calls counted), against the plain dense dispatch within the
                 bf16 serving contract 0.05·scale + 0.05.  The mesh path's
                 and the plain path's train step ms and kernels per step
-                (DTensor's host cost at one rank).  The group is destroyed
-                when the phase ends; the six kernels' counts must read 0;
- 24. dryrun   — the production dry run (slice 13): the per-rank memory
+                (DTensor's host cost at one rank), demo-100m's only.  The
+                group is destroyed when the phase ends; the six kernels'
+                counts must read 0;
+ 24. examples — the nine ported examples (`examples/torch/*.py`, slice 14),
+                each `main` on the card in this process at the reference's
+                sizes (train_lm_qat cut in length: 40 of 300 steps, the QAT
+                delay at 20 of 150): wall seconds, the six kernels' wrapper
+                launches (set to 0 before each example, read after) and
+                quickstart's graph replays.  Kernels 4 + 5 must launch in
+                quickstart, kernel A or B in serve_policy and
+                observe_serve, kernels 4, 5, B and 3 in train_learner (its
+                warmup runs every mode); the LM examples (serve_batched
+                among them: it serves an LM) and observe_fleet (its hosts
+                force the jnp mode, in processes of their own) reach no
+                Pallas kernel in the reference, and must launch none;
+ 25. dryrun   — the production dry run (slice 13): the per-rank memory
                 estimator (`launch.dryrun.measure`, a dispatch mode over
                 the live local storages) calibrated against the card's
                 allocator — demo-100m's train step at B = 8, S = 1024
@@ -3270,8 +3289,10 @@ def phase_lm_train(gen: torch.Generator, dev, dev_info: dict) -> dict:
     return report
 
 
-DIST_TRAIN = dict(batch=8, seq=1024, qat_delay=2, steps=3)
-DIST_SERVE = dict(arch="qwen2_0_5b", batch=2, prompt=1024, new=16)
+# (arch, timed): the demo-100m recipe, and gemma3-1b whole (one kv head on
+# a "model" axis of 1, the layout the pure data-parallel meshes give it)
+DIST_TRAIN = dict(batch=8, seq=1024, qat_delay=2, steps=3, models=(("demo_100m", True), ("gemma3_1b", False)))
+DIST_SERVE = dict(archs=("qwen2_0_5b", "gemma3_1b", "recurrentgemma_2b"), batch=2, prompt=1024, new=16)
 DIST_MOE = dict(arch="moonshot_v1_16b_a3b", n_layers=2, batch=64, seq=1024)  # 65,536 tokens
 DIST_TIMED = 2  # steps timed per path (the first not counted)
 
@@ -3287,10 +3308,13 @@ def _dist_group(dev):
     return make_debug_mesh(n_data=1, n_model=1)
 
 
-def _dist_train(dev, mesh) -> dict:
-    """demo-100m train steps: the mesh path against the plain one, bitwise,
-    under deterministic algorithms; then both paths timed and profiled."""
+def _dist_train(dev, mesh, arch: str, timed: bool) -> dict:
+    """`arch`'s train steps (whole, QAT on): the mesh path against the plain
+    one, bitwise, under deterministic algorithms (the plain run's state
+    kept on the host meanwhile); then, when `timed`, both paths timed and
+    profiled."""
     from repro_torch import tree
+    from repro_torch.configs import registry
     from repro_torch.core.parallelism import distribute_tree, gather_tree, rules_for
     from repro_torch.data.synthetic import DataConfig, make_batch
     from repro_torch.launch import specs
@@ -3300,7 +3324,7 @@ def _dist_train(dev, mesh) -> dict:
     from repro_torch.train.step import init_state, make_train_step
 
     c = DIST_TRAIN
-    cfg = dataclasses.replace(_lm_train_config(), qat_delay=c["qat_delay"])
+    cfg = dataclasses.replace(registry.get(arch), qat=True, qat_delay=c["qat_delay"])
     shape = ShapeConfig("dist_train", "train", c["seq"], c["batch"])
     rules = rules_for(mesh, "train")
     st_sh, b_sh = specs.train_shardings(cfg, shape, mesh, rules)
@@ -3315,23 +3339,29 @@ def _dist_train(dev, mesh) -> dict:
             state, m = plain(state, b)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
+        state = tree.tree_map(lambda t: t.cpu(), state)
+        _free(dev)
         dstate, dlosses, dnorms = distribute_tree(fresh(), st_sh), [], []
         with mesh_context(mesh):
             for b in batches:
                 dstate, m = sharded(dstate, distribute_tree(b, b_sh))
                 dlosses.append(float(m["loss"].full_tensor()))
                 dnorms.append(float(m["grad_norm"]))
-        differ = _bitwise_trees(gather_tree(dstate), state)
+        differ = _bitwise_trees(tree.tree_map(lambda t: t.cpu(), gather_tree(dstate)), state)
         placements = sorted({str(t.placements) for t in tree.leaves(dstate)})
     finally:
         torch.use_deterministic_algorithms(False)
-    require(dlosses == losses, f"dist train: losses {dlosses} against the plain step's {losses}")
-    require(dnorms == norms, f"dist train: grad norms {dnorms} against {norms}")
-    require(not differ, f"dist train: the mesh path's state differs from the plain one at {differ[:6]}")
+    require(dlosses == losses, f"dist train {cfg.name}: losses {dlosses} against the plain step's {losses}")
+    require(dnorms == norms, f"dist train {cfg.name}: grad norms {dnorms} against {norms}")
+    require(not differ, f"dist train {cfg.name}: the mesh path's state differs from the plain one at {differ[:6]}")
     del state, dstate
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    _free(dev)
+    out = {"model": cfg.name, "n_layers": cfg.n_layers, "batch": c["batch"], "seq": c["seq"],
+           "qat_delay": c["qat_delay"], "losses": losses, "grad_norms": norms, "state": "bitwise the plain step's",
+           "placements": placements, "deterministic_algorithms": True, "peak_memory_bytes": peak}
+    if not timed:
+        return out
 
     def timed(step, state, place):
         ms = []
@@ -3348,14 +3378,20 @@ def _dist_train(dev, mesh) -> dict:
     times = {"plain": timed(plain, fresh(), lambda b: b)}
     with mesh_context(mesh):
         times["mesh"] = timed(sharded, distribute_tree(fresh(), st_sh), lambda b: distribute_tree(b, b_sh))
-    return {"model": cfg.name, "batch": c["batch"], "seq": c["seq"], "qat_delay": c["qat_delay"],
-            "losses": losses, "grad_norms": norms, "state": "bitwise the plain step's",
-            "placements": placements, "deterministic_algorithms": True, "times": times}
+    return {**out, "times": times}
 
 
-def _dist_serve(dev, mesh, gen) -> dict:
-    """qwen2-0.5b's bf16 serving tree: a prefill into a cache and greedy
+def _free(dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _dist_serve(dev, mesh, gen, arch: str) -> dict:
+    """`arch`'s bf16 serving tree, whole: a prefill into a cache and greedy
     decode steps on the mesh path against the plain path, bitwise."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
     from repro_torch.core.parallelism import NamedSharding, distribute_tree, rules_for
     from repro_torch.launch import specs
     from repro_torch.launch.dryrun import _serve_layout_hints
@@ -3364,7 +3400,7 @@ def _dist_serve(dev, mesh, gen) -> dict:
     from repro_torch.models.config import ShapeConfig
 
     c = DIST_SERVE
-    cfg = _lm_config(c["arch"])
+    cfg = registry.get(arch)
     b, s, new = c["batch"], c["prompt"], c["new"]
     params = T.serving_params(T.init_params(torch.Generator(device=dev).manual_seed(_lm_seed(gen)), cfg,
                                             device=dev), cfg)
@@ -3391,9 +3427,13 @@ def _dist_serve(dev, mesh, gen) -> dict:
                                             s + i, cfg, rules=rules)
             steps.append(bool(torch.equal(got.full_tensor(), want)))
             want = want[:, -1]
-    require(all(steps), f"dist serve: logits differ from the plain path at steps {[i for i, ok in enumerate(steps) if not ok]}")
+    require(all(steps), f"dist serve {cfg.name}: logits differ from the plain path at steps "
+                        f"{[i for i, ok in enumerate(steps) if not ok]}")
+    kv = sorted({str(t.placements) for t in tree.leaves(dcache)})
     del params, dparams, cache, dcache
-    return {"model": cfg.name, "batch": b, "prompt": s, "decode_steps": new, "logits": "bitwise the plain path's"}
+    _free(dev)
+    return {"model": cfg.name, "n_layers": cfg.n_layers, "batch": b, "prompt": s, "decode_steps": new,
+            "logits": "bitwise the plain path's", "cache_placements": kv}
 
 
 def _dist_moe(dev, mesh, gen) -> dict:
@@ -3466,15 +3506,17 @@ def phase_dist(gen: torch.Generator, dev, dev_info: dict) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    seconds = {}
+    seconds, train, serve = {}, {}, {}
     mesh = _dist_group(dev)
     try:
-        t0 = time.perf_counter()
-        train = _dist_train(dev, mesh)
-        seconds["train"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        serve = _dist_serve(dev, mesh, gen)
-        seconds["serve"] = time.perf_counter() - t0
+        for arch, timed in DIST_TRAIN["models"]:
+            t0 = time.perf_counter()
+            train[arch] = _dist_train(dev, mesh, arch, timed)
+            seconds[f"train {arch}"] = time.perf_counter() - t0
+        for arch in DIST_SERVE["archs"]:
+            t0 = time.perf_counter()
+            serve[arch] = _dist_serve(dev, mesh, gen, arch)
+            seconds[f"serve {arch}"] = time.perf_counter() - t0
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -3487,8 +3529,12 @@ def phase_dist(gen: torch.Generator, dev, dev_info: dict) -> dict:
         dist.destroy_process_group()
     launches = _lm_launches()
     require(not any(launches.values()), f"dist: a ported kernel ran on the sharded LM path: {launches}")
-    report = {"world_size": 1, "backend": backend, "mesh": mesh.shape, "train": train, "serve": serve,
-              "moe": moe_report, "seconds": seconds, "launches": launches}
+    on = "on the " + " × ".join(f"{k} {v}" for k, v in mesh.shape.items()) + " mesh"
+    holds = ([f"train {a} whole {on}" for a, _ in DIST_TRAIN["models"]]
+             + [f"prefill + decode {a} whole {on}" for a in DIST_SERVE["archs"]]
+             + [f"expert-parallel prefill {DIST_MOE['arch']} ({DIST_MOE['n_layers']} layers) {on}"])
+    report = {"world_size": 1, "backend": backend, "mesh": mesh.shape, "holds": holds, "train": train,
+              "serve": serve, "moe": moe_report, "seconds": seconds, "launches": launches}
     emit("dist", nvidia_smi=dev_info["nvidia_smi"],
          tolerance={"train": "bitwise (deterministic algorithms)", "serve": "bitwise",
                     "moe": f"{LM_TOL}·scale + {LM_TOL}"}, **report)
@@ -3638,6 +3684,67 @@ def phase_dryrun(gen: torch.Generator, dev, dev_info: dict) -> dict:
     return report
 
 
+EXAMPLES = REPO / "examples" / "torch"
+# (example, keyword sizes on the card, kernel groups that must each show a
+# launch: at least one kernel of a group).  The reference's sizes, but
+# train_lm_qat cut in length: 40 of its 300 steps, the QAT delay at 20 of
+# 150, a checkpoint every 20.  Where the reference's path reaches no Pallas
+# kernel (the LM examples; observe_fleet's hosts, which force the jnp mode
+# and run in processes of their own) every count must read 0.
+EXAMPLE_RUNS = (
+    ("quickstart", {}, (("ddpg_critic_step",), ("ddpg_actor_step",))),
+    ("serve_policy", {}, (("fxp_mlp_fwd", "fxp_dense"),)),
+    ("serve_batched", {}, ()),
+    ("serve_lm", {}, ()),
+    ("train_lm_qat", dict(steps=40, qat_delay=20, ckpt_every=20), ()),
+    ("train_learner", {}, (("ddpg_critic_step",), ("ddpg_actor_step",), ("fxp_mlp_fwd",), ("fxp_mlp_bwd",))),
+    ("observe_serve", {}, (("fxp_mlp_fwd", "fxp_dense"),)),
+    ("observe_fleet", {}, ()),
+    ("elastic_restart", {}, ()),
+)
+
+
+def phase_examples(dev, dev_info: dict) -> dict:
+    """Each ported example's `main` on the card (its default device), in
+    this process: wall seconds, the six kernels' wrapper launches (set to 0
+    just before the example, read just after; the graph replays of
+    quickstart's captured timestep beside them), the last lines it printed.
+    An example whose reference path reaches a Pallas kernel must launch its
+    counterpart; the others none."""
+    import importlib
+    import io
+
+    from repro_torch.rl import loop
+
+    if str(EXAMPLES) not in sys.path:
+        sys.path.insert(0, str(EXAMPLES))  # observe_fleet's hosts import it by name
+    runs, totals = {}, {}
+    for name, kw, groups in EXAMPLE_RUNS:
+        module = importlib.import_module(name)
+        _reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            module.main(None if dev.type == "cuda" else "cpu", **kw)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = _lm_launches()
+        missing = [g for g in groups if not any(launches[k] for k in g)]
+        require(not missing, f"examples: {name} launched none of {missing}: {launches}")
+        if not groups:
+            require(not any(launches.values()), f"examples: {name} launched a ported kernel: {launches}")
+        runs[name] = {"seconds": wall, "sizes": kw or "the reference's", "launches": launches,
+                      "graph_replays": loop.train_device.graph_replays,
+                      "required": [" or ".join(g) for g in groups] or "none",
+                      "printed_tail": out.getvalue().strip().splitlines()[-4:]}
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        _free(dev)
+    report = {"runs": runs, "launches": totals, "seconds": sum(r["seconds"] for r in runs.values())}
+    emit("examples", nvidia_smi=dev_info["nvidia_smi"], **report)
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every random weight and input")
@@ -3682,6 +3789,7 @@ def main(argv=None) -> int:
     lm_launches = phase_lm(gen, dev, dev_info)["launches"]
     lm_train_launches = phase_lm_train(gen, dev, dev_info)["launches"]
     dist_launches = phase_dist(gen, dev, dev_info)["launches"]
+    example_launches = phase_examples(dev, dev_info)["launches"]
     dryrun_launches = phase_dryrun(gen, dev, dev_info)["launches"]
 
     host, device = fused["train_host"], fused["train_device"]
@@ -3701,11 +3809,12 @@ def main(argv=None) -> int:
         "ddpg_actor_step": {**fused_path("ddpg_actor_step"), "learner": learner["ddpg_actor_step"]},
         "fxp_monitor_quant": {"layer_monitor": layer["launches"]["fxp_monitor_quant"]},
     }
-    for name, paths in by_path.items():  # the LM zoo's paths: none of the six (checked to be 0 there)
+    for name, paths in by_path.items():  # the LM zoo's paths (none of the six: checked to be 0) and the examples
         paths["lm"] = lm_launches[name]
         paths["lm_train"] = lm_train_launches[name]
         paths["dist"] = dist_launches[name]
         paths["dryrun"] = dryrun_launches[name]
+        paths["examples"] = example_launches[name]
 
     def wrapper_count(paths: dict) -> int:
         return sum(v["wrapper_calls"] if isinstance(v, dict) else v for v in paths.values())

@@ -131,15 +131,21 @@ class NamedSharding:
 
     def placements(self) -> tuple:
         """DTensor placements, one per mesh dim: `Shard(d)` on each mesh
-        axis that shards tensor dim d (an axis tuple shards d on each of its
-        axes, in order), `Replicate()` elsewhere."""
+        axis of more than one device that shards tensor dim d (an axis
+        tuple shards d on each of its axes, in order), `Replicate()`
+        elsewhere.  A mesh dim of size 1 holds the whole dim whatever the
+        spec says (the rules put one kv head on a "model" axis of 1, since
+        1 % 1 == 0), and DTensor's view ops refuse to merge or split a dim
+        that is `Shard` even there: so it is `Replicate()`, which holds
+        the same data on the same rank.  The spec stays the reference's."""
         from torch.distributed.tensor import Replicate, Shard
 
         dim_of = {}
         for d, entry in enumerate(self.spec):
             for name in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
                 dim_of[name] = d
-        return tuple(Shard(dim_of[n]) if n in dim_of else Replicate() for n in self.mesh.axis_names)
+        return tuple(Shard(dim_of[n]) if n in dim_of and self.mesh.shape[n] > 1 else Replicate()
+                     for n in self.mesh.axis_names)
 
 
 @dataclasses.dataclass(frozen=True)

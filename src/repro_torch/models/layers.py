@@ -226,13 +226,64 @@ def apply_norm(x: Tensor, p: Params, cfg: ModelConfig, eps: float = 1e-6) -> Ten
 
 def group_norm_heads(x: Tensor, scale: Tensor, bias: Tensor, n_heads: int, eps: float = 64e-5) -> Tensor:
     """Per-head group norm (RWKV wkv output norm), in float32 with the
-    population variance. x: (..., H*hd)."""
+    population variance. x: (..., H*hd).
+
+    For a DTensor x an explicit site: each rank normalizes its own whole
+    heads (x laid out by `_whole_heads`) with its slices of scale and bias,
+    and the output is laid out as those heads.  (DTensor's view rules
+    cannot split a dim sharded into pieces that cut heads — the smoke
+    config's 4 heads on a "model" axis of 8 — and the gradient the gate
+    product hands back arrives sharded so.)"""
+    if is_dtensor(x):
+        return _rows_by_heads(lambda xl, sl, bl: group_norm_heads(xl, sl, bl, xl.shape[-1] * n_heads // x.shape[-1],
+                                                                  eps), x, (scale, bias), n_heads)
     shape = x.shape
     xf = x.to(torch.float32).reshape(*shape[:-1], n_heads, -1)
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, correction=0)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y.reshape(shape) * scale + bias).to(x.dtype)
+
+
+def _whole_heads(t: Tensor, h: int) -> Tensor:
+    """`t` (..., d = h·n) laid out so that its last dim splits into (h, n):
+    a DTensor keeps each mesh dim that shards d where the shards still hold
+    whole heads (h divides by the product of those dims' sizes so far) and
+    is made `Replicate()` on the others — the head-aligned placement the
+    reference's GSPMD reshards to before its reshape (4 heads of the smoke
+    config on a "model" axis of 8: d = 64 divides 8, the heads do not).  A
+    plain tensor, or one already aligned, is returned as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    dm, last, kept, place = t.device_mesh, t.ndim - 1, 1, []
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard) and pl.dim == last:
+            if h % (kept * dm.size(i)) == 0:
+                kept *= dm.size(i)
+            else:
+                pl = Replicate()
+        place.append(pl)
+    return t if tuple(place) == tuple(t.placements) else t.redistribute(dm, tuple(place))
+
+
+def _rows_by_heads(fn, x: Tensor, vectors: tuple, n_heads: int) -> Tensor:
+    """`fn(x, *vectors)` per rank for a DTensor x (..., d = h·n) laid out on
+    whole heads (`_whole_heads`) and vectors (d,) cut as x's last dim is:
+    each rank computes on its own rows and heads, the vectors' gradients a
+    partial sum over the mesh dims that shard x's rows.  The output is
+    laid out as the aligned x."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    x = _whole_heads(x, n_heads)
+    dm, last = x.device_mesh, x.ndim - 1
+    on_d = [isinstance(p, Shard) and p.dim == last for p in x.placements]
+    grad = [Shard(0) if od else Partial() if isinstance(p, Shard) else Replicate()
+            for p, od in zip(x.placements, on_d)]
+    vl = [replicated(v, dm).redistribute(dm, tuple(Shard(0) if od else Replicate() for od in on_d))
+          .to_local(grad_placements=grad) for v in vectors]
+    return DTensor.from_local(fn(x.to_local(), *vl), dm, x.placements, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +596,38 @@ def _cache_write(cache: Tensor, start: int, values: Tensor) -> None:
         cache.to_local()[:, lo - offset:hi - offset] = vals[:, lo - start:hi - start]
 
 
+def _cache_write_rows(cache: Tensor, slot: Tensor, values: Tensor) -> None:
+    """`cache[i, slot[i]] = values[i, 0]` for every row i, in place (slot:
+    (B,) int, each row's own slot: continuous batching).  A DTensor cache
+    is written shard by shard, as `_cache_write` writes one: the values
+    laid out as the cache with their sequence dim whole, each rank taking
+    the slots of its own rows (its piece of a batch-sharded cache) and
+    writing those that fall in its piece of a sequence-sharded one.  Which
+    piece holds a slot depends on the row's position, a value: the rank
+    writes every row at its slot less the piece's offset, clamped into the
+    piece, and keeps the old entry (`torch.where` on the row's flag) where
+    the slot lies outside — no boolean index and nothing read back, so
+    fake tensors run it too."""
+    if not is_dtensor(cache):
+        cache[torch.arange(cache.shape[0], device=cache.device), slot] = values[:, 0].to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    dm = cache.device_mesh
+    values = replicated(values, dm)
+    place = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in cache.placements)
+    vals = values.to(cache.dtype).redistribute(dm, place).to_local()[:, 0]
+    row0, n_rows = _local_span(cache.shape[0], dm, cache.placements, 0)
+    offset, length = _local_span(cache.shape[1], dm, cache.placements, 1)
+    if not (n_rows and length):
+        return
+    local = cache.to_local()
+    slot = (slot.full_tensor() if is_dtensor(slot) else slot).to(local.device)[row0:row0 + n_rows] - offset
+    inside = ((slot >= 0) & (slot < length)).reshape(-1, *(1,) * (vals.ndim - 1))
+    rows, slot = torch.arange(n_rows, device=local.device), slot.clamp(0, length - 1)
+    local[rows, slot] = torch.where(inside, vals, local[rows, slot])
+
+
 def _local_span(size: int, dm, placements, dim: int) -> tuple[int, int]:
     """(offset, length) of this rank's piece of a tensor dim of `size`
     under `placements`: each mesh dim that shards it cuts the piece left by
@@ -594,12 +677,8 @@ def attn_decode(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, cache: d
     if per_row:
         # per-row scatter: lane b writes its own slot
         slot = torch.remainder(pos, t) if ring else pos
-        if is_dtensor(k_cache):
-            raise NotImplementedError("per-row decode positions on a sharded KV cache (continuous batching "
-                                      "runs on one device: serve/lm)")
-        rows = torch.arange(b, device=dev)
-        k_cache[rows, slot] = k_new[:, 0].to(k_cache.dtype)
-        v_cache[rows, slot] = v_new[:, 0].to(v_cache.dtype)
+        _cache_write_rows(k_cache, slot, k_new)
+        _cache_write_rows(v_cache, slot, v_new)
     else:
         slot = pos % t if ring else pos  # Python's % is a floor-mod
         if not 0 <= slot < t:

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.parallelism import Logical, ShardingRules, constrain, is_dtensor, replicated
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import LayerQAT, _uniform, carry_state, group_norm_heads
+from repro_torch.models.layers import LayerQAT, _uniform, _whole_heads, carry_state, group_norm_heads
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -268,11 +268,10 @@ def time_mix(x: Tensor, p: Params, cfg: ModelConfig, state: Optional[dict[str, T
     xm = _ddlerp(x, _shift(x, x_last.to(x.dtype)), p, dt)
     xr, xk, xv, xw, xg = xm.unbind(-2)
 
-    r = (xr @ p["wr"].to(dt)).reshape(b, s, h, n)
-    k = (xk @ p["wk"].to(dt)).reshape(b, s, h, n)
-    v = (xv @ p["wv"].to(dt)).reshape(b, s, h, n)
+    r, k, v = (_whole_heads(xi @ p[wi].to(dt), h).reshape(b, s, h, n)
+               for xi, wi in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
     g = F.silu(xg @ p["wg"].to(dt))
-    logw = _decay_log(xw, p).reshape(b, s, h, n)
+    logw = _whole_heads(_decay_log(xw, p), h).reshape(b, s, h, n)
 
     s0 = state["wkv"] if state is not None else _zeros(b, h, n, n, like=x)
     o, s_cur = _by_rank(functools.partial(_wkv_scan, chunk=c), r, k, v, logw, p["u"].to(torch.float32), s0, heads=2)
@@ -314,11 +313,10 @@ def decode_step(x: Tensor, p: Params, cfg: ModelConfig, state: dict[str, Tensor]
     x = qat.site("tmix_in", x)
     xm = _ddlerp(x, state["x_tm"].to(x.dtype)[:, None, :], p, dt)
     xr, xk, xv, xw, xg = xm.unbind(-2)
-    r = (xr @ p["wr"].to(dt)).reshape(b, h, n)
-    k = (xk @ p["wk"].to(dt)).reshape(b, h, n)
-    v = (xv @ p["wv"].to(dt)).reshape(b, h, n)
+    r, k, v = (_whole_heads(xi @ p[wi].to(dt), h).reshape(b, h, n)
+               for xi, wi in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
     g = F.silu(xg @ p["wg"].to(dt))[:, 0]
-    w = torch.exp(_decay_log(xw[:, 0], p)).reshape(b, h, n)
+    w = _whole_heads(torch.exp(_decay_log(xw[:, 0], p)), h).reshape(b, h, n)
     rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
     o, s1 = _by_rank(_wkv_step, rf, kf, vf, w, p["u"].to(torch.float32), state["wkv"], heads=1)
     o = o.reshape(b, d)

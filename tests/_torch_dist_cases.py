@@ -98,14 +98,15 @@ def mesh_guards(rank, world):
 # ---------------------------------------------------------------------------
 
 
-def train_cell(rank, world, arch, multi_pod=False, seq=256, batch=8, steps=2, qat_delay=1):
+def train_cell(rank, world, arch, multi_pod=False, seq=256, batch=8, steps=2, qat_delay=1, n_model=None):
     """value_and_grad at step 0 and `steps` whole train steps (QAT on, the
     quant phase from `qat_delay`, the reference's Adam config with a clip),
     sharded against unsharded: after each step the loss, clip norm,
-    params, ranges and the optimizer's state (count, mu, nu)."""
+    params, ranges and the optimizer's state (count, mu, nu).  On the debug
+    mesh, or on a (world / n_model, n_model) one."""
     cfg = dataclasses.replace(_f32(arch), qat=True, qat_delay=qat_delay)
     shape = ShapeConfig("t", "train", seq, batch)
-    mesh = _mesh(multi_pod)
+    mesh = _mesh(multi_pod) if n_model is None else M.make_debug_mesh(world // n_model, n_model)
     rules = par.train_rules(mesh)
     st_sh, b_sh = S.train_shardings(cfg, shape, mesh, rules)
     state = TS.init_state(0, cfg, device="cpu")
@@ -167,11 +168,14 @@ def prefill_cell(rank, world, arch="gemma3_1b", seq=512, batch=4, n_model=None):
 
 
 def decode_cell(rank, world, arch="rwkv6_1_6b", cache_len=512, batch=8, prompt=16, steps=2, shard_kv_seq=False,
-                n_model=None):
+                n_model=None, row_offsets=None):
     """A prompt prefilled into a `cache_len` cache, then `steps` greedy
     decode steps, sharded (the decode rules with the reference's layout
     hints, and its sequence-parallel cache when `shard_kv_seq`; on the
-    debug mesh or a (world / n_model, n_model) one) against unsharded."""
+    debug mesh or a (world / n_model, n_model) one) against unsharded.
+    With `row_offsets` (one int a row) the steps decode at per-row
+    positions, row b at prompt + i + row_offsets[b] (continuous batching's
+    (B,) position tensor; the slots a row skips stay empty)."""
     cfg = _f32(arch)
     shape = ShapeConfig("d", "decode", cache_len, batch)
     mesh = _mesh() if n_model is None else M.make_debug_mesh(world // n_model, n_model)
@@ -192,10 +196,11 @@ def decode_cell(rank, world, arch="rwkv6_1_6b", cache_len=512, batch=8, prompt=1
     logits = [(None if want is None else _np(want), got)]
     for i in range(steps):
         tok = torch.from_numpy(got.argmax(-1)[:, None].astype(np.int32))  # the sharded path's greedy token
-        want = _on_rank0(rank, lambda: T.decode_step(params, tok, cache, prompt + i, cfg)[0][:, -1])
+        pos = prompt + i if row_offsets is None else torch.tensor(row_offsets) + (prompt + i)
+        want = _on_rank0(rank, lambda: T.decode_step(params, tok, cache, pos, cfg)[0][:, -1])
         with M.mesh_context(mesh):
             got, dcache = T.decode_step(dparams, par.distribute_tree({"tokens": tok}, b_sh)["tokens"], dcache,
-                                        prompt + i, cfg, rules=rules)
+                                        pos, cfg, rules=rules)
         got = _np(got)[:, -1]
         logits.append((None if want is None else _np(want), got))
     state_placements = sorted({str(t.placements) for t in tree.leaves(dcache)})

@@ -8,6 +8,7 @@ are its own: properties are held, not the reference's values.
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, DataIterator, make_batch  # noqa: E402

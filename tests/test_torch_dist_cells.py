@@ -14,7 +14,11 @@ sharded on head_dim: heads that do not divide the model axis); an
 rwkv6 train step (the WKV recurrence per rank on its (batch, head)
 shards); and recurrentgemma's train step and decode (the RG-LRU gate
 products laid out on "state" before their biases, `rglru._gates`, and its
-decode output laid out as its prompt path's).  Each is held against the port's unsharded run on the same
+decode output laid out as its prompt path's); gemma3's train step and
+decode on the pure data-parallel (8, 1) mesh (its one kv head on a "model"
+axis of 1); rwkv6's prefill and decode on (1, 8) (4 heads on 8 ranks); and
+decodes at per-row positions on a batch-sharded and on a sequence-sharded
+KV cache.  Each is held against the port's unsharded run on the same
 arrays (itself held to the reference by the parity tests), to the
 existing contracts:
 
@@ -61,6 +65,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 import _torch_dist as D
 
@@ -78,6 +83,19 @@ CASES = [
     ("rwkv6_train", "_torch_dist_cases:train_cell", {"arch": "rwkv6_1_6b", "steps": 1}),
     ("recurrentgemma_train", "_torch_dist_cases:train_cell", {"arch": "recurrentgemma_2b", "steps": 1}),
     ("recurrentgemma_decode", "_torch_dist_cases:decode_cell", {"arch": "recurrentgemma_2b"}),
+    # pure data parallel: one kv head on a "model" axis of 1
+    ("gemma3_train_data8", "_torch_dist_cases:train_cell", {"arch": "gemma3_1b", "n_model": 1, "steps": 1}),
+    ("gemma3_decode_data8", "_torch_dist_cases:decode_cell", {"arch": "gemma3_1b", "n_model": 1}),
+    # 4 heads on a "model" axis of 8 (d_model 64 divides it)
+    ("rwkv6_decode_model8", "_torch_dist_cases:decode_cell", {"arch": "rwkv6_1_6b", "n_model": 8}),
+    # per-row positions: on a batch-sharded cache, and on a sequence-sharded
+    # one (split at slot 256 over "data") whose rows' slots lie on both
+    # sides of the split, row 0 crossing it
+    ("gemma3_decode_rows", "_torch_dist_cases:decode_cell", {"arch": "gemma3_1b",
+                                                             "row_offsets": [0, 3, 1, 7, 2, 5, 0, 9]}),
+    ("qwen2_decode_rows_kv_seq", "_torch_dist_cases:decode_cell", {"arch": "qwen2_0_5b", "batch": 2, "prompt": 250,
+                                                                   "steps": 3, "shard_kv_seq": True,
+                                                                   "row_offsets": [4, 60]}),
     ("dry_qwen2_train", "_torch_dist_cases:dryrun_cell", {"arch": "qwen2_0_5b", "kind": "train", "seq": 256,
                                                           "batch": 8, "repeat": 2}),
     ("dry_dbrx_train", "_torch_dist_cases:dryrun_cell", {"arch": "dbrx_132b", "kind": "train", "seq": 256,
@@ -291,7 +309,7 @@ def _check_optimizer(steps, what):
 
 
 @pytest.mark.parametrize("cell", ["qwen2_train", "dbrx_train", "qwen2_train_multipod", "rwkv6_train",
-                                  "recurrentgemma_train"])
+                                  "recurrentgemma_train", "gemma3_train_data8"])
 def test_train_cell_matches_unsharded(results, cell):
     r = D.result(results[0], cell)
     _check_train(r, cell)
@@ -373,6 +391,24 @@ def test_qwen2_sequence_parallel_decode_matches_unsharded(results):
     r = D.result(results[0], "qwen2_decode_kv_seq")
     _check_decode(r, 4)
     assert r["cache_placements"] and all(pl[0] == "S(2)" for pl in r["cache_placements"]), r["cache_placements"]
+
+
+@pytest.mark.parametrize("cell,n_logits", [("gemma3_decode_data8", 3), ("rwkv6_decode_model8", 3),
+                                           ("gemma3_decode_rows", 3), ("qwen2_decode_rows_kv_seq", 4)])
+def test_layout_decode_matches_unsharded(results, cell, n_logits):
+    """The layouts the reference runs and the port once stopped on: gemma3
+    (one kv head) on the pure data-parallel (8, 1) mesh, its kv heads whole
+    on each rank; rwkv6's 4 heads on (1, 8), its projections laid out on
+    whole heads before the split; per-row decode positions on gemma3's
+    batch-sharded cache (the debug mesh) and on qwen2's sequence-sharded
+    one — a prefill and greedy decodes, each against unsharded."""
+    r = D.result(results[0], cell)
+    _check_decode(r, n_logits)
+    if cell == "qwen2_decode_rows_kv_seq":
+        assert all(pl[0] == "S(2)" for pl in r["cache_placements"]), r["cache_placements"]
+    if cell == "gemma3_decode_rows":  # the batch over "data": (layers, B, ...) stacked, (B, ...) in the tail
+        assert all(pl[0] in ("S(0)", "S(1)") for pl in r["cache_placements"]), r["cache_placements"]
+        assert "S(0)" in {pl[0] for pl in r["cache_placements"]}, r["cache_placements"]
 
 
 def test_dbrx_train_cell_matches_reference_on_a_mesh(results):

@@ -22,6 +22,7 @@ import sys
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 import _torch_dist as D
 

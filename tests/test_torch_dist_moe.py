@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 import _torch_dist as D
 

@@ -52,6 +52,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 SRC = str(pathlib.Path(__file__).resolve().parents[1] / "src")
 TIMEOUT = 600

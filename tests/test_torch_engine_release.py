@@ -9,6 +9,7 @@ import weakref
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 from repro_torch.configs import registry
 from repro_torch.models import transformer as T

@@ -16,6 +16,7 @@ import re
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 from repro.runtime import ft as rft
 

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of `repro_torch`, and not chip_smoke.py,
-imports jax or anything of the JAX package `repro`; and chip_smoke.py
+"""The port stands alone: no module of `repro_torch`, not chip_smoke.py and
+no example under `examples/torch/` imports jax or anything of the JAX
+package `repro`; and chip_smoke.py
 refuses to report a result without a CUDA device or without the repository
 beside it.
 """
@@ -14,6 +15,7 @@ import sys
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SMOKE = REPO / "chip_smoke.py"
@@ -88,6 +90,16 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
 def test_port_sources_import_neither_jax_nor_repro():
     for path in (REPO / "src" / "repro_torch").rglob("*.py"):
         assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}, path
+
+
+@pytest.mark.parametrize("name", sorted(p.stem for p in (REPO / "examples").glob("*.py")))
+def test_example_ports_import_neither_jax_nor_repro(name):
+    """Each of the reference's examples has a port under `examples/torch/`
+    that imports the port's package, numpy and the standard library only."""
+    roots = _imported_roots(REPO / "examples" / "torch" / f"{name}.py")
+    assert "repro_torch" in roots, roots
+    assert not roots & {"jax", "jaxlib", "repro", "flax", "optax"}, roots
+    assert roots - {"repro_torch", "torch", "numpy"} <= set(sys.stdlib_module_names), roots
 
 
 def test_chip_smoke_fails_without_cuda():

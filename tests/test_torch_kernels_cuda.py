@@ -13,6 +13,7 @@ and the launch counters.
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 pytestmark = pytest.mark.cuda
 

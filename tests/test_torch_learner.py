@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 from repro_torch import tree
 from repro_torch.rl import ddpg as pddpg

@@ -17,6 +17,7 @@ written in place (the serving contract).
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 import _torch_lm_train as H  # noqa: E402
 

@@ -15,6 +15,7 @@ atol 5e-5, counts exact.
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 import _torch_lm_train as H  # noqa: E402
 

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -13,6 +13,7 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 from repro_torch.configs.fixar_ddpg import SMOKE
 from repro_torch.obs import Tracer

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 from repro.obs import export as r_export
 from repro.obs import metrics as r_metrics

@@ -18,6 +18,7 @@ import types
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 import jax
 from jax.sharding import PartitionSpec as P

@@ -19,6 +19,7 @@ import pathlib
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 REF = REPO / "src" / "repro"

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (one intra-op thread a worker)
 
 from repro_torch.core import fixedpoint as fxp
 from repro_torch.kernels.fxp_mlp import replay
