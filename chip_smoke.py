@@ -70,6 +70,16 @@ each line with its wall seconds since the line before:
                 launch a call (a profiler trace); a captured CUDA graph's
                 replays bitwise the eager call's; one call under
                 `torch.cuda.set_sync_debug_mode("error")`;
+ 8b. kernel_qat — kernel 7 (the QAT site bookkeeping) against its plain
+                twins run on the same card tensors, bitwise: the operands
+                of the act's 3 sites and the fused update's 9 at 16 and 8
+                bits, the update's 3 + 9 folds with the tick and without,
+                before, at and past the QAT delay, on edge ranges (the
+                never-updated ±inf one, zero and sub-1e-6 spans, NaN and
+                infinite extrema, signed zeros) and random ones; two calls
+                bitwise equal; the fold's graph replays across the delay
+                bitwise the eager call's; one CUDA launch a call; device
+                time of each entry point and of its twin, bound by bytes;
   9. serve    — serving main path: a seeded random actor, ranges captured by
                 monitor-phase fused forwards and frozen (Algorithm 1's
                 monitor-then-freeze), then `PolicyEngine` serving 256
@@ -108,17 +118,21 @@ each line with its wall seconds since the line before:
                 trained actor through `PolicyEngine.from_ddpg`.  Launch
                 counts are zeroed just before `train_host` and read just
                 after it: kernel B must show 5 per update + 1 per env step,
-                kernel 3 3 per update;
+                kernel 3 3 per update, kernel 7 operands once per kernel B
+                call and a fold 3 per update;
  15. train_fused — the same configuration with backend "pallas_fused_step",
                 through `train_host` (kernels 4 and 5 once per update,
                 kernel B once per env step, kernel 3 and kernel B's
-                residual mode never) and through `train_device` (a warmup
+                residual mode never, kernel 7's operands once per env step
+                and per update, its fold once per update) and through
+                `train_device` (a warmup
                 window run eagerly, then every updating timestep a replay of
                 one captured CUDA graph, the QAT delay crossed inside it;
                 the wrapper counts and the replays are checked, and the
                 same run made again with its graph window under
                 `torch.profiler` counts by name the kernels each replay
-                ran); both agents evaluated and served;
+                ran: 2 kernel-7 operand launches and 1 fold a replay); both
+                agents evaluated and served;
  16. learner  — the learner engine (`train.learner.LearnerEngine`) at the
                 paper's nets, buckets 8, 32, 128: (1) for the forced modes
                 "fused" (kernels B and 3) and "fused_step" (kernels 4 + 5),
@@ -288,7 +302,7 @@ each line with its wall seconds since the line before:
 The LM path runs no kernel of the port's own: the reference computes its
 attention, MoE dispatch, recurrences and products in jnp, outside any
 Pallas kernel, so they are `torch.matmul` / `einsum` here.  Then the `{"kernels": [...]}` line (the
-six TPU kernels' counterparts) and, last, the status line
+six TPU kernels' counterparts and kernel 7's two entry points) and, last, the status line
 `{"ok": true, "device": {...}}`.  Any failed build, launch or comparison
 raises, so the run exits non-zero before the status line.  Without a CUDA
 device, or without the repository's `src/repro_torch` beside this file, it
@@ -519,7 +533,8 @@ def phase_device() -> dict:
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
-    seconds = _build.build(["fxp_dense", "fxp_mlp_fwd", "fxp_mlp_bwd", "fxp_ddpg_step", "fxp_monitor_quant"])
+    seconds = _build.build(["fxp_dense", "fxp_mlp_fwd", "fxp_mlp_bwd", "fxp_ddpg_step", "fxp_monitor_quant",
+                            "fxp_qat_sites"])
     ptxas = {}
     for name in seconds:
         log = _build.log_path(name)
@@ -1140,6 +1155,162 @@ def _mq_graph_replays(gen: torch.Generator, dev) -> int:
     return replays
 
 
+# kernel 7 (the QAT site bookkeeping): site ranges (a_min, a_max, count) at
+# the edges — a captured range, the never-updated initial one (±inf, count
+# 0), a zero span, a span under finalize's 1e-6 guard, a NaN and an infinite
+# extremum, one-signed ranges, signed zeros — and the path's shapes: the
+# act's 3 sites, the fused update's 9 and its 3 + 9 folds, at steps before,
+# at and past the delay
+QAT_EDGES = [(-2.5, 3.125, 4), (math.inf, -math.inf, 0), (0.75, 0.75, 2), (1.0, 1.0000009, 3), (math.nan, 2.0, 3),
+             (-math.inf, 1.0, 1), (0.5, 4.0, 5), (-4.0, -0.25, 5), (-0.0, 0.0, 1)]
+QAT_DELAY = 4
+QAT_STEPS = {"monitor": QAT_DELAY - 1, "flip": QAT_DELAY, "quant": QAT_DELAY + 3}
+# kernel 7's calls in one captured timestep: `act`'s and the fused update's
+# operands, the update's fold
+QAT_CAPTURED = {"qat_site_params": 2, "qat_fold": 1}
+
+
+def _qat_sites(gen: torch.Generator, dev, edges: bool) -> list:
+    """Nine `RangeStat`s on `dev`: QAT_EDGES, or random captured ranges."""
+    from repro_torch.core.ranges import RangeStat
+
+    if edges:
+        rows = QAT_EDGES
+    else:
+        lo, hi = (torch.randn(9, generator=gen) * 3 - 2).tolist(), (torch.randn(9, generator=gen) * 3 + 2).tolist()
+        rows = [(a, b, 1 + i) for i, (a, b) in enumerate(zip(lo, hi))]
+    return [RangeStat(torch.tensor(a, dtype=torch.float32, device=dev), torch.tensor(b, dtype=torch.float32, device=dev),
+                      torch.tensor(n, dtype=torch.int32, device=dev)) for a, b, n in rows]
+
+
+def _qat_folds(gen: torch.Generator, dev) -> list:
+    """The fused update's 3 + 9 folds into 9 sites (critic sites 6..8, then
+    all nine), their extrema random with an infinite maximum, a NaN minimum
+    and signed zeros among them."""
+    mins, maxs = torch.randn(12, generator=gen) * 3 - 1, torch.randn(12, generator=gen) * 3 + 1
+    maxs[0], mins[4], mins[11], maxs[11] = math.inf, math.nan, -0.0, 0.0
+    mins, maxs = mins.to(dev), maxs.to(dev)
+    return [(site, mins[f], maxs[f]) for f, site in enumerate([6, 7, 8] + list(range(9)))]
+
+
+def _qat_cuda_launches(fn, calls: int = 20) -> int:
+    """CUDA kernels a call of `fn` runs, by a profiler trace of `calls`
+    calls: every device kernel but the sleep kernels that frame the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10_000_000)
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(50_000_000)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    ran = sum(e.count for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and "sleep" not in e.key.lower() and "memcpy" not in e.key.lower()
+              and "memset" not in e.key.lower())
+    return round(ran / calls)
+
+
+def phase_kernel_qat(gen: torch.Generator, dev, dev_info: dict) -> dict:
+    """Kernel 7 against its plain twins run on the same card tensors, bit
+    for bit: `qat_site_params` over the act's 3 sites and the update's 9 at
+    n = 16 and 8 bits, `qat_fold` the update's 3 + 9 folds with the tick and
+    without, at QAT_STEPS; the edge ranges and random ones; two calls
+    bitwise equal; the fold replayed in a CUDA graph across the delay, each
+    replay bitwise the eager call's; one CUDA launch a call; device time
+    beside the twin's, bound by bytes (each leaf read once, each output
+    written once).  Its inputs come from a generator of its own, so later
+    phases keep theirs."""
+    from repro_torch.kernels.quantize import qat_fold, qat_site_params, ref_qat_fold, ref_qat_site_params
+
+    gen = torch.Generator().manual_seed(gen.initial_seed() + 19)
+
+    def leaves(stats, step):
+        return [t for s in stats for t in (s.a_min, s.a_max, s.count)] + [step]
+
+    cases, worst = 0, 0.0
+    for label, edges in (("edges", True), ("random", False)):
+        stats = _qat_sites(gen, dev, edges)
+        for n in (3, 9):
+            for n_bits in (16, 8):
+                got = qat_site_params(stats[-n:], n_bits)
+                again = qat_site_params(stats[-n:], n_bits)
+                want = ref_qat_site_params(stats[-n:], n_bits)
+                torch.cuda.synchronize()
+                for g, a, w, what in zip(got, again, want, ("deltas", "zs")):
+                    tag = f"kernel 7 qat_site_params {label} {n} sites {n_bits} bits {what}"
+                    worst = max(worst, _max_abs(g, w))
+                    require(_bitwise(g, w), f"{tag}: not bitwise the plain twin's")
+                    require(_bitwise(g, a), f"{tag}: two calls differ")
+                cases += 1
+        folds = _qat_folds(gen, dev)
+        for phase, step in QAT_STEPS.items():
+            step_t = torch.tensor(step, dtype=torch.int32, device=dev)
+            for tick in (True, False):
+                got = leaves(*qat_fold(stats, step_t, folds, delay=QAT_DELAY, tick=tick))
+                again = leaves(*qat_fold(stats, step_t, folds, delay=QAT_DELAY, tick=tick))
+                want = leaves(*ref_qat_fold(stats, step_t, folds, delay=QAT_DELAY, tick=tick))
+                torch.cuda.synchronize()
+                tag = f"kernel 7 qat_fold {label} {phase} tick={tick}"
+                for i, (g, a, w) in enumerate(zip(got, again, want)):
+                    worst = max(worst, _max_abs(g.float(), w.float()))
+                    require(_bitwise(g, w), f"{tag} leaf {i}: not bitwise the plain twin's")
+                    require(_bitwise(g, a), f"{tag} leaf {i}: two calls differ")
+                require(int(got[-1]) == step + tick, f"{tag}: step {int(got[-1])}")
+                cases += 1
+
+    # the fold captured in a CUDA graph, replayed across the delay
+    stats, folds = _qat_sites(gen, dev, False), _qat_folds(gen, dev)
+    step_t = torch.zeros((), dtype=torch.int32, device=dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        qat_fold(stats, step_t, folds, delay=QAT_DELAY, tick=True)
+        with torch.cuda.graph(graph, stream=stream):
+            out = leaves(*qat_fold(stats, step_t, folds, delay=QAT_DELAY, tick=True))
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    replays = 0
+    for step in range(QAT_DELAY - 2, QAT_DELAY + 2):
+        step_t.fill_(step)
+        for _, mn, mx in folds[:3]:
+            mn.copy_(torch.randn((), generator=gen).to(dev) - 1)
+            mx.copy_(torch.randn((), generator=gen).to(dev) + 1)
+        graph.replay()
+        want = leaves(*qat_fold(stats, step_t, folds, delay=QAT_DELAY, tick=True))
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(out, want)):
+            require(_bitwise(g, w), f"kernel 7 graph replay at step {step} leaf {i}: not the eager call's")
+        replays += 1
+
+    # launches, device times and bounds at the fused update's shapes
+    stats, folds = _qat_sites(gen, dev, False), _qat_folds(gen, dev)
+    step_t = torch.full((), QAT_DELAY - 1, dtype=torch.int32, device=dev)
+    calls = {
+        "qat_site_params": (lambda: qat_site_params(stats, 16), lambda: ref_qat_site_params(stats, 16),
+                            9 * 12 + 2 * 9 * 4),
+        "qat_fold": (lambda: qat_fold(stats, step_t, folds, delay=QAT_DELAY, tick=True),
+                     lambda: ref_qat_fold(stats, step_t, folds, delay=QAT_DELAY, tick=True),
+                     9 * 12 + 12 * 8 + 4 + 9 * 12 + 4),
+    }
+    rows = {}
+    for name, (kernel, plain, nbytes) in calls.items():
+        launches = _qat_cuda_launches(kernel)
+        require(launches == 1, f"kernel 7 {name}: {launches} CUDA launches a call, expected 1")
+        bound, by = _bound_ms(nbytes, 0.0, dev_info)
+        # the twin's calls are ≈ 75–245 launches each: few enough that the
+        # host enqueues them all inside device_time_ms's sleep
+        rows[name] = {"ms": device_time_ms(kernel, 200), "plain_ms": device_time_ms(plain, 5), "bound_ms": bound,
+                      "bound_by": by, "bytes": nbytes, "cuda_launches_per_call": launches,
+                      "plain_cuda_launches_per_call": _qat_cuda_launches(plain, 5)}
+    emit("kernel_qat", cases=cases, edges=[list(e) for e in QAT_EDGES], steps=QAT_STEPS, delay=QAT_DELAY,
+         sites=[3, 9], folds="3 + 9 into 9 sites", n_bits=[16, 8], tolerance="bitwise (deltas, zs; ranges, counts, step)",
+         max_abs=worst, bitwise_repeat=True, graph_replays_bitwise=replays, times=rows)
+    return {"max_abs": worst, "times": rows}
+
+
 def phase_layer_monitor(gen: torch.Generator, dev) -> dict:
     """This slice's path at full width: Algorithm 1 over the per-layer
     datapath (`fxp_dense_chain` with `monitor_quant` at each site), for the
@@ -1444,11 +1615,11 @@ def _reset_counts() -> None:
     from repro_torch.kernels.fxp_matmul.kernel import fxp_dense_cuda
     from repro_torch.kernels.fxp_mlp.kernel import (ddpg_actor_step_cuda, ddpg_critic_step_cuda, fxp_mlp_bwd_cuda,
                                                     fxp_mlp_fwd_cuda)
-    from repro_torch.kernels.quantize.kernel import monitor_quant_cuda
+    from repro_torch.kernels.quantize.kernel import monitor_quant_cuda, qat_fold_cuda, qat_site_params_cuda
     from repro_torch.rl import loop
 
     for fn in (fxp_dense_cuda, fxp_mlp_fwd_cuda, fxp_mlp_bwd_cuda, ddpg_critic_step_cuda, ddpg_actor_step_cuda,
-               monitor_quant_cuda):
+               monitor_quant_cuda, qat_site_params_cuda, qat_fold_cuda):
         fn.launches = 0
     fxp_mlp_fwd_cuda.residual_launches = 0
     loop.train_device.graph_replays = 0
@@ -1463,6 +1634,13 @@ def _counts() -> dict:
             "ddpg_actor_step": ddpg_actor_step_cuda.launches}
 
 
+def _qat_counts() -> dict:
+    """Kernel 7's wrapper counts, by entry point."""
+    from repro_torch.kernels.quantize.kernel import qat_fold_cuda, qat_site_params_cuda
+
+    return {"qat_site_params": qat_site_params_cuda.launches, "qat_fold": qat_fold_cuda.launches}
+
+
 def _kernels_ran(run) -> tuple:
     """`run()` under `torch.profiler`; returns its result and the calls of
     the training kernels that ran on the card, counted by kernel name in the
@@ -1470,7 +1648,8 @@ def _kernels_ran(run) -> tuple:
     wrapper call's first CUDA launch (kernel B's instance per call, with
     residuals or not; kernel 3's chain pass; kernel 4's critic pass and
     kernel 5's chain pass), kernel 4's target pass (`ddpg_critic_target`),
-    and `reduce_update`, the second pass kernels 4 and 5 share."""
+    `reduce_update`, the second pass kernels 4 and 5 share, and kernel 7's
+    two entry points."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1490,10 +1669,11 @@ def _kernels_ran(run) -> tuple:
         torch.cuda.synchronize()
         time.sleep(0.2)
     ran = dict.fromkeys(("fxp_mlp_fwd", "fxp_mlp_fwd_residuals", "fxp_mlp_bwd", "ddpg_critic_target",
-                         "ddpg_critic_step", "ddpg_actor_step", "reduce_update"), 0)
+                         "ddpg_critic_step", "ddpg_actor_step", "reduce_update", "qat_site_params", "qat_fold"), 0)
     names = {"bwd_chain_kernel": "fxp_mlp_bwd", "ddpg_target_kernel": "ddpg_critic_target",
              "ddpg_critic_kernel": "ddpg_critic_step", "ddpg_actor_kernel": "ddpg_actor_step",
-             "reduce_update_kernel": "reduce_update"}
+             "reduce_update_kernel": "reduce_update", "qat_site_params_kernel": "qat_site_params",
+             "qat_fold_kernel": "qat_fold"}
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
             continue
@@ -1522,17 +1702,23 @@ def phase_train(gen: torch.Generator, dev, seed: int) -> dict:
     wall = time.perf_counter() - t0
     counts = _counts()
     launches = {"fxp_mlp_fwd": counts["fxp_mlp_fwd"], "fxp_mlp_bwd": counts["fxp_mlp_bwd"]}
+    qat = _qat_counts()
     updates = cfg.total_steps - cfg.warmup_steps + 1
     phase = _check_trained(ts.agent, updates, "train")
     steps = cfg.total_steps * max(cfg.n_envs, 1)
     want = {"fxp_mlp_fwd": 5 * updates + cfg.total_steps, "fxp_mlp_bwd": 3 * updates}
     require(launches == want, f"train: launches {launches}, expected {want}")
+    # kernel 7: operands at each kernel-B call, a fold at each that folds (the
+    # critic pass's and the actor pass's two; the target pass reads only)
+    want_qat = {"qat_site_params": want["fxp_mlp_fwd"], "qat_fold": 3 * updates}
+    require(qat == want_qat, f"train: kernel 7 launches {qat}, expected {want_qat}")
     steady, p50 = _steady(tracer, cfg.warmup_steps - 1)
     report = {
         "env": env.spec.name, "backend": dcfg.backend, "batch": dcfg.batch_size, "reduced": reduced,
         "env_steps": steps, "updates": updates, "qat_delay": qat_delay, "phase_at_end": phase, "wall_s": wall,
         "env_steps_per_s": steps / wall, "updates_per_s": updates / wall, "update_ms_p50": p50,
         "steady_steps_per_s": steady, "times": info["times"], "launches": launches, "launches_expected": want,
+        "qat_launches": qat,
         "cuda_launches": {"fxp_mlp_fwd": launches["fxp_mlp_fwd"], "fxp_mlp_bwd": 2 * launches["fxp_mlp_bwd"]},
         **_evaluate_and_serve(env, ts.agent, dcfg, gen, dev, seed),
     }
@@ -1568,10 +1754,13 @@ def phase_train_fused(gen: torch.Generator, dev, seed: int, pallas: dict) -> dic
     ts_h, info = loop.train_host(env, cfg, dcfg, device=dev, tracer=tracer)
     sync(dev)
     wall_h = time.perf_counter() - t0
-    host_counts = _counts()
+    host_counts, host_qat = _counts(), _qat_counts()
     want_h = {"fxp_mlp_fwd": cfg.total_steps, "fxp_mlp_fwd_residuals": 0, "fxp_mlp_bwd": 0,
               "ddpg_critic_step": updates, "ddpg_actor_step": updates}
     require(host_counts == want_h, f"train_fused host: launches {host_counts}, expected {want_h}")
+    # kernel 7: operands at each act and each update, one fold an update
+    want_qat_h = {"qat_site_params": cfg.total_steps + updates, "qat_fold": updates}
+    require(host_qat == want_qat_h, f"train_fused host: kernel 7 launches {host_qat}, expected {want_qat_h}")
     _check_trained(ts_h.agent, updates, "train_fused host")
     steady_h, p50_h = _steady(tracer, cfg.warmup_steps - 1)
 
@@ -1581,12 +1770,14 @@ def phase_train_fused(gen: torch.Generator, dev, seed: int, pallas: dict) -> dic
     ts_d, hist = loop.train_device(env, cfg, dcfg, device=dev, eval_fn=lambda *a: torch.zeros(()))
     sync(dev)
     wall_d = time.perf_counter() - t0
-    dev_counts = _counts()
+    dev_counts, dev_qat = _counts(), _qat_counts()
     replays = loop.train_device.graph_replays
     require(replays == updates - 1, f"train_device: {replays} graph replays, expected {updates - 1}")
     want_d = {"fxp_mlp_fwd": cfg.warmup_steps + 1, "fxp_mlp_fwd_residuals": 0, "fxp_mlp_bwd": 0,
               "ddpg_critic_step": 2, "ddpg_actor_step": 2}
     require(dev_counts == want_d, f"train_device: wrapper calls {dev_counts}, expected {want_d}")
+    want_qat_d = {"qat_site_params": want_d["fxp_mlp_fwd"] + 2, "qat_fold": 2}
+    require(dev_qat == want_qat_d, f"train_device: kernel 7 wrapper calls {dev_qat}, expected {want_qat_d}")
     _check_trained(ts_d.agent, updates, "train_device")
     # the same run again, its graph window under the profiler (the capture
     # before it): the kernels the replays ran, by name
@@ -1599,7 +1790,9 @@ def phase_train_fused(gen: torch.Generator, dev, seed: int, pallas: dict) -> dic
         ran = {k: ran.get(k, 0) + v for k, v in part.items()}
         parts.append(part["fxp_mlp_fwd"])
     want_ran = {"fxp_mlp_fwd": replays, "fxp_mlp_fwd_residuals": 0, "fxp_mlp_bwd": 0, "ddpg_critic_target": replays,
-                "ddpg_critic_step": replays, "ddpg_actor_step": replays, "reduce_update": 2 * replays}
+                "ddpg_critic_step": replays, "ddpg_actor_step": replays, "reduce_update": 2 * replays,
+                "qat_site_params": QAT_CAPTURED["qat_site_params"] * replays,
+                "qat_fold": QAT_CAPTURED["qat_fold"] * replays}
     require(ran == want_ran and loop.train_device.graph_replays == 2 * replays,
             f"train_device graph window: kernels that ran {ran}, expected {want_ran} "
             f"(kernel B by trace of 250 replays: {parts})")
@@ -1608,6 +1801,7 @@ def phase_train_fused(gen: torch.Generator, dev, seed: int, pallas: dict) -> dic
     require(rerun_same, "train_device: the profiled rerun ended on another agent")
     # eager launches (the wrapper calls but the captured one) and the traced replays' kernels
     executed = {k: v - (1 if v else 0) + ran[k] for k, v in dev_counts.items()}
+    executed_qat = {k: v - QAT_CAPTURED[k] + ran[k] for k, v in dev_qat.items()}
     require(hist["step"] == [cfg.warmup_steps, cfg.total_steps], f"train_device windows {hist['step']}")
     # the two drivers ran one program from one seed: how far apart they end
     drift = max(float((getattr(ts_d.agent, n)[layer][leaf] - getattr(ts_h.agent, n)[layer][leaf]).abs().max())
@@ -1624,6 +1818,7 @@ def phase_train_fused(gen: torch.Generator, dev, seed: int, pallas: dict) -> dic
         "train_host": {
             "wall_s": wall_h, "env_steps_per_s": steps / wall_h, "updates_per_s": updates / wall_h,
             "steady_steps_per_s": steady_h, "update_ms_p50": p50_h, "times": info["times"], "launches": host_counts,
+            "qat_launches": host_qat,
             **_evaluate_and_serve(env, ts_h.agent, dcfg, gen, dev, seed),
         },
         "train_device": {
@@ -1631,7 +1826,8 @@ def phase_train_fused(gen: torch.Generator, dev, seed: int, pallas: dict) -> dic
             "steady_steps_per_s": hist["ips"][-1], "updates_per_s_steady": hist["updates_per_s"][-1],
             "timestep_ms_steady": 1e3 / hist["ips"][-1], "train_reward": hist["train_reward"],
             "graph_replays": replays, "wrapper_calls": dev_counts, "captured_calls": 1,
-            "replay_kernels_traced": ran, "executed": executed,
+            "replay_kernels_traced": ran, "executed": executed, "qat_wrapper_calls": dev_qat,
+            "qat_captured_calls": QAT_CAPTURED, "qat_executed": executed_qat,
             "executed_how": "eager wrapper launches + kernels counted by name in a torch.profiler trace of the "
                             "graph window of a second, identical run (its agent bitwise the first's)",
             **_evaluate_and_serve(env, ts_d.agent, dcfg, gen, dev, seed),
@@ -3745,6 +3941,34 @@ def phase_examples(dev, dev_info: dict) -> dict:
     return report
 
 
+def _qat_kernel_entries(qat: dict, train: dict, host: dict, device: dict) -> list:
+    """The `kernels` line's entries of kernel 7's two entry points: wrapper
+    launches by path (the train phase's, and the train_fused phase's
+    `train_host` and `train_device` runs, their counts set to 0 just before
+    each), the kernel_qat phase's error, times and bound."""
+    kernels = []
+    for name, per_call in (("qat_site_params", "9 sites' operands (the fused update's)"),
+                           ("qat_fold", "the fused update's 3 + 9 folds and the tick")):
+        paths = {"train": train["qat_launches"][name], "train_fused.train_host": host["qat_launches"][name],
+                 "train_fused.train_device": {"wrapper_calls": device["qat_wrapper_calls"][name],
+                                              "captured_calls": QAT_CAPTURED[name],
+                                              "graph_replays": device["graph_replays"],
+                                              "executed": device["qat_executed"][name]}}
+        row = qat["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/fxp_qat_sites.cu",
+            "replaces": "none (the reference's QAT bookkeeping is XLA-fused glue: src/repro/core/qat.py)",
+            "launches": sum(v["wrapper_calls"] if isinstance(v, dict) else v for v in paths.values()),
+            "launches_by_path": paths, "launches_per_captured_timestep": QAT_CAPTURED[name],
+            "max_abs_err": qat["max_abs"], "tolerance": "bitwise",
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "library_note": "no PyTorch call computes it: the plain twin is "
+                                                f"{row['plain_cuda_launches_per_call']} one-element kernels",
+            "cuda_launches_per_call": row["cuda_launches_per_call"], "shape": per_call,
+        })
+    return kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of every random weight and input")
@@ -3774,6 +3998,7 @@ def main(argv=None) -> int:
     err_bwd = phase_kernel_bwd(gen, dev)
     err_step = phase_kernel_step(gen, dev)
     err_mq = phase_kernel_mq(gen, dev)
+    qat = phase_kernel_qat(gen, dev, dev_info)
     serve_launches = phase_serve(gen, dev)
     layer = phase_layer_monitor(gen, dev)
     phase_fxp_raw(gen, dev)
@@ -3862,6 +4087,7 @@ def main(argv=None) -> int:
             entry["library_note"] = (f"no single PyTorch call computes it; torch.aminmax, the reduction alone: "
                                      f"{row['library_note_aminmax_ms']} ms")
         kernels.append(entry)
+    kernels += _qat_kernel_entries(qat, train, host, device)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"device": dev_info, "kernels": kernels,

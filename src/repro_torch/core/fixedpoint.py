@@ -167,8 +167,10 @@ def fxp_matmul_raw(a_raw: Tensor, w_raw: Tensor, fmt_a: QFormat, fmt_w: QFormat,
 
 def affine_params(a_min: Tensor, a_max: Tensor, n_bits: int) -> tuple[Tensor, Tensor]:
     """FIXAR's Q_n parameters: delta = (|A_min|+|A_max|)/(2^n - 1),
-    z = round(-A_min/delta) (int32).  The range is widened to contain 0 so
-    the affine grid holds 0 exactly (see the reference's docstring)."""
+    z = round(-A_min/delta) (int32; a NaN range gives z = 0, as XLA and the
+    card convert it, where the CPU's cast gives INT_MIN).  The range is
+    widened to contain 0 so the affine grid holds 0 exactly (see the
+    reference's docstring)."""
     a_min = torch.as_tensor(a_min, dtype=torch.float32)
     a_max = torch.as_tensor(a_max, dtype=torch.float32, device=a_min.device)
     a_min = torch.clamp(a_min, max=0.0)
@@ -178,7 +180,8 @@ def affine_params(a_min: Tensor, a_max: Tensor, n_bits: int) -> tuple[Tensor, Te
     # host scalar multiplies by its rounded reciprocal, one ulp off IEEE
     intervals = torch.full((), 2.0**n_bits - 1.0, dtype=torch.float32, device=span.device)
     delta = torch.where(span > 0, span / intervals, torch.ones_like(span))
-    z = torch.round(-a_min / delta).to(torch.int32)
+    # a finite range puts z in [0, 2^n - 1]: only a NaN needs converting
+    z = torch.nan_to_num(torch.round(-a_min / delta), nan=0.0).to(torch.int32)
     return delta, z
 
 

@@ -8,10 +8,14 @@
 `QATState` carries the step counter and the per-site range monitors.
 `QATContext` is what one training step uses: `site` applies a QAT site
 inline (range monitor + phase-selected fake quantizer with its STE),
-`observe` folds extrema that a kernel measured on-chip, `site_quant_params`
-hands the fused kernel its per-site affine operands, and `finalize` returns
-the state with the new ranges.  `freeze_quant` snapshots the finalized
-ranges into a `FrozenQuant`, the only QAT object the serving path holds.
+`observe` folds extrema that a kernel measured on-chip (`observe_many` a
+batch of them, in one call of the batched fold), `site_quant_params` hands
+the fused kernel its per-site affine operands, and `finalize` returns the
+state with the new ranges.  `site_params` and `fold_minmax` are the plain
+batched operands and fold; a caller may hand a context others that compute
+the same bits (`rl.ddpg` hands it kernel 7's, `kernels.quantize`, one
+launch a call on the card).  `freeze_quant` snapshots the finalized ranges
+into a `FrozenQuant`, the only QAT object the serving path holds.
 
 The phase flag: range updates are selected on the device with `torch.where`
 on `QATState.quantized_phase`, as the reference selects them.  The choice of
@@ -105,18 +109,58 @@ class QATState:
         )
 
 
+def site_params(stats: list[RangeStat], n_bits: int = 16) -> tuple[Tensor, Tensor]:
+    """Stacked (deltas, zs) — zs as float32 — of each range's finalized
+    affine operands: what the fused kernels read in their quant phase."""
+    deltas, zs = [], []
+    for stat in stats:
+        a_min, a_max = finalized(stat)
+        d, z = fxp.affine_params(a_min, a_max, n_bits)
+        deltas.append(d)
+        zs.append(z.to(torch.float32))
+    return torch.stack(deltas), torch.stack(zs)
+
+
+def fold_minmax(stats: list[RangeStat], step: Tensor, folds, *, delay: int,
+                tick: bool = False) -> tuple[list[RangeStat], Tensor]:
+    """Each fold (site index, mn, mx) in order into `stats[site]` by the
+    running min/max (count + 1), kept only while `step` is before `delay`
+    (a `torch.where` on the device); returns the new ranges and the step,
+    plus one when `tick`."""
+    out = list(stats)
+    phase = step >= delay
+    for site, mn, mx in folds:
+        stat = out[site]
+        cand = update_minmax_scalar(stat, mn, mx)
+        out[site] = RangeStat(
+            a_min=torch.where(phase, stat.a_min, cand.a_min),
+            a_max=torch.where(phase, stat.a_max, cand.a_max),
+            count=torch.where(phase, stat.count, cand.count),
+        )
+    return out, step + 1 if tick else step
+
+
 class QATContext:
     """The QAT sites of one training step.
 
-    Collects the per-site range updates made by `site()`/`observe()` calls
-    and returns the new state from `finalize()`.  `quant` is the phase as a
-    host bool; None reads `state.quantized_phase` once, on first use.
+    Collects the per-site range updates made by `site()`/`observe()`/
+    `observe_many()` calls and returns the new state from `finalize()`.
+    `quant` is the phase as a host bool; None reads `state.quantized_phase`
+    once, on first use.  `fold=False` makes a context that only reads the
+    ranges (acting, whose context is dropped): it folds nothing.
+    `params_fn` and `fold_fn` compute `site_quant_params` and the "minmax"
+    `observe_many` (`site_params`, `fold_minmax` unless given).
     """
 
-    def __init__(self, state: QATState, quant: Optional[bool] = None):
+    def __init__(self, state: QATState, quant: Optional[bool] = None, *, fold: bool = True,
+                 params_fn=site_params, fold_fn=fold_minmax):
         self.state = state
         self._quant = quant
+        self._fold = fold
+        self._params_fn = params_fn
+        self._fold_fn = fold_fn
         self._new_ranges: dict[str, RangeStat] = dict(state.ranges)
+        self._step = state.step
 
     @property
     def quant(self) -> bool:
@@ -144,7 +188,8 @@ class QATContext:
         if not cfg.enabled:
             return x
         self._check(name)
-        self.observe(name, x.min(), x.max())
+        if self._fold:
+            self.observe(name, x.min(), x.max())
         if self.quant:
             a_min, a_max = finalized(self._new_ranges[name])
             return fxp.fake_quant_affine(x, a_min, a_max, cfg.n_bits)
@@ -155,7 +200,7 @@ class QATContext:
         kept only in the monitor phase (a `torch.where` on the device-side
         phase, as the reference has it)."""
         cfg = self.state.config
-        if not cfg.enabled:
+        if not cfg.enabled or not self._fold:
             return
         self._check(name)
         stat = self._new_ranges[name]
@@ -168,20 +213,36 @@ class QATContext:
             count=torch.where(phase, stat.count, cand.count),
         )
 
+    def observe_many(self, names: list[str], mins, maxs, *, tick: bool = False) -> None:
+        """`observe(names[j], mins[j], maxs[j])` for each j, in order (mins,
+        maxs: tensors or sequences of 0-d tensors); with the "minmax"
+        monitor one call of `fold_fn`.  `tick`: `finalize`'s step is the
+        state's plus one (QAT on or off)."""
+        cfg = self.state.config
+        if cfg.enabled and self._fold:
+            for name in names:
+                self._check(name)
+            if cfg.monitor == "minmax":
+                index = {name: i for i, name in enumerate(dict.fromkeys(names))}
+                folds = [(index[name], mn.detach(), mx.detach()) for name, mn, mx in zip(names, mins, maxs)]
+                stats, step = self._fold_fn([self._new_ranges[name] for name in index], self.state.step, folds,
+                                            delay=cfg.delay, tick=tick)
+                self._new_ranges.update(zip(index, stats))
+                if tick:
+                    self._step = step
+                return
+            for name, mn, mx in zip(names, mins, maxs):
+                self.observe(name, mn, mx)
+        if tick:
+            self._step = self.state.step + 1
+
     def site_quant_params(self, names: list[str]) -> tuple[Tensor, Tensor]:
         """Stacked (deltas, zs) affine operands of `names` from the current
         finalized ranges — what the fused kernel reads in its quant phase."""
-        cfg = self.state.config
-        deltas, zs = [], []
-        for name in names:
-            a_min, a_max = finalized(self._new_ranges[name])
-            d, z = fxp.affine_params(a_min, a_max, cfg.n_bits)
-            deltas.append(d)
-            zs.append(z.to(torch.float32))
-        return torch.stack(deltas), torch.stack(zs)
+        return self._params_fn([self._new_ranges[name] for name in names], self.state.config.n_bits)
 
     def finalize(self) -> QATState:
-        return dataclasses.replace(self.state, ranges=self._new_ranges)
+        return dataclasses.replace(self.state, ranges=self._new_ranges, step=self._step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,6 +327,8 @@ __all__ = [
     "QATConfig",
     "QATState",
     "QATContext",
+    "site_params",
+    "fold_minmax",
     "FrozenQuant",
     "freeze_quant",
     "quantize_weights",

@@ -47,39 +47,16 @@
 
 #include <cuda_runtime.h>
 
+#include "fxp_affine.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_BLOCKS = 132 * 8;  // 8 blocks per SM of the H100
 
-// min / max that propagate a NaN from either side
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (b < a || b != b) ? b : a;
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (b > a || b != b) ? b : a;
-}
-
 // clip that keeps a NaN (fminf / fmaxf would replace it by a bound)
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
-}
-
-struct Affine {
-  float delta, z, q_max;
-};
-
-// core/fixedpoint.affine_params for the incoming range, as float32
-__device__ __forceinline__ Affine affine(float a_min, float a_max, int n_bits) {
-  const float lo = nan_min(a_min, 0.0f);
-  const float hi = nan_max(a_max, 0.0f);
-  const float span = __fadd_rn(fabsf(lo), fabsf(hi));
-  const float q_max = (float)((1 << n_bits) - 1);
-  Affine p;
-  p.delta = span > 0.0f ? __fdiv_rn(span, q_max) : 1.0f;
-  p.z = rintf(__fdiv_rn(-lo, p.delta));
-  p.q_max = q_max;
-  return p;
 }
 
 __device__ __forceinline__ float project(float v, bool quant, const Affine& p) {

@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the fused monitor + quantizer (port of
-`repro.kernels.quantize.ref`, Algorithm 1's activation stage).
+"""Plain PyTorch versions of the fused monitor + quantizer (port of
+`repro.kernels.quantize.ref`, Algorithm 1's activation stage) and of the
+QAT site bookkeeping (kernel 7's two entry points).
 
 One pass over the activation tensor does both of the unit's jobs:
 
@@ -13,6 +14,12 @@ One pass over the activation tensor does both of the unit's jobs:
 Returns (y, new_min, new_max).  This is what `ops.monitor_quant` computes
 for CPU tensors and the oracle kernel 6 (`csrc/fxp_monitor_quant.cu`) is
 held against on the card.  The min/max propagate NaN, as `jnp.min` does.
+
+`ref_qat_site_params` and `ref_qat_fold` are `core.qat.site_params` and
+`core.qat.fold_minmax`, the per-site PyTorch ops on 0-d tensors that a
+`QATContext` runs unless handed others: what `ops.qat_site_params` /
+`ops.qat_fold` compute for CPU tensors and the oracle kernel 7
+(`csrc/fxp_qat_sites.cu`) is held against on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import fixedpoint as fxp
+from repro_torch.core.qat import fold_minmax, site_params
 
 Tensor = torch.Tensor
 
@@ -53,4 +61,9 @@ def ref_monitor_quant(x: Tensor, a_min, a_max, quant_phase, n_bits: int = 16) ->
     return torch.where(quant, y_quant, y_full), new_min, new_max
 
 
-__all__ = ["ref_monitor_quant"]
+# kernel 7's plain twins are the context's own batched functions
+ref_qat_site_params = site_params
+ref_qat_fold = fold_minmax
+
+
+__all__ = ["ref_monitor_quant", "ref_qat_site_params", "ref_qat_fold"]

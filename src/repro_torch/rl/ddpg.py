@@ -41,6 +41,10 @@ quantizer and which kernel mode every site and launch uses.
 the kernels take the device-side flag.  Range updates stay on the device
 either way.  So `act` and the fused `update` run without a device sync,
 which lets `rl/loop.train_device` capture a whole timestep as a CUDA graph.
+
+Every `QATContext` here is `_qat_context`'s: its sites' operands and its
+batched folds are kernel 7 (`kernels.quantize`) on the card, one launch a
+call, and the plain ops on the CPU.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from repro_torch.core.qat import FrozenQuant, QATContext, QATState, freeze_quant
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.fxp_matmul.ops import fxp_dense_chain
 from repro_torch.kernels.fxp_mlp.ops import fxp_mlp_infer, fxp_mlp_train, fxp_mlp_train_step
+from repro_torch.kernels.quantize.ops import qat_fold, qat_site_params
 from repro_torch.optim import adam, fxp_adam
 from repro_torch.rl.envs.base import EnvSpec
 
@@ -254,11 +259,17 @@ def actor_site_telemetry(
     return torch.stack(mns), torch.stack(mxs), torch.stack(sats)
 
 
+def _qat_context(qat: QATState, quant: Optional[bool] = None, *, fold: bool = True) -> QATContext:
+    """A step's QAT context whose site operands and batched folds are
+    kernel 7 for CUDA tensors (`kernels.quantize`)."""
+    return QATContext(qat, quant, fold=fold, params_fn=qat_site_params, fold_fn=qat_fold)
+
+
 def _fused_mlp(params: Params, x: Tensor, ctx: Optional[QATContext], *, sites: list[str],
                activations: tuple[str, ...]) -> Tensor:
     """Whole-network forward through kernel B (`fxp_mlp_train`: kernel 3
     is its backward when autograd needs one).  Range observations flow
-    back into `ctx` via `observe`, so QAT state evolves as on the
+    back into `ctx` via `observe_many`, so QAT state evolves as on the
     per-layer path."""
     ws, bs = _params_to_wb(params, len(activations))
     if ctx is None or not ctx.state.config.enabled:
@@ -270,8 +281,7 @@ def _fused_mlp(params: Params, x: Tensor, ctx: Optional[QATContext], *, sites: l
         x, ws, bs, deltas, zs, activations=activations, quant_phase=ctx.quant_operand, n_bits=cfg.n_bits,
         fxp32_phase1=cfg.fxp32_phase1,
     )
-    for j, site in enumerate(sites):
-        ctx.observe(site, mns[j], mxs[j])
+    ctx.observe_many(sites, mns, mxs)
     return y
 
 
@@ -318,9 +328,10 @@ def act(state: DDPGState, obs: Tensor, *, cfg: DDPGConfig, generator: Optional[t
     `generator` draws Gaussian noise at `cfg.exploration_sigma`; `noise`
     adds a caller-supplied perturbation (the hook `rl/loop` uses for
     `rl/noise.NoiseProcess` samples).  Either way it lands before the clip
-    to [-1, 1].  Runs without autograd."""
+    to [-1, 1].  Runs without autograd.  Its QAT context only reads the
+    ranges: acting returns no state, so it folds none."""
     with torch.no_grad():
-        ctx = QATContext(state.qat) if state.qat.config.enabled else None
+        ctx = _qat_context(state.qat, fold=False) if state.qat.config.enabled else None
         a = actor_forward(state.actor, obs, ctx, backend=cfg.backend)
         if generator is not None:
             a = a + cfg.exploration_sigma * torch.randn(a.shape, generator=generator, device=a.device)
@@ -371,7 +382,7 @@ def _update_fused_step(state: DDPGState, batch: dict[str, Tensor], cfg: DDPGConf
     qat_on = state.qat.config.enabled
     deltas = zs = None
     if qat_on:
-        deltas, zs = QATContext(state.qat).site_quant_params(ACTOR_SITES + CRITIC_SITES)
+        deltas, zs = _qat_context(state.qat).site_quant_params(ACTOR_SITES + CRITIC_SITES)
     opt_c = fxp_adam.FxpAdamConfig(lr=cfg.critic_lr) if cfg.fxp_weights else adam.AdamConfig(lr=cfg.critic_lr)
     opt_a = fxp_adam.FxpAdamConfig(lr=cfg.actor_lr) if cfg.fxp_weights else adam.AdamConfig(lr=cfg.actor_lr)
     consts_c = adam.step_constants(opt_c, state.critic_opt.step + 1)
@@ -393,15 +404,13 @@ def _update_fused_step(state: DDPGState, batch: dict[str, Tensor], cfg: DDPGConf
         )
         # range evolution mirrors update()'s two contexts: the critic-loss
         # pass observes the critic sites, the actor pass the actor sites and
-        # the critic sites again on top
+        # the critic sites again on top (the 3 + 9 folds and the tick: one
+        # kernel-7 launch on the card)
         if qat_on:
-            ctx1 = QATContext(state.qat)
-            for j, site in enumerate(CRITIC_SITES):
-                ctx1.observe(site, out.c_mins[j], out.c_maxs[j])
-            ctx2 = QATContext(ctx1.finalize())
-            for j, site in enumerate(ACTOR_SITES + CRITIC_SITES):
-                ctx2.observe(site, out.a_mins[j], out.a_maxs[j])
-            qat_final = ctx2.finalize().tick()
+            ctx = _qat_context(state.qat)
+            ctx.observe_many(CRITIC_SITES + ACTOR_SITES + CRITIC_SITES, [*out.c_mins, *out.a_mins],
+                             [*out.c_maxs, *out.a_maxs], tick=True)
+            qat_final = ctx.finalize()
         else:
             qat_final = state.qat.tick()
 
@@ -451,14 +460,14 @@ def update(state: DDPGState, batch: dict[str, Tensor], cfg: DDPGConfig) -> tuple
 
     # ---- targets (inference on the target nets, no range updates) ---------
     with torch.no_grad():
-        tctx = QATContext(state.qat, quant)
+        tctx = _qat_context(state.qat, quant, fold=False)
         next_a = actor_forward(state.actor_target, next_obs, tctx, backend=cfg.backend)
         q_next = critic_forward(state.critic_target, next_obs, next_a, tctx, backend=cfg.backend)
         y = reward + cfg.gamma * (1.0 - done) * q_next
 
     # ---- critic BP + WU ----------------------------------------------------
     cp, c_leaves = _trainable(state.critic)
-    ctx = QATContext(state.qat, quant)
+    ctx = _qat_context(state.qat, quant)
     q = critic_forward(cp, obs, action, ctx, backend=cfg.backend)
     closs = _wmean(torch.square(q - y), mask)
     cgrads = _grads_tree(cp, torch.autograd.grad(closs, c_leaves))
@@ -469,7 +478,7 @@ def update(state: DDPGState, batch: dict[str, Tensor], cfg: DDPGConfig) -> tuple
 
     # ---- actor BP + WU (through the *updated* critic, Fig. 3) -------------
     ap, a_leaves = _trainable(state.actor)
-    ctx = QATContext(qat1, quant)
+    ctx = _qat_context(qat1, quant)
     a = actor_forward(ap, obs, ctx, backend=cfg.backend)
     qa = critic_forward(critic, obs, a, ctx, backend=cfg.backend)
     aloss = -_wmean(qa, mask)

@@ -662,3 +662,202 @@ def test_learner_exact_bucket_stream_is_bitwise_direct_updates(dev, mode):
             assert a.is_cuda and torch.equal(a, b), f"{mode} B={rows} {path}"
         assert all(got_metrics[k] == float(v) for k, v in want_metrics.items())
     assert bool(eng.state.qat.quantized_phase)
+
+
+# --------------------------------------------------------------------------
+# kernel 7: the QAT site bookkeeping (csrc/fxp_qat_sites.cu) against the
+# per-site PyTorch ops it replaces, run on the card (its plain twins on CUDA
+# tensors); one launch a call; inside a CUDA graph and the training window
+# --------------------------------------------------------------------------
+
+NAN, INF = float("nan"), float("inf")
+# (a_min, a_max, count): captured, never updated (the initial range), a zero
+# span, a span under the 1e-6 guard, a NaN and an infinite extremum,
+# one-signed ranges, signed zeros
+QAT_EDGES = [(-2.5, 3.125, 4), (INF, -INF, 0), (0.75, 0.75, 2), (1.0, 1.0000009536743164, 3), (NAN, 2.0, 3),
+             (-INF, 1.0, 1), (0.5, 4.0, 5), (-4.0, -0.25, 5), (-0.0, 0.0, 1)]
+QAT_DELAY = 4
+
+
+def _qat_stats(dev, edges=QAT_EDGES):
+    from repro_torch.core.ranges import RangeStat
+
+    return [RangeStat(torch.tensor(lo, dtype=torch.float32, device=dev),
+                      torch.tensor(hi, dtype=torch.float32, device=dev),
+                      torch.tensor(n, dtype=torch.int32, device=dev)) for lo, hi, n in edges]
+
+
+def _qat_folds(dev, seed, n_sites=len(QAT_EDGES)):
+    """The fused update's folds: the last three sites, then every site;
+    an infinite maximum, a NaN minimum and signed zeros among the extrema."""
+    gen = torch.Generator().manual_seed(seed)
+    folds = []
+    for sites in (range(n_sites - 3, n_sites), range(n_sites)):
+        mins = torch.randn(len(sites), generator=gen) * 3 - 1
+        maxs = torch.randn(len(sites), generator=gen) * 3 + 1
+        maxs[0], mins[1], mins[-1], maxs[-1] = INF, NAN, -0.0, 0.0
+        mins, maxs = mins.to(dev), maxs.to(dev)
+        folds += [(s, mins[j], maxs[j]) for j, s in enumerate(sites)]
+    return folds
+
+
+def _bits_equal(a, b) -> bool:
+    """The same bit patterns (a NaN's payload included)."""
+    return a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32))
+
+
+def _fold_leaves(stats, step):
+    return [t for s in stats for t in (s.a_min, s.a_max, s.count)] + [step]
+
+
+@pytest.mark.parametrize("n_bits", [16, 8])
+@pytest.mark.parametrize("sites", ["edges", "random", "one"])
+def test_qat_site_params_kernel_matches_twin_bitwise_and_repeats(dev, sites, n_bits):
+    """Kernel 7's `qat_site_params` against the per-site PyTorch ops on the
+    card (`ref_qat_site_params`): deltas and zs bitwise; two calls bitwise;
+    one counted launch a call."""
+    from repro_torch.kernels.quantize import qat_site_params, ref_qat_site_params
+    from repro_torch.kernels.quantize.kernel import qat_site_params_cuda
+
+    if sites == "edges":
+        stats = _qat_stats(dev)
+    else:
+        gen = torch.Generator().manual_seed(n_bits)
+        n = 1 if sites == "one" else 32
+        los, his = (torch.randn(n, generator=gen) * 4).tolist(), (torch.rand(n, generator=gen) * 3).tolist()
+        stats = _qat_stats(dev, [(lo, hi, 1 + i % 3) for i, (lo, hi) in enumerate(zip(los, his))])
+    before = qat_site_params_cuda.launches
+    got = qat_site_params(stats, n_bits)
+    again = qat_site_params(stats, n_bits)
+    want = ref_qat_site_params(stats, n_bits)
+    torch.cuda.synchronize()
+    assert qat_site_params_cuda.launches == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.is_cuda and _bits_equal(g, w) and _bits_equal(g, a)
+
+
+@pytest.mark.parametrize("tick", [True, False])
+@pytest.mark.parametrize("step", [QAT_DELAY - 1, QAT_DELAY, QAT_DELAY + 3], ids=["monitor", "flip", "quant"])
+def test_qat_fold_kernel_matches_twin_bitwise_and_repeats(dev, step, tick):
+    """Kernel 7's `qat_fold` (the fused update's 3 + 9 folds and the tick)
+    against `observe`'s PyTorch ops on the card (`ref_qat_fold`): every
+    range leaf and the step bitwise, NaN payloads and signed zeros
+    included; two calls bitwise; one counted launch a call."""
+    from repro_torch.kernels.quantize import qat_fold, ref_qat_fold
+    from repro_torch.kernels.quantize.kernel import qat_fold_cuda
+
+    stats, folds = _qat_stats(dev), _qat_folds(dev, step)
+    step_t = torch.tensor(step, dtype=torch.int32, device=dev)
+    before = qat_fold_cuda.launches
+    got = _fold_leaves(*qat_fold(stats, step_t, folds, delay=QAT_DELAY, tick=tick))
+    again = _fold_leaves(*qat_fold(stats, step_t, folds, delay=QAT_DELAY, tick=tick))
+    want = _fold_leaves(*ref_qat_fold(stats, step_t, folds, delay=QAT_DELAY, tick=tick))
+    torch.cuda.synchronize()
+    assert qat_fold_cuda.launches == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.is_cuda and g.dim() == 0 and _bits_equal(g, w) and _bits_equal(g, a)
+    assert bool(got[3].isnan()) == (step < QAT_DELAY)  # site 1's minimum takes a NaN while monitoring
+
+
+def _kernel_names_ran(run, names) -> dict:
+    """`run()` under the profiler: the CUDA kernels whose names hold each of
+    `names`, counted (a sleep kernel and a host wait on each side keep the
+    run well inside the trace, which can lose kernels at its edges)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10_000_000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        run()
+        torch.cuda._sleep(50_000_000)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    return {n: sum(e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and n in e.key)
+            for n in names}
+
+
+QAT_KERNELS = ("qat_site_params_kernel", "qat_fold_kernel")
+
+
+def test_qat_kernels_are_one_cuda_launch_each_and_replay_in_a_graph_across_a_phase_flip(dev):
+    """Each call one CUDA launch (a profiler trace of 10 calls of each);
+    both captured in one CUDA graph and replayed with new ranges and
+    extrema written in place and the step moved across the delay: each
+    replay bitwise the plain ops on that replay's inputs."""
+    from repro_torch.kernels.quantize import qat_fold, qat_site_params, ref_qat_fold, ref_qat_site_params
+
+    stats, folds = _qat_stats(dev), _qat_folds(dev, 1)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def both():
+        return (list(qat_site_params(stats)) + _fold_leaves(*qat_fold(stats, step, folds, delay=QAT_DELAY,
+                                                                      tick=True)))
+
+    both()
+    ran = _kernel_names_ran(lambda: [both() for _ in range(10)], QAT_KERNELS)
+    assert ran == {"qat_site_params_kernel": 10, "qat_fold_kernel": 10}, ran
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = both()
+    gen = torch.Generator().manual_seed(2)
+    for s in (QAT_DELAY - 1, QAT_DELAY, QAT_DELAY - 2, QAT_DELAY + 5):
+        step.fill_(s)
+        for stat in stats[:4]:
+            stat.a_min.copy_(torch.randn((), generator=gen) * 2 - 1)
+            stat.a_max.copy_(torch.randn((), generator=gen) * 2 + 1)
+        for _, mn, mx in folds[:5]:
+            mn.copy_(torch.randn((), generator=gen) * 5)
+            mx.copy_(torch.randn((), generator=gen) * 5)
+        graph.replay()
+        want = list(ref_qat_site_params(stats)) + _fold_leaves(*ref_qat_fold(stats, step, folds, delay=QAT_DELAY,
+                                                                             tick=True))
+        torch.cuda.synchronize()
+        assert all(_bits_equal(g.reshape(-1), w.reshape(-1)) for g, w in zip(out, want)), s
+
+
+def test_window_timestep_holds_three_qat_kernel_launches_and_replays_bitwise(dev):
+    """`loop._Window`'s captured updating timestep records exactly three
+    kernel-7 launches (two `qat_site_params` — act's 3 sites, the update's 9
+    — and one `qat_fold`), each replay runs exactly those, and replays across
+    the QAT delay leave every leaf of the training state bitwise what the
+    same timesteps run eagerly leave."""
+    from repro_torch import tree
+    from repro_torch.kernels.quantize.kernel import qat_fold_cuda, qat_site_params_cuda
+    from repro_torch.rl import ddpg, loop
+    from repro_torch.rl.envs import make
+
+    env = make("halfcheetah")
+    cfg = loop.TrainConfig(total_steps=10**6, warmup_steps=4, replay_capacity=64, n_envs=2, seed=5)
+    dcfg = ddpg.DDPGConfig(batch_size=8, backend="pallas_fused_step", qat_delay=4)
+    graph_win, eager_win = (loop._Window(loop.init_train_state(env, cfg, dcfg, device=dev), env, cfg, dcfg)
+                            for _ in range(2))
+    first = next(s for s in range(100) if loop._updates_at(s, cfg))
+    graph_win.run(0, first + 1)  # eager, the first update included
+    for s in range(first + 1):
+        eager_win._step(loop._updates_at(s, cfg))
+    launches = (qat_site_params_cuda.launches, qat_fold_cuda.launches)
+    graph_win._capture()  # records the updating timestep, runs none of it
+    assert (qat_site_params_cuda.launches - launches[0], qat_fold_cuda.launches - launches[1]) == (2, 1)
+    replays = loop.train_device.graph_replays
+    ran = _kernel_names_ran(lambda: graph_win.run(first + 1, 3), QAT_KERNELS)
+    graph_win.run(first + 4, 3)
+    assert loop.train_device.graph_replays == replays + 6
+    assert ran == {"qat_site_params_kernel": 6, "qat_fold_kernel": 3}, ran
+    for _ in range(6):
+        eager_win._step(True)
+    torch.cuda.synchronize()
+    assert bool(graph_win.ts.agent.qat.quantized_phase)  # the delay was crossed in the replays
+    for (path, g), (_, e) in zip(tree.flatten_with_path(graph_win.ts), tree.flatten_with_path(eager_win.ts)):
+        assert _bits_equal(g, e) if g.dtype in (torch.float32, torch.int32) else torch.equal(g, e), path
+    for name in ("gen", "env_gen"):
+        assert torch.equal(getattr(graph_win.ts, name).get_state(), getattr(eager_win.ts, name).get_state()), name
