@@ -1,5 +1,11 @@
-"""moonshot-v1-16b-a3b [moe] — kimi/moonlight: 48L d_model=2048 16H (kv=16)
-per-expert d_ff=1408, vocab=163840, MoE 64 experts top-6.
+"""moonshot-v1-16b-a3b [moe] — the JAX reference's stand-in under
+Moonlight's name: 48 layers of plain MHA, d_model=2048 16H (kv=16),
+per-expert d_ff=1408, vocab=163840, a GShard capacity MoE with softmax
+top-6 over 64 experts (tokens past capacity dropped), no shared experts
+and no dense first layer.  It mirrors the reference's config, which the
+tests hold it to; it is not Moonlight's published block.  That block
+(latent attention, 2 shared + 64 sigmoid-routed experts behind one dense
+layer, 27 layers) is `moonlight_16b_a3b`.
 [hf:moonshotai/Moonlight-16B-A3B; hf]
 """
 import dataclasses

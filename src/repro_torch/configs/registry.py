@@ -28,6 +28,11 @@ ALIASES = {
 }
 
 
+# configs of the port alone: reached by `get`, kept out of `ARCH_IDS`,
+# `ALIASES` and `lm_archs()`, which are the JAX package's lists
+PORT_ARCH_IDS = ["moonlight_16b_a3b"]
+
+
 def _module(arch: str):
     name = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{name}")

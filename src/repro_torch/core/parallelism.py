@@ -307,9 +307,12 @@ class Logical:
 def map_logical(fn: Callable, spec_tree, *other_trees):
     """`fn(logical, *others)` at every `Logical` leaf of `spec_tree`
     (dicts, lists, tuples and dataclasses), the structure kept; `other_trees` are walked
-    alongside it (same structure, any leaves)."""
+    alongside it (same structure, any leaves).  None, an optional field left
+    out (`TrainState.router_bias`), stays None."""
     if isinstance(spec_tree, Logical):
         return fn(spec_tree, *other_trees)
+    if spec_tree is None:
+        return None
     if isinstance(spec_tree, dict):
         return {k: map_logical(fn, v, *(t[k] for t in other_trees)) for k, v in spec_tree.items()}
     if isinstance(spec_tree, (list, tuple)):
@@ -410,9 +413,12 @@ def replicated(x: torch.Tensor, device_mesh):
 def sharding_leaves(shardings) -> list:
     """The `NamedSharding`s of a shardings tree (`tree_shardings`' output)
     in `repro_torch.tree`'s leaf order (dict keys sorted, sequences and
-    dataclass fields in order): the order of the tree they lay out."""
+    dataclass fields in order): the order of the tree they lay out.  None,
+    an optional field left out, has none."""
     if isinstance(shardings, NamedSharding):
         return [shardings]
+    if shardings is None:
+        return []
     if isinstance(shardings, dict):
         return [s for k in sorted(shardings) for s in sharding_leaves(shardings[k])]
     if isinstance(shardings, (list, tuple)):

@@ -106,6 +106,7 @@ def state_logical(cfg: ModelConfig) -> TrainState:
         opt=adam.AdamState(step=Logical(), mu=pspecs, nu=pspecs),
         ranges=map_logical(lambda _: Logical(), T.ranges_specs(cfg)),  # replicated, no axes
         step=Logical(),
+        router_bias=Logical(None, None) if cfg.is_mla else None,  # replicated
     )
 
 

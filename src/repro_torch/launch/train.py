@@ -11,6 +11,8 @@ On the card (the default device):
 On the CPU, at the smoke config:
   PYTHONPATH=src python -m repro_torch.launch.train --arch demo_100m --smoke --device cpu \\
       --steps 30 --batch 2 --seq 64 --qat --qat-delay 10
+(`--arch moonlight-16b-a3b`, the latent-attention MoE, logs its MoE
+counters besides.)
 
 Sharded, one process per rank (`--mesh debug`: data 2 × model 4, the
 reference's debug layout; here on 8 CPU ranks):
@@ -50,6 +52,10 @@ from repro_torch.models.config import ShapeConfig
 from repro_torch.optim import adam, schedule
 from repro_torch.runtime.ft import TrainingSupervisor
 from repro_torch.train.step import init_state, make_train_step
+
+
+# an MLA model's MoE counters (`train.step`), read with the window's other metrics
+MOE_COUNTERS = ("moe_rows_held", "moe_load_max_over_mean", "moe_rows_dropped", "moe_bias_absmax")
 
 
 def main(argv=None):
@@ -147,6 +153,7 @@ def main(argv=None):
                     "quant_phase": int(m.get("quant_phase", 0)),
                     "s_per_step": round(dt, 3),
                     "tokens_per_s": round(args.batch * args.seq / dt, 1)})
+                records[-1].update({k: float(m[k]) for k in MOE_COUNTERS if k in m})
                 if rank == 0:
                     print(json.dumps(records[-1]), flush=True)
             if writer and (step + 1) % args.ckpt_every == 0:

@@ -20,6 +20,7 @@ ATTN_GLOBAL = "global"        # full (causal or bidir) attention + MLP
 ATTN_LOCAL = "local"          # sliding-window attention + MLP
 RWKV6 = "rwkv6"               # RWKV-6 time-mix + channel-mix
 RGLRU = "rglru"               # RecurrentGemma recurrent block + MLP
+MLA = "mla"                   # latent attention + MLP or MoE (`DeepSeekV3Config`)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +65,22 @@ class ModelConfig:
     qat: bool = False
     qat_delay: int = 0
     qat_bits: int = 16
+
+    @property
+    def is_mla(self) -> bool:
+        """The DeepSeek-V3 block (`DeepSeekV3Config`): latent attention, its
+        MoE routed by sigmoid scores and a bias held in the train state."""
+        return MLA in self.block_pattern
+
+    @property
+    def n_lead(self) -> int:
+        """Layers walked before the block pattern's periods (params and
+        ranges "lead"); `DeepSeekV3Config`'s dense layers."""
+        return 0
+
+    @property
+    def norm_eps(self) -> float:
+        return 1e-6
 
     @property
     def hd(self) -> int:
@@ -131,6 +148,90 @@ class ModelConfig:
         total += 2 * d * self.vocab_size if not self.tie_embeddings \
             else d * self.vocab_size
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV3Config(ModelConfig):
+    """The DeepSeek-V3 block (HF `model_type` deepseek_v3): `first_k_dense`
+    leading layers of latent attention (MLA) with a dense SwiGLU of width
+    `dense_d_ff`, then `block_pattern` (`(MLA,)`) layers of MLA with a MoE of
+    `n_experts` routed experts of width `d_ff` and `n_shared_experts` shared
+    ones.  `n_layers` counts every layer.
+
+    MLA: q = x·W_q, (heads, `qk_nope_head_dim` + `qk_rope_head_dim`); the
+    latent c = RMSNorm(x·W_kv_a[:kv_lora_rank]) expanded by W_kv_b into
+    per-head k_nope (`qk_nope_head_dim`) and v (`v_head_dim`); one roped
+    key part of `qk_rope_head_dim` shared by the heads.
+
+    Routing (`models.moe.route_sigmoid`): sigmoid scores
+    over all `n_experts`, the top `experts_per_token` chosen by score +
+    a bias held in the train state (not a parameter; moved by
+    `bias_update_rate`·sign(mean load − load) after each step), gates the
+    chosen scores normalised (`norm_topk_prob`) and scaled by
+    `routed_scaling`, a sequence-wise balance loss weighted
+    `seq_aux_coef`.  The layer holds experts `first_expert_held` ..
+    + `n_experts_held` − 1 (0: all) and computes their part of the result,
+    dropless, with no exchange."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    first_k_dense: int = 1
+    dense_d_ff: int = 0
+    n_shared_experts: int = 0
+    norm_topk_prob: bool = True
+    routed_scaling: float = 1.0
+    n_experts_held: int = 0
+    first_expert_held: int = 0
+    bias_update_rate: float = 0.0
+    seq_aux_coef: float = 0.0
+    rms_norm_eps: float = 1e-6
+
+    @property
+    def n_lead(self) -> int:
+        return self.first_k_dense
+
+    @property
+    def norm_eps(self) -> float:
+        return self.rms_norm_eps
+
+    @property
+    def n_periods(self) -> int:
+        return (self.n_layers - self.first_k_dense) // len(self.block_pattern)
+
+    @property
+    def n_tail(self) -> int:
+        return (self.n_layers - self.first_k_dense) % len(self.block_pattern)
+
+    def layer_types(self) -> list[str]:
+        return [MLA] * (self.n_layers - self.first_k_dense)
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def experts_held(self) -> range:
+        n = self.n_experts_held or self.n_experts
+        return range(self.first_expert_held, self.first_expert_held + n)
+
+    def params_per_token(self) -> int:
+        return self._count(active=True)
+
+    def total_params(self) -> int:
+        """Parameters held: the held experts only."""
+        return self._count(active=False)
+
+    def _count(self, active: bool) -> int:
+        d, h = self.d_model, self.n_heads
+        attn = (d * h * self.qk_head_dim + d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                + self.kv_lora_rank * h * (self.qk_nope_head_dim + self.v_head_dim) + h * self.v_head_dim * d
+                + self.kv_lora_rank + 2 * d)  # + the latent's and the block's norm scales
+        experts = self.experts_per_token if active else len(self.experts_held)
+        moe = 3 * d * self.d_ff * (experts + self.n_shared_experts) + d * self.n_experts
+        total = self.first_k_dense * (attn + 3 * d * self.dense_d_ff) + self.n_periods * (attn + moe)
+        return total + 2 * d * self.vocab_size + d
 
 
 @dataclasses.dataclass(frozen=True)

@@ -36,8 +36,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import fixedpoint as fxp
 from repro_torch.core.parallelism import Logical, ShardingRules, constrain, is_dtensor, replicated
-from repro_torch.core.ranges import RangeStat, finalized, update_minmax
+from repro_torch.core.ranges import RangeStat, finalized, update_minmax, update_minmax_scalar
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.spans import spanned
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -55,6 +56,11 @@ MOE_SITES = ("attn_in", "attn_o_in", "router_in", "expert_in", "expert_down_in")
 RWKV_SITES = ("tmix_in", "cmix_in")
 RGLRU_SITES = ("rnn_in", "mlp_in", "mlp_down_in")
 HEAD_SITES = ("head_in",)
+# latent attention (`mla_forward`): its input, the normalised latent before
+# W_kv_b, the attention output; then the dense MLP's or the DeepSeek MoE's
+MLA_SITES = ("attn_in", "attn_kv_in", "attn_o_in")
+MLA_DENSE_SITES = MLA_SITES + ("mlp_in", "mlp_down_in")
+MLA_MOE_SITES = MLA_SITES + ("router_in", "expert_in", "expert_down_in", "shared_in", "shared_down_in")
 
 
 def _select(flag: Tensor, old: RangeStat, new: RangeStat) -> RangeStat:
@@ -76,13 +82,25 @@ class LayerQAT:
     def _phase(self, like: Tensor) -> Tensor:
         return torch.as_tensor(self.quant_phase, dtype=torch.bool, device=like.device)
 
-    def site(self, name: str, x: Tensor) -> Tensor:
+    def site(self, name: str, x: Tensor, valid: Optional[Tensor] = None) -> Tensor:
+        """`x` through the site `name`.  `valid` (a bool per row of `x`,
+        its leading axes) limits the range fold to those rows: the other
+        rows are quantized alike and may hold anything, NaN included."""
         if self.stats is None:
             return x
+        return spanned("lm.qat.site", lambda x: self._site(name, x, valid), x)
+
+    def _site(self, name: str, x: Tensor, valid: Optional[Tensor] = None) -> Tensor:
         stat = self.stats[name]
         xf = x.to(torch.float32)
         phase = self._phase(stat.a_min)
-        new_stat = _select(phase, stat, update_minmax(stat, xf.detach()))
+        if valid is None:
+            folded = update_minmax(stat, xf.detach())
+        else:
+            lo, hi = torch.aminmax(xf.detach(), dim=-1)
+            folded = update_minmax_scalar(stat, torch.where(valid, lo, math.inf).min(),
+                                          torch.where(valid, hi, -math.inf).max())
+        new_stat = _select(phase, stat, folded)
         self.stats[name] = new_stat
         a_min, a_max = finalized(new_stat)
         x_q = fxp.fake_quant_affine(xf, a_min, a_max, self.n_bits)
@@ -212,7 +230,8 @@ def norm_specs(cfg: ModelConfig) -> Params:
     return p
 
 
-def apply_norm(x: Tensor, p: Params, cfg: ModelConfig, eps: float = 1e-6) -> Tensor:
+def apply_norm(x: Tensor, p: Params, cfg: ModelConfig, eps: Optional[float] = None) -> Tensor:
+    eps = cfg.norm_eps if eps is None else eps
     xf = x.to(torch.float32)
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
@@ -707,12 +726,81 @@ def attn_decode(x: Tensor, p: Params, cfg: ModelConfig, *, local: bool, cache: d
 
 
 # ---------------------------------------------------------------------------
+# Latent attention (MLA, `config.DeepSeekV3Config`)
+# ---------------------------------------------------------------------------
+
+
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, lead: tuple = ()) -> Params:
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {"wq": _uniform(gen, lead + (d, h, dn + dr), d),
+            "wkv_a": _uniform(gen, lead + (d, r + dr), d),
+            "kv_norm": torch.ones(lead + (r,), dtype=torch.float32, device=gen.device),
+            "wkv_b": _uniform(gen, lead + (r, h, dn + dv), r),
+            "wo": _uniform(gen, lead + (h, dv, d), h * dv)}
+
+
+def mla_specs(cfg: ModelConfig) -> Params:
+    return {"wq": Logical("embed", "q_heads", "head_dim"), "wkv_a": Logical("embed", None),
+            "kv_norm": Logical(None), "wkv_b": Logical(None, "q_heads", "head_dim"),
+            "wo": Logical("q_heads", "head_dim", "embed")}
+
+
+def causal_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    """Causal attention, fused: (B, S, H, dqk) q and k, (B, S, H, dv) v ->
+    (B, S, H, dv).  On the card only cuDNN's backend is allowed: it takes qk
+    192 and v 128 as they are and writes no (S, S) scores to memory (on an
+    H100 at B 2, S 8,192, 16 heads, bf16: 5.2 ms forward and backward, where
+    the flash backend, which wants v padded to 192, took 11.5 ms and the
+    memory-efficient one 53 ms), and a shape it does not take raises rather
+    than falls back to the math backend.  On the CPU PyTorch picks."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if q.device.type != "cuda":
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+    else:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+    return out.transpose(1, 2)
+
+
+def mla_forward(x: Tensor, p: Params, cfg: ModelConfig, *, positions: Tensor, qat: LayerQAT) -> Tensor:
+    """Latent attention over the whole sequence, causal. x: (B, S, d).
+
+    q = x·W_q, split into its nope and rope parts; c, k_pe = x·W_kv_a;
+    c through RMSNorm (ε `cfg.norm_eps`) and expanded by W_kv_b into each
+    head's k_nope and v; k_pe is one roped key part that every head
+    shares.  Scores are scaled by 1/√(nope + rope).  QAT sites on the input,
+    the normalised latent and the attention output."""
+    dt = cfg.compute_dtype
+    b, s, d = x.shape
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    x = qat.site("attn_in", x)
+    q = _heads(x, p["wq"], dt)  # (B, S, H, dn + dr)
+    kv_a = x @ p["wkv_a"].to(dt)  # (B, S, r + dr)
+    c = qat.site("attn_kv_in", apply_norm(kv_a[..., :r], {"scale": p["kv_norm"]}, cfg))
+    kv = _heads(c, p["wkv_b"], dt)  # (B, S, H, dn + dv)
+    q_pe = rope(q[..., dn:], positions, cfg.rope_theta)
+    k_pe = rope(kv_a[..., None, r:], positions, cfg.rope_theta)  # (B, S, 1, dr)
+    q = torch.cat([q[..., :dn], q_pe], -1)
+    k = torch.cat([kv[..., :dn], k_pe.expand(b, s, h, dr)], -1)
+    scale = 1.0 / math.sqrt(dn + dr)
+    out = spanned("lm.mla.attend", lambda q, k, v: causal_attention(q, k, v, scale), q, k, kv[..., dn:])
+    out = qat.site("attn_o_in", out.reshape(b, s, h * dv))
+    return out @ p["wo"].to(dt).reshape(h * dv, d)
+
+
+# ---------------------------------------------------------------------------
 # MLP (dense; the MoE FFN is `models.moe`)
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, lead: tuple = ()) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (), width: Optional[int] = None) -> Params:
+    """The MLP's weights, of hidden width `width` (default `cfg.d_ff`)."""
+    d, f = cfg.d_model, width or cfg.d_ff
     if cfg.mlp_type == "glu":
         return {"wg": _uniform(gen, lead + (d, f), d),
                 "wu": _uniform(gen, lead + (d, f), d),

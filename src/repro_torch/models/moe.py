@@ -1,5 +1,6 @@
 """Mixture-of-Experts FFN (dbrx 16e/top-4, moonshot 64e/top-6): port of
-`repro.models.moe`'s dense dispatch.
+`repro.models.moe`'s dense dispatch; and the DeepSeek-V3 MoE of
+`config.DeepSeekV3Config` (`ds_moe_forward`, last section).
 
 Capacity-based GShard-style dispatch: each (token, choice) pair takes the
 next free slot of its expert's (C, d) buffer, in token-major order; pairs
@@ -62,7 +63,8 @@ from repro_torch.core import fixedpoint as fxp
 from repro_torch.core.parallelism import (Logical, Mesh, ShardingRules, ambient_mesh, constrain, is_dtensor,
                                           replicated)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import LayerQAT, _act, _uniform
+from repro_torch.models.layers import LayerQAT, _act, _uniform, mlp_forward, mlp_init
+from repro_torch.models.spans import spanned
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -289,4 +291,150 @@ def _moe_forward_sharded(x: Tensor, p: Params, cfg: ModelConfig, rules: Sharding
     return y, aux
 
 
-__all__ = ["moe_init", "moe_specs", "capacity", "top_k", "route", "moe_forward"]
+# ---------------------------------------------------------------------------
+# DeepSeek-V3 MoE: sigmoid routing with the aux-loss-free bias, shared
+# experts, a dropless dispatch over the experts this chip holds
+# ---------------------------------------------------------------------------
+
+
+def ds_moe_init(gen: torch.Generator, cfg: ModelConfig, lead: tuple = ()) -> Params:
+    """The router over all `n_experts`, the held experts' weights
+    (`cfg.experts_held`, in that order) and the shared experts, one SwiGLU
+    of width `n_shared_experts`·`d_ff`."""
+    d, f, e = cfg.d_model, cfg.d_ff, len(cfg.experts_held)
+    return {"router": _uniform(gen, lead + (d, cfg.n_experts), d),
+            "wg": _uniform(gen, lead + (e, d, f), d),
+            "wu": _uniform(gen, lead + (e, d, f), d),
+            "wd": _uniform(gen, lead + (e, f, d), f),
+            "shared": mlp_init(gen, cfg, lead, cfg.n_shared_experts * f)}
+
+
+def ds_moe_specs(cfg: ModelConfig) -> Params:
+    return {"router": Logical("embed", "experts"),
+            "wg": Logical("experts", "embed", "expert_ffn"),
+            "wu": Logical("experts", "embed", "expert_ffn"),
+            "wd": Logical("experts", "expert_ffn", "embed"),
+            "shared": {"wg": Logical("embed", "mlp"), "wu": Logical("embed", "mlp"), "wd": Logical("mlp", "embed")}}
+
+
+def route_sigmoid(flat: Tensor, router: Tensor, bias: Tensor, cfg: ModelConfig) -> dict[str, Tensor]:
+    """DeepSeek-V3's routing of (T, d) tokens (HF `noaux_tc` with one
+    group): s = sigmoid(x·W_r) in float32 over all experts; the top k
+    chosen by s + bias (ties to the lower index), the bias steering the
+    choice but not the gates; gates the chosen s over their sum (plus
+    1e-20, `norm_topk_prob`) times `routed_scaling`.  "load" counts the
+    (token, choice) pairs of each expert."""
+    k, e = cfg.experts_per_token, cfg.n_experts
+    scores = torch.sigmoid(flat.to(torch.float32) @ router.to(torch.float32))  # (T, E)
+    _, idx = top_k(scores.detach() + bias, k)
+    gates = scores.gather(1, idx)
+    if cfg.norm_topk_prob:
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+    gates = gates * cfg.routed_scaling
+    load = _count(idx.reshape(-1), e)
+    return {"scores": scores, "experts": idx, "gates": gates, "load": load}
+
+
+def _count(idx: Tensor, n: int) -> Tensor:
+    """`torch.bincount(idx, minlength=n)` for ids below n, without its read
+    of the largest id on the host."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(0, idx, torch.ones_like(idx))
+
+
+def seq_balance_loss(scores: Tensor, experts: Tensor, batch: int, cfg: ModelConfig) -> Tensor:
+    """DeepSeek-V3's sequence-wise balance loss (arXiv:2412.19437 eqs.
+    17–20) of one layer, the mean over the `batch` sequences:
+    Σ_i f_i·P_i, f_i = E/(k·S)·(pairs of expert i in the sequence),
+    P_i = the mean over its tokens of s_i / Σ_j s_j."""
+    k, e = cfg.experts_per_token, cfg.n_experts
+    s = scores.shape[0] // batch
+    hits = torch.zeros((batch, e), dtype=torch.float32, device=scores.device)
+    hits.scatter_add_(1, experts.reshape(batch, s * k), torch.ones((batch, s * k), device=scores.device))
+    f = hits * (e / (k * s))
+    p = (scores / scores.sum(-1, keepdim=True)).reshape(batch, s, e).mean(1)
+    return (f * p).sum(-1).mean()
+
+
+def _held_experts(rows: Tensor, wg: Tensor, wu: Tensor, wd: Tensor, ends: Tensor, valid: Tensor, cfg: ModelConfig,
+                  qat: LayerQAT) -> Tensor:
+    """The held experts' SwiGLU over their contiguous rows of the (T·k, d)
+    buffer `rows`: one grouped product a weight, expert i over the rows up
+    to `ends[i]` (int32, on the device); the down product's input through
+    one QAT site folded over the `valid` rows.  The rows past `ends[-1]`
+    come out undefined."""
+    dt = cfg.compute_dtype
+    hidden = _act(_grouped(rows, wg.to(dt), ends), cfg.act) * _grouped(rows, wu.to(dt), ends)
+    hidden = qat.site("expert_down_in", hidden, valid)
+    return _grouped(hidden, wd.to(dt), ends)
+
+
+def _grouped(a: Tensor, b: Tensor, ends: Tensor) -> Tensor:
+    """a (M, K) times b (G, K, N) by groups of a's rows: group i is the rows
+    from ends[i − 1] (0 for the first) to ends[i], rows past ends[-1]
+    undefined.  `torch._grouped_mm`: one launch for all the groups."""
+    return torch._grouped_mm(a, b, offs=ends)
+
+
+def ds_moe_forward(x: Tensor, p: Params, cfg: ModelConfig, qat: LayerQAT,
+                   bias: Tensor) -> tuple[Tensor, Tensor, dict[str, Tensor]]:
+    """x: (B, S, d) -> (y, balance loss, stats).
+
+    y = shared(x) + Σ over the chosen experts that this chip holds of
+    gate·FFN_e(x).  Dropless, and nothing is read on the host: the
+    (token, choice) pairs are sorted by expert, the held ones first
+    (tokens in order within one) and the rest last, into a buffer of all
+    T·k rows; the held experts run grouped products over their contiguous
+    rows, whose ends are the row counts' running sums on the device; the
+    gated rows go back to their pairs, the rows of pairs held elsewhere
+    masked to zero, and are summed per token in a fixed order.  The
+    `expert_in` site quantizes the tokens before the gather (the same
+    values, row for row) and folds its range over the tokens with a held
+    pair; `expert_down_in` over the held rows.  Nothing stands in for the
+    experts held elsewhere: their part is left out.  stats: "load" (E,)
+    pairs per expert over all experts, "experts" (T, k) the chosen
+    experts, "rows_held" the rows computed, "rows_dropped" the held pairs
+    left uncomputed (0)."""
+    b, s, d = x.shape
+    t, k = b * s, cfg.experts_per_token
+    held = cfg.experts_held
+    dt = cfg.compute_dtype
+    flat = qat.site("router_in", x.reshape(t, d))
+    gates, aux, experts, load = spanned(
+        "lm.moe.route", lambda f, w: _route_outputs(f, w, bias, b, cfg), flat, p["router"])
+    rel = experts.reshape(-1) - held.start
+    is_held = (rel >= 0) & (rel < len(held))  # (T·k,)
+    routed = qat.site("expert_in", flat, is_held.reshape(t, k).any(-1))
+
+    def permute(f):
+        key = torch.where(is_held, rel, len(held))  # pairs held elsewhere last
+        order = torch.argsort(key, stable=True)
+        counts = _count(key, len(held) + 1)[:len(held)]
+        ends = torch.cumsum(counts, 0).to(torch.int32)
+        valid = torch.arange(t * k, device=f.device) < ends[-1]
+        rows = torch.where(valid[:, None], f[order // k].to(dt), 0)
+        return rows, order, ends, valid
+
+    rows, order, ends, valid = spanned("lm.moe.dispatch", permute, routed)
+    out = spanned("lm.moe.experts", lambda r, g, u, w: _held_experts(r, g, u, w, ends, valid, cfg, qat),
+                  rows, p["wg"], p["wu"], p["wd"])
+
+    def combine(out, gates):
+        gated = torch.where(valid[:, None], out, 0) * gates.reshape(-1)[order].to(dt)[:, None]
+        per_pair = torch.empty((t * k, d), dtype=dt, device=x.device).index_copy(0, order, gated)
+        return per_pair.reshape(t, k, d).sum(1)
+
+    y = spanned("lm.moe.dispatch", combine, out, gates).reshape(b, s, d)
+    y = mlp_forward(flat.reshape(b, s, d), p["shared"], cfg, None, qat, site_prefix="shared") + y
+    stats = {"load": load, "experts": experts, "rows_held": ends[-1].to(torch.int64),
+             "rows_dropped": is_held.sum() - ends[-1]}
+    return y, aux, stats
+
+
+def _route_outputs(flat, router, bias, batch, cfg):
+    r = route_sigmoid(flat, router, bias, cfg)
+    aux = seq_balance_loss(r["scores"], r["experts"], batch, cfg)
+    return r["gates"], aux, r["experts"], r["load"]
+
+
+__all__ = ["moe_init", "moe_specs", "capacity", "top_k", "route", "moe_forward", "ds_moe_init", "ds_moe_specs",
+           "route_sigmoid", "seq_balance_loss", "ds_moe_forward"]

@@ -26,7 +26,13 @@ Public API
 
 Blocks: `ATTN_GLOBAL` and `ATTN_LOCAL` with a dense MLP or the MoE FFN
 (`models.moe`, the dense dispatch), `RWKV6` (`models.rwkv6`) and `RGLRU`
-with a dense MLP (`models.rglru`).  KV caches and recurrent states are
+with a dense MLP (`models.rglru`), and `MLA` (`config.DeepSeekV3Config`):
+latent attention with the DeepSeek MoE, after `n_lead` leading
+layers of latent attention with a dense MLP, whose trees are the list
+"lead" (params and ranges; only where there are such layers).  An MLA
+model trains and runs full forwards; it has no decode cache yet (the
+latent cache), so `init_cache`, `decode_step` and a prefill with a cache
+raise for it.  KV caches and recurrent states are
 written in place: a prefill with a cache or a decode step leaves the cache
 it was given updated (the per-layer caches are views of the stacked tree),
 ready for the next step.  `loss_fn` is the training path: remat per
@@ -52,7 +58,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
-from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6, ModelConfig
+from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL, MLA, RGLRU, RWKV6, ModelConfig
 
 Tensor = torch.Tensor
 Params = dict[str, Any]
@@ -98,6 +104,8 @@ def _lead(node):
 
 
 def block_sites(cfg: ModelConfig, bt: str) -> tuple[str, ...]:
+    if bt == MLA:
+        return L.MLA_MOE_SITES
     if bt in ATTN:
         return L.MOE_SITES if cfg.is_moe else L.ATTN_SITES
     if bt == RWKV6:
@@ -108,6 +116,8 @@ def block_sites(cfg: ModelConfig, bt: str) -> tuple[str, ...]:
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, bt: str, lead: tuple = ()) -> Params:
+    if bt == MLA:
+        return _mla_block_init(gen, cfg, False, lead)
     if bt in ATTN:
         ffn = moe_mod.moe_init(gen, cfg, lead) if cfg.is_moe else L.mlp_init(gen, cfg, lead)
         return {"ln1": L.norm_init(gen, cfg, lead), "attn": L.attn_init(gen, cfg, lead),
@@ -121,7 +131,20 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, bt: str, lead: tuple = ()
     raise ValueError(bt)
 
 
+def _mla_block_init(gen: torch.Generator, cfg: ModelConfig, dense: bool, lead: tuple = ()) -> Params:
+    ffn = L.mlp_init(gen, cfg, lead, cfg.dense_d_ff) if dense else moe_mod.ds_moe_init(gen, cfg, lead)
+    return {"ln1": L.norm_init(gen, cfg, lead), "attn": L.mla_init(gen, cfg, lead),
+            "ln2": L.norm_init(gen, cfg, lead), "ffn": ffn}
+
+
+def _mla_block_specs(cfg: ModelConfig, dense: bool) -> Params:
+    return {"ln1": L.norm_specs(cfg), "attn": L.mla_specs(cfg), "ln2": L.norm_specs(cfg),
+            "ffn": L.mlp_specs(cfg) if dense else moe_mod.ds_moe_specs(cfg)}
+
+
 def block_specs(cfg: ModelConfig, bt: str) -> Params:
+    if bt == MLA:
+        return _mla_block_specs(cfg, False)
     if bt in ATTN:
         ffn = moe_mod.moe_specs(cfg) if cfg.is_moe else L.mlp_specs(cfg)
         return {"ln1": L.norm_specs(cfg), "attn": L.attn_specs(cfg), "ln2": L.norm_specs(cfg), "ffn": ffn}
@@ -155,6 +178,8 @@ def init_params(gen: Union[torch.Generator, int], cfg: ModelConfig, *, device: D
     gen = _generator(gen, dev)
     params: Params = {"embed": L.embed_init(gen, cfg), "final_norm": L.norm_init(gen, cfg),
                       "frontend": fe.frontend_init(gen, cfg)}
+    if cfg.n_lead:
+        params["lead"] = [_mla_block_init(gen, cfg, True) for _ in range(cfg.n_lead)]
     params["scan"] = [block_init(gen, cfg, bt, (cfg.n_periods,)) for bt in cfg.block_pattern]
     params["tail"] = [block_init(gen, cfg, cfg.block_pattern[i]) for i in range(cfg.n_tail)]
     return tree.tree_map(lambda t: t.to(dev), params)
@@ -168,6 +193,8 @@ def _add_leading(spec_tree):
 def param_specs(cfg: ModelConfig) -> Params:
     specs: Params = {"embed": L.embed_specs(cfg), "final_norm": L.norm_specs(cfg),
                      "frontend": fe.frontend_specs(cfg)}
+    if cfg.n_lead:
+        specs["lead"] = [_mla_block_specs(cfg, True) for _ in range(cfg.n_lead)]
     specs["scan"] = [_add_leading(block_specs(cfg, bt)) for bt in cfg.block_pattern]
     specs["tail"] = [block_specs(cfg, cfg.block_pattern[i]) for i in range(cfg.n_tail)]
     return specs
@@ -176,19 +203,25 @@ def param_specs(cfg: ModelConfig) -> Params:
 def init_ranges(cfg: ModelConfig, *, device: DeviceLike = None) -> Params:
     """QAT range trees (stacked for scan slots, (1,) for tail/head)."""
     dev = resolve_device(device)
-    return {"scan": [L.init_site_ranges(block_sites(cfg, bt), cfg.n_periods, device=dev)
-                     for bt in cfg.block_pattern],
-            "tail": [L.init_site_ranges(block_sites(cfg, cfg.block_pattern[i]), 1, device=dev)
-                     for i in range(cfg.n_tail)],
-            "head": L.init_site_ranges(L.HEAD_SITES, 1, device=dev)}
+    out = {"scan": [L.init_site_ranges(block_sites(cfg, bt), cfg.n_periods, device=dev)
+                    for bt in cfg.block_pattern],
+           "tail": [L.init_site_ranges(block_sites(cfg, cfg.block_pattern[i]), 1, device=dev)
+                    for i in range(cfg.n_tail)],
+           "head": L.init_site_ranges(L.HEAD_SITES, 1, device=dev)}
+    if cfg.n_lead:
+        out["lead"] = [L.init_site_ranges(L.MLA_DENSE_SITES, 1, device=dev) for _ in range(cfg.n_lead)]
+    return out
 
 
 def ranges_specs(cfg: ModelConfig) -> Params:
     """Every range leaf replicated (`Logical(None)`), as the reference's."""
     rep = lambda sites: {s: RangeStat(Logical(None), Logical(None), Logical(None)) for s in sites}  # noqa: E731
-    return {"scan": [rep(block_sites(cfg, bt)) for bt in cfg.block_pattern],
-            "tail": [rep(block_sites(cfg, cfg.block_pattern[i])) for i in range(cfg.n_tail)],
-            "head": rep(L.HEAD_SITES)}
+    out = {"scan": [rep(block_sites(cfg, bt)) for bt in cfg.block_pattern],
+           "tail": [rep(block_sites(cfg, cfg.block_pattern[i])) for i in range(cfg.n_tail)],
+           "head": rep(L.HEAD_SITES)}
+    if cfg.n_lead:
+        out["lead"] = [rep(L.MLA_DENSE_SITES) for _ in range(cfg.n_lead)]
+    return out
 
 
 # the leaves a serving tree holds in the compute dtype: exactly those every
@@ -229,12 +262,25 @@ def serving_params(params: Params, cfg: ModelConfig) -> Params:
 
 def block_forward(x: Tensor, bp: Params, cfg: ModelConfig, bt: str, *, positions: Tensor,
                   rules: Optional[ShardingRules], qat: L.LayerQAT, state: Optional[dict] = None,
-                  attn_chunk: int = 0) -> tuple[Tensor, Optional[dict], Optional[Tensor]]:
+                  attn_chunk: int = 0, router_bias: Optional[Tensor] = None,
+                  moe_stats: Optional[list] = None) -> tuple[Tensor, Optional[dict], Optional[Tensor]]:
     """Returns (x_out, state, aux_loss): the state given, updated in place,
     or for a recurrent block given none (a training forward or a stateless
     prefill: a fresh zero state) its new state as a new dict; and the MoE
-    balance loss (None for other blocks)."""
+    balance loss (None for other blocks).  An MLA block runs its dense MLP
+    or, where its params have a router, the DeepSeek MoE routed with
+    `router_bias`, whose stats (`moe.ds_moe_forward`) it appends to
+    `moe_stats`."""
     aux = None
+    if bt == MLA:
+        h = L.apply_norm(x, bp["ln1"], cfg)
+        x = x + L.mla_forward(h, bp["attn"], cfg, positions=positions, qat=qat)
+        h = L.apply_norm(x, bp["ln2"], cfg)
+        if "router" not in bp["ffn"]:
+            return x + L.mlp_forward(h, bp["ffn"], cfg, None, qat), state, aux
+        h, aux, stats = moe_mod.ds_moe_forward(h, bp["ffn"], cfg, qat, router_bias)
+        moe_stats.append(stats)
+        return x + h, state, aux
     if bt in ATTN:
         h = L.apply_norm(x, bp["ln1"], cfg)
         h, state = L.attn_forward(h, bp["attn"], cfg, local=(bt == ATTN_LOCAL), positions=positions,
@@ -353,7 +399,7 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
             rules: Optional[ShardingRules] = None, ranges: Optional[Params] = None,
             quant_phase: Optional[Tensor] = None, states: Optional[Params] = None,
             remat: bool = False, attn_chunk: int = 0, unroll: bool = False,
-            skip_head: bool = False) -> tuple[Tensor, dict[str, Any]]:
+            skip_head: bool = False, router_bias: Optional[Tensor] = None) -> tuple[Tensor, dict[str, Any]]:
     """Full-sequence forward. Returns (logits, {"ranges", "states", "aux"}).
 
     `ranges` (with `quant_phase`, a bool tensor) turns the QAT sites on and
@@ -366,13 +412,23 @@ def forward(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
     for the reference's signature and changes nothing: the periods are
     walked in a Python loop either way.  `skip_head` returns the final
     norm's output through the head's QAT site instead of logits (the
-    chunked cross-entropy of `loss_fn`)."""
+    chunked cross-entropy of `loss_fn`).
+
+    An MLA model walks its `n_lead` dense layers ("lead") before the
+    periods, takes `router_bias`, its MoE layers' (n_periods, n_experts)
+    routing bias (zeros if None), and adds "moe" to the extras: each MoE
+    layer's expert loads (n_periods, n_experts) and chosen experts
+    (n_periods, B·S, k), and the rows its held experts computed and left
+    out, summed over the layers."""
     del unroll
     with sharded_scope():
-        return _forward(params, batch, cfg, rules, ranges, quant_phase, states, remat, attn_chunk, skip_head)
+        if cfg.is_mla and (rules is not None or states is not None):
+            raise NotImplementedError("an MLA model runs unsharded and without a cache (no latent cache yet)")
+        return _forward(params, batch, cfg, rules, ranges, quant_phase, states, remat, attn_chunk, skip_head,
+                        router_bias)
 
 
-def _forward(params, batch, cfg, rules, ranges, quant_phase, states, remat, attn_chunk, skip_head):
+def _forward(params, batch, cfg, rules, ranges, quant_phase, states, remat, attn_chunk, skip_head, router_bias):
     qat_on = ranges is not None
     if "tokens" in batch:
         x = L.embed_tokens(batch["tokens"], params["embed"], cfg, rules)
@@ -385,30 +441,45 @@ def _forward(params, batch, cfg, rules, ranges, quant_phase, states, remat, attn
     has_states = states is not None
     new_ranges = {"scan": [], "tail": []} if qat_on else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_slots = len(cfg.block_pattern)
+    if cfg.is_mla and router_bias is None:
+        router_bias = torch.zeros((cfg.n_periods, cfg.n_experts), dtype=torch.float32, device=x.device)
+    moe_stats: list = []
 
-    def period(x, aux, bps, rngs, sts):
-        new_rngs = []
-        for si, bt in enumerate(cfg.block_pattern):
+    def period(x, aux, bts, bps, rngs, sts, biases):
+        new_rngs, stats = [], []
+        for si, bt in enumerate(bts):
             qat = L.LayerQAT(rngs[si], quant_phase, cfg.qat_bits)
             x, _, a = block_forward(x, bps[si], cfg, bt, positions=positions, rules=rules, qat=qat,
-                                    state=sts[si], attn_chunk=attn_chunk)
+                                    state=sts[si], attn_chunk=attn_chunk, router_bias=biases[si], moe_stats=stats)
             if a is not None:
                 aux = aux + a
             new_rngs.append(qat.collect())
-        return constrain(x, rules, "batch", "seq", "embed"), aux, new_rngs
+        return constrain(x, rules, "batch", "seq", "embed"), aux, new_rngs, stats
+
+    run = _remat_wrap(period, cfg, remat)
+
+    # ---- lead layers (an MLA model's dense layers) -----------------------------
+    for i in range(cfg.n_lead):
+        rngs = [_at(ranges["lead"][i], 0) if qat_on else None]
+        x, aux_total, got, _ = run(x, aux_total, cfg.block_pattern[:1], [params["lead"][i]], rngs, [None], [None])
+        if qat_on:
+            new_ranges.setdefault("lead", []).append(_lead(got[0]))
 
     # ---- stacked periods -----------------------------------------------------
     if cfg.n_periods > 0:
-        run = _remat_wrap(period, cfg, remat)
         slot_params = [_unbind(p, cfg.n_periods) for p in params["scan"]]
         slot_ranges = []
         for i in range(cfg.n_periods):
-            rngs = [_at(r, i) for r in ranges["scan"]] if qat_on else [None] * len(cfg.block_pattern)
-            sts = [_at(c, i) for c in states["scan"]] if has_states else [None] * len(cfg.block_pattern)
-            x, aux_total, got = run(x, aux_total, [p[i] for p in slot_params], rngs, sts)
+            rngs = [_at(r, i) for r in ranges["scan"]] if qat_on else [None] * n_slots
+            sts = [_at(c, i) for c in states["scan"]] if has_states else [None] * n_slots
+            biases = [router_bias[i] if cfg.is_mla else None] * n_slots
+            x, aux_total, got, stats = run(x, aux_total, cfg.block_pattern, [p[i] for p in slot_params], rngs, sts,
+                                           biases)
             slot_ranges.append(got)
+            moe_stats += stats
         if qat_on:
-            new_ranges["scan"] = [_stack([got[si] for got in slot_ranges]) for si in range(len(cfg.block_pattern))]
+            new_ranges["scan"] = [_stack([got[si] for got in slot_ranges]) for si in range(n_slots)]
 
     # ---- tail layers ---------------------------------------------------------
     for i in range(cfg.n_tail):
@@ -433,7 +504,13 @@ def _forward(params, batch, cfg, rules, ranges, quant_phase, states, remat, attn
         out = L.lm_head(x, params["embed"], cfg, rules, qat)
     if qat_on:
         new_ranges["head"] = _lead(qat.collect())
-    return out, {"ranges": new_ranges, "states": states, "aux": aux_total}
+    extras = {"ranges": new_ranges, "states": states, "aux": aux_total}
+    if moe_stats:
+        extras["moe"] = {"load": torch.stack([st["load"] for st in moe_stats]),
+                         "experts": torch.stack([st["experts"] for st in moe_stats]),
+                         "rows_held": torch.stack([st["rows_held"] for st in moe_stats]).sum(),
+                         "rows_dropped": torch.stack([st["rows_dropped"] for st in moe_stats]).sum()}
+    return out, extras
 
 
 # ---------------------------------------------------------------------------
@@ -499,9 +576,12 @@ def _chunk_nll(x: Tensor, w: Tensor, labels: Tensor, rules: Optional[ShardingRul
 def loss_fn(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
             rules: Optional[ShardingRules] = None, ranges: Optional[Params] = None,
             quant_phase: Optional[Tensor] = None, remat: bool = True, attn_chunk: int = 0,
-            aux_coef: float = 0.01, unroll: bool = False, ce_chunk: int = 0) -> tuple[Tensor, dict[str, Any]]:
+            aux_coef: float = 0.01, unroll: bool = False, ce_chunk: int = 0,
+            router_bias: Optional[Tensor] = None) -> tuple[Tensor, dict[str, Any]]:
     """Masked mean next-token NLL in float32 (labels < 0 masked), plus
-    `aux_coef`·aux / n_layers for MoE archs.  Returns (loss, forward's
+    `aux_coef`·aux / n_layers for MoE archs; for an MLA model plus
+    `cfg.seq_aux_coef` times its layers' summed sequence-wise balance loss
+    (`router_bias` as `forward` takes it).  Returns (loss, forward's
     extras).
 
     `ce_chunk > 0` (with S a multiple of it) fuses the head product and the
@@ -511,16 +591,17 @@ def loss_fn(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
     (B, S, V) whole.  Every quotient has a tensor divisor (on the card a
     division by a Python number multiplies by its rounded reciprocal)."""
     with sharded_scope():
-        return _loss(params, batch, cfg, rules, ranges, quant_phase, remat, attn_chunk, aux_coef, ce_chunk)
+        return _loss(params, batch, cfg, rules, ranges, quant_phase, remat, attn_chunk, aux_coef, ce_chunk,
+                     router_bias)
 
 
-def _loss(params, batch, cfg, rules, ranges, quant_phase, remat, attn_chunk, aux_coef, ce_chunk):
+def _loss(params, batch, cfg, rules, ranges, quant_phase, remat, attn_chunk, aux_coef, ce_chunk, router_bias):
     labels = batch["labels"]
     s = labels.shape[1]
     one = torch.ones((), dtype=torch.float32, device=labels.device)
     if ce_chunk and s > ce_chunk and s % ce_chunk == 0:
         hidden, extras = forward(params, batch, cfg, rules=rules, ranges=ranges, quant_phase=quant_phase,
-                                 remat=remat, attn_chunk=attn_chunk, skip_head=True)
+                                 remat=remat, attn_chunk=attn_chunk, skip_head=True, router_bias=router_bias)
         w = (params["embed"]["embedding"].T if cfg.tie_embeddings else params["embed"]["head"]).to(cfg.compute_dtype)
         nll_sum = v_sum = torch.zeros((), dtype=torch.float32, device=labels.device)
         for c in range(s // ce_chunk):
@@ -531,10 +612,12 @@ def _loss(params, batch, cfg, rules, ranges, quant_phase, remat, attn_chunk, aux
         loss = nll_sum / torch.maximum(v_sum, one)
     else:
         logits, extras = forward(params, batch, cfg, rules=rules, ranges=ranges, quant_phase=quant_phase,
-                                 remat=remat, attn_chunk=attn_chunk)
+                                 remat=remat, attn_chunk=attn_chunk, router_bias=router_bias)
         nll_sum, v_sum = _nll_sums(logits, labels)
         loss = nll_sum / torch.maximum(v_sum, one)
-    if cfg.is_moe:
+    if cfg.is_mla:
+        loss = loss + cfg.seq_aux_coef * extras["aux"]
+    elif cfg.is_moe:
         loss = loss + aux_coef * extras["aux"] / torch.full((), float(max(cfg.n_layers, 1)), device=loss.device)
     return loss, extras
 
@@ -551,10 +634,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device: DeviceLike
     layers, min(max_seq, window) (a ring) for local ones; recurrent layers
     their float32 states (RWKV-6 "wkv", "x_tm", "x_cm"; RG-LRU "h",
     "conv"), which no max_seq bounds."""
+    _no_latent_cache(cfg)
     dev = resolve_device(device)
     scan = [_block_state_init(cfg, bt, batch, max_seq, dev, (cfg.n_periods,)) for bt in cfg.block_pattern]
     tail = [_block_state_init(cfg, cfg.block_pattern[i], batch, max_seq, dev) for i in range(cfg.n_tail)]
     return {"scan": scan, "tail": tail}
+
+
+def _no_latent_cache(cfg: ModelConfig) -> None:
+    if cfg.is_mla:
+        raise NotImplementedError(f"{cfg.name}: latent attention has no decode cache yet (the (kv_lora_rank + "
+                                  "qk_rope_head_dim) latent cache); it trains and runs full forwards only")
 
 
 def cache_specs(cfg: ModelConfig) -> Params:
@@ -601,6 +691,7 @@ def decode_step(params: Params, tokens: Tensor, cache: Params, pos, cfg: ModelCo
     mask per lane; recurrent blocks are position-independent either way.
     Writes the caches and states in place and returns (logits (B, 1, V),
     cache)."""
+    _no_latent_cache(cfg)
     with sharded_scope():
         return _decode(params, tokens, cache, pos, cfg, rules, ranges, quant_phase)
 
@@ -631,6 +722,8 @@ def prefill(params: Params, batch: dict[str, Tensor], cfg: ModelConfig, *,
     `init_cache`), the whole prompt is processed in ONE batched pass that
     also fills the KV caches and recurrent states — returns (last_logits,
     cache) ready for `decode_step` at pos = S."""
+    if cache is not None:
+        _no_latent_cache(cfg)
     logits, extras = forward(params, batch, cfg, rules=rules, states=cache, attn_chunk=attn_chunk)
     last = logits[:, -1, :]
     return last if cache is None else (last, extras["states"])
